@@ -6,7 +6,8 @@
 Phases, one JSON line each:
 
   1. device   the card's name and power limit (nvidia-smi), torch / CUDA
-  2. build    nvcc builds the quorum-tally kernels from csrc/
+  2. build    nvcc builds the quorum-tally and SSD-scan libraries from
+              csrc/, both at once, with ptxas' registers and spills
   3. kernels  each kernel against its plain PyTorch version on the card, at
               the main path's shapes and the kernel tests' shapes: integer
               outputs equal, sum_ms to 1e-5 relative, max_ms equal; median
@@ -22,7 +23,23 @@ Phases, one JSON line each:
   profile     40 chunks of each pass of both settings, timed, then traced
               with torch.profiler: the card's busy and idle share and the
               busiest operations
-  7. the kernels line: launches on the main paths, error, times, bounds
+  7. ssd_kernel   the SSD-scan kernel against its plain versions on the
+              card (the chunked scan ``ssd_chunked`` and the recurrence
+              ``ref.ssd``): JAX's kernel-test shapes, a 13-token single
+              chunk, the serving shape with random inputs and with the
+              main path's own layer-0 inputs (bf16, B and C strided), each
+              with a nonzero initial state; event and device times
+  8. serve    mamba2_130m at full width (24 layers, d_model 768, vocab
+              50280), seeded weights, 4 requests of 1024 prompt tokens and
+              32 greedy decode steps through ``repro_torch.launch.serve``:
+              24 SSD launches per prefill; kernel path against plain path
+              (prefill logits and every layer's state) and decode against a
+              plain ``forward`` over prompt + generated tokens, in f32 to
+              1e-3 and in bf16 to twice what two plain lowerings differ by
+              (see SERVE_F32_TOL); token ids in range; prefill ms, decode
+              tok/s, the greedy tokens both paths share, the card's busy
+              share
+  9. the kernels line: launches on the main paths, error, times, bounds
 
 Launch counts are zeroed just before each main-path phase and read just
 after it; launches made to compare a kernel with its plain version do not
@@ -32,6 +49,8 @@ repository around it, the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import os
 import statistics
@@ -45,13 +64,38 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 FP32_OPS_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
+BF16_TC_OPS_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
 SOURCE = "src/repro_torch/kernels/quorum_tally/csrc/quorum_tally.cu"
+SSD_SOURCE = "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu"
 REPLACES = {
     "tally_decide": "src/repro/kernels/quorum_tally/kernel.py:439",
     "masked_tally": "src/repro/kernels/quorum_tally/kernel.py:138",
     "stream_tally_decide_hist":
         "src/repro/kernels/quorum_tally/kernel.py:321",
 }
+SSD_REPLACES = "src/repro/kernels/ssd_scan/kernel.py:66"
+# Serving traffic: 4 requests of 1024 prompt tokens (four 256-token chunks,
+# three carried-state hand-offs a layer), then 32 greedy decode steps.
+SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS = 4, 1024, 32
+# JAX's SSD kernel-test tolerances (tests/test_kernels.py:288): f32 differs
+# from the plain versions by summation order only; with bf16 xw the output
+# is rounded to bf16.  y is held to its dtype's, the f32 state to f32's,
+# each times min(1, max|plain|): JAX's inputs are about unit scale, the
+# serving path's are smaller.
+SSD_TOL = {torch.float32: 1e-3, torch.bfloat16: 3e-2}
+# Serving checks, kernel path against plain path (and decode's recurrence
+# against a chunked forward).  Both do the same f32 arithmetic in another
+# order.  With f32 compute that is all they differ by: logits (about unit
+# scale) and every layer's state relative to its largest |state| must agree
+# to 1e-3, JAX's f32 kernel tolerance.  With bf16 compute (as served), a y
+# at a bf16 rounding edge rounds one ulp apart and the flip travels through
+# 24 layers of the bf16 residual stream, by as much as any change of
+# lowering does: the kernel may differ from the plain path by at most twice
+# what two plain lowerings equal in exact arithmetic (chunks of 256 and of
+# 128) differ by.
+SERVE_F32_TOL = 1e-3
+SERVE_BF16_FLOOR_FACTOR = 2.0
+SERVE_FLOOR_CHUNK = 128
 SWEEP_RACE_CHUNKS = -(-10_000_000 // 16_384)
 MIXED_RACE_CHUNKS = -(-2_000_000 // 8_192)
 
@@ -142,10 +186,307 @@ def stream_test_inputs(seed, S, n, M, G, K, dev):
             + [torch.as_tensor(valid).to(dev)])
 
 
+def ssd_cost(B, S, nh, hd, ds, chunk, x_bytes, bc_bytes, init: bool):
+    """Bytes one SSD call must move (each input read once, each output
+    written once) and its operations: ``least`` counts the chunked
+    algorithm's work once -- the causal half of the chunk x chunk products,
+    C.B once per batch row (B and C are shared by the heads) --, ``full``
+    the whole chunk x chunk products for every head."""
+    nc, L = S // chunk, chunk
+    tri = L * (L + 1) // 2
+    bytes_ = (2 * B * S * nh * hd * x_bytes + B * S * nh * 4
+              + 2 * B * S * ds * bc_bytes + B * nh * hd * ds * 4 * (1 + init))
+    least = 2 * B * nc * (tri * ds + nh * (tri * hd + 2 * L * hd * ds))
+    full = 2 * B * nc * nh * (L * L * ds + L * L * hd + 2 * L * hd * ds)
+    return bytes_, least, full
+
+
+def ssd_test_inputs(seed, B, S, nh, hd, ds, x_dtype, bc_dtype, dev):
+    """The JAX kernel tests' SSD inputs, drawn with numpy: xw and B, C
+    ~ 0.5 N(0,1), da = -0.3 |N(0,1)|, a nonzero initial state 0.1 N(0,1)."""
+    r = np.random.default_rng(seed)
+    t = lambda a, dt=torch.float32: torch.as_tensor(
+        a.astype(np.float32)).to(dev).to(dt)
+    return (t(r.standard_normal((B, S, nh, hd)) * 0.5, x_dtype),
+            t(-np.abs(r.standard_normal((B, S, nh))) * 0.3),
+            t(r.standard_normal((B, S, ds)) * 0.5, bc_dtype),
+            t(r.standard_normal((B, S, ds)) * 0.5, bc_dtype),
+            t(r.standard_normal((B, nh, hd, ds)) * 0.1))
+
+
+def serve_phases(dev):
+    """Phases 7 and 8: the SSD kernel against its plain versions, then the
+    serving path at full width.  Returns (the kernel's stats for the kernels
+    line, its launches in one serving run)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
+    from repro_torch.launch import serve
+    from repro_torch.models import model as model_mod
+    from repro_torch.models.model import DecoderLM
+    from repro_torch.models.ssm import ssd_chunked
+
+    cfg = get_config("mamba2_130m")
+    t0 = time.perf_counter()
+    model = DecoderLM(cfg, device=dev, seed=0)
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    prompt = serve.prompt_batch(cfg.vocab, SERVE_BATCH, SERVE_PROMPT, dev)
+
+    # Warm-up run of the serving path (not counted), which also captures
+    # the inputs the main path hands the kernel in layer 0.
+    captured = []
+    real_ssd = ssd_ops.ssd
+
+    def spy(xw, da, Bm, Cm, chunk=256, init_state=None):
+        if not captured:
+            captured.append((xw, da, Bm, Cm, chunk))
+        return real_ssd(xw, da, Bm, Cm, chunk, init_state)
+
+    ssd_ops.ssd = spy
+    try:
+        serve.generate(model, prompt, 2)
+    finally:
+        ssd_ops.ssd = real_ssd
+    if not captured:
+        fail("the serving path never called ops.ssd")
+
+    # ---- 7. ssd kernel vs its plain versions -------------------------------
+    errs = {}
+
+    def check(tag, xw, da, Bm, Cm, chunk, s0):
+        y, f = ssd_kernel.ssd(xw, da, Bm, Cm, chunk, s0)
+        torch.cuda.synchronize()
+        if y.dtype != xw.dtype or tuple(f.shape) != tuple(s0.shape) \
+                or not bool(torch.isfinite(y.float()).all()):
+            fail(f"ssd {tag}: output dtype, shape or finiteness")
+        plain = {"chunked": ssd_chunked(xw, da, Bm, Cm, chunk, s0),
+                 "recurrence": ssd_ref.ssd(xw.float(), da, Bm, Cm, s0)}
+        for name, (yp, fp) in plain.items():
+            e = dict(y_err=float((y.float() - yp.float()).abs().max()),
+                     state_err=float((f - fp).abs().max()),
+                     y_max=float(yp.float().abs().max()),
+                     state_max=float(fp.abs().max()))
+            e["y_tol"] = SSD_TOL[xw.dtype] * min(1.0, e["y_max"])
+            e["state_tol"] = SSD_TOL[torch.float32] * min(1.0,
+                                                          e["state_max"])
+            errs[f"{tag} vs {name}"] = e
+            if not (e["y_err"] < e["y_tol"]
+                    and e["state_err"] < e["state_tol"]):
+                fail(f"ssd {tag} vs {name}: {e}")
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [("jax 2x128x4x16x32 c32 f32",
+              (2, 128, 4, 16, 32, 32, f32, f32)),
+             ("jax 1x256x8x64x128 c64 f32",
+              (1, 256, 8, 64, 128, 64, f32, f32)),
+             ("jax 2x64x24x64x128 c64 f32",
+              (2, 64, 24, 64, 128, 64, f32, f32)),
+             ("jax 1x128x4x32x64 c32 bf16 xw",
+              (1, 128, 4, 32, 64, 32, bf16, f32)),
+             ("S=13 single chunk f32", (2, 13, 4, 16, 32, 13, f32, f32)),
+             ("S=13 single chunk bf16", (2, 13, 4, 16, 32, 13, bf16, bf16)),
+             ("serving shape random f32",
+              (SERVE_BATCH, SERVE_PROMPT, 24, 64, 128, 256, f32, f32))]
+    for i, (tag, (B, S, nh, hd, ds, chunk, xd, bd)) in enumerate(cases):
+        xw, da, Bm, Cm, s0 = ssd_test_inputs(100 + i, B, S, nh, hd, ds, xd,
+                                             bd, dev)
+        check(tag, xw, da, Bm, Cm, chunk, s0)
+    xw, da, Bm, Cm, chunk = captured[0]
+    B, S, nh, hd = xw.shape
+    ds = Bm.shape[-1]
+    ssm = cfg.ssm
+    if Bm.is_contiguous() or (B, S, nh, hd, ds, chunk) != (
+            SERVE_BATCH, SERVE_PROMPT, ssm.n_heads(cfg.d_model),
+            ssm.head_dim, ssm.d_state, min(ssm.chunk, SERVE_PROMPT)):
+        fail(f"serving-path SSD inputs: shape {(B, S, nh, hd, ds, chunk)}, "
+             f"B contiguous {Bm.is_contiguous()}")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    s0 = 0.1 * torch.randn((B, nh, hd, ds), generator=gen, device=dev)
+    check("serving path layer 0 bf16", xw, da, Bm, Cm, chunk, s0)
+    check("serving path layer 0 as f32", xw.float(), da, Bm.float(),
+          Cm.float(), chunk, s0)
+
+    kms = cuda_ms(lambda: ssd_kernel.ssd(xw, da, Bm, Cm, chunk, s0))
+    pms = cuda_ms(lambda: ssd_chunked(xw, da, Bm, Cm, chunk, s0), reps=10)
+    reps = 10
+    by = device_profile(lambda: [ssd_kernel.ssd(xw, da, Bm, Cm, chunk, s0)
+                                 for _ in range(reps)])["by_kernel_s"]
+    dev_us = sum(v for k, v in by.items() if "ssd_kernel" in k) * 1e6 / reps
+    nbytes, least, full = ssd_cost(B, S, nh, hd, ds, chunk, 2, 2, True)
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    o_ms = least / FP32_OPS_PER_S * 1e3
+    ssd_stats = dict(
+        max_abs_err=max(max(e["y_err"], e["state_err"])
+                        for e in errs.values()), ms=kms,
+        plain_ms=pms, device_us=dev_us, bound_ms=max(b_ms, o_ms),
+        bound_by="bytes" if b_ms >= o_ms else "operations",
+        bytes=nbytes, operations_least=least, operations_full=full,
+        bound_rule="max(bytes / 3.35 TB/s, least operations / 67 TFLOP/s "
+                   "f32: the kernel's arithmetic is f32)",
+        bytes_ms=b_ms, least_f32_ms=o_ms,
+        full_f32_ms=full / FP32_OPS_PER_S * 1e3,
+        full_bf16_tensor_core_ms=full / BF16_TC_OPS_PER_S * 1e3,
+        smem_bytes=ssd_kernel._load().ssd_smem(hd, ds, chunk))
+    emit("ssd_kernel", ok=True, errors=errs, **ssd_stats)
+
+    # ---- 8. serving at full width ------------------------------------------
+    runs = []
+    for _ in range(3):
+        ssd_ops.reset_launches()
+        out = serve.generate(model, prompt, SERVE_TOKENS)
+        torch.cuda.synchronize()
+        launches = dict(ssd_ops.LAUNCHES)
+        if launches != {"ssd": cfg.n_layers}:
+            fail(f"serving launches {launches}, expected {cfg.n_layers} "
+                 f"SSD launches per prefill")
+        runs.append(out)
+    ssd_launches = launches["ssd"]
+    out = runs[0]
+    toks = out["tokens"]
+    if tuple(toks.shape) != (SERVE_BATCH, SERVE_TOKENS + 1) \
+            or int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab:
+        fail(f"serving tokens: shape {tuple(toks.shape)}, range "
+             f"[{int(toks.min())}, {int(toks.max())}]")
+    if any(not torch.equal(r["tokens"], toks) for r in runs[1:]):
+        fail("serving is not deterministic across runs")
+
+    # (a) kernel vs plain path: prefill logits and every layer's state,
+    # with f32 compute and as served (bf16), against the bf16 floor
+    def plain_ssd(xw, da, Bm, Cm, chunk=256, init_state=None):
+        return ssd_chunked(xw, da, Bm, Cm, min(chunk, xw.shape[1]),
+                           init_state)
+
+    @contextlib.contextmanager
+    def variant(kernel, dtype=torch.bfloat16, chunk=None):
+        """The serving path with the kernel or, swapped in for ``ops.ssd``,
+        its plain chunked version; in ``dtype``; with another chunk."""
+        saved = (ssd_ops.ssd, model.cfg, model_mod.COMPUTE_DTYPE)
+        model_mod.COMPUTE_DTYPE = dtype
+        if not kernel:
+            ssd_ops.ssd = plain_ssd
+        if chunk is not None:
+            model.cfg = dataclasses.replace(
+                cfg, ssm=dataclasses.replace(cfg.ssm, chunk=chunk))
+        try:
+            yield
+        finally:
+            ssd_ops.ssd, model.cfg, model_mod.COMPUTE_DTYPE = saved
+
+    def prefill_once(kernel, dtype, chunk=None):
+        with variant(kernel, dtype, chunk), torch.inference_mode():
+            ssd_ops.reset_launches()
+            c, lg = model.prefill({"tokens": prompt},
+                                  model.init_cache(SERVE_BATCH, SERVE_PROMPT))
+            torch.cuda.synchronize()
+            if ssd_ops.LAUNCHES["ssd"] != (cfg.n_layers if kernel else 0):
+                fail(f"prefill kernel={kernel} {dtype}: {ssd_ops.LAUNCHES}")
+        return [sb["mamba_0"]["state"] for sb in c["layers"]], \
+            lg[:, -1].float()
+
+    def diff(a, b):
+        return (float((a[1] - b[1]).abs().max()),
+                [float((x - y).abs().max()) / max(float(y.abs().max()),
+                                                  1e-30)
+                 for x, y in zip(a[0], b[0])])
+
+    checks = {}
+    checks["prefill f32 kernel vs plain"] = diff(prefill_once(True, f32),
+                                                 prefill_once(False, f32))
+    lg_err, st_err = checks["prefill f32 kernel vs plain"]
+    if lg_err >= SERVE_F32_TOL or max(st_err) >= SERVE_F32_TOL:
+        fail(f"f32 prefill kernel vs plain: logits off by {lg_err}, states "
+             f"by {max(st_err)} relative")
+    plain = prefill_once(False, torch.bfloat16)
+    checks["prefill bf16 kernel vs plain"] = diff(
+        prefill_once(True, torch.bfloat16), plain)
+    checks["prefill bf16 plain chunk 128 vs 256"] = diff(
+        prefill_once(False, torch.bfloat16, SERVE_FLOOR_CHUNK), plain)
+    (lg_k, st_k), (lg_f, st_f) = (
+        checks["prefill bf16 kernel vs plain"],
+        checks["prefill bf16 plain chunk 128 vs 256"])
+    if lg_k > SERVE_BF16_FLOOR_FACTOR * lg_f \
+            or max(st_k) > SERVE_BF16_FLOOR_FACTOR * max(st_f):
+        fail(f"bf16 prefill kernel vs plain: logits off by {lg_k}, states "
+             f"by {max(st_k)} relative; two plain lowerings differ by "
+             f"{lg_f} and {max(st_f)}")
+
+    # the plain path end to end, for the tokens the two paths share
+    with variant(False):
+        out_p = serve.generate(model, prompt, SERVE_TOKENS)
+
+    # (c) decode logits vs a plain forward over prompt + generated tokens
+    def decode_vs_forward(run, dtype):
+        seq = torch.cat([prompt, run["tokens"][:, :SERVE_TOKENS]], dim=1)
+        got = torch.stack([run["prefill_logits"]] + run["step_logits"],
+                          dim=1).float()
+        fwd = {}
+        for chunk in (None, SERVE_FLOOR_CHUNK):
+            with variant(False, dtype, chunk), torch.inference_mode():
+                fwd[chunk] = model.forward({"tokens": seq})[
+                    :, SERVE_PROMPT - 1:].float()
+        if not bool(torch.isfinite(got).all()):
+            fail(f"{dtype} serving logits not finite")
+        return (float((got - fwd[None]).abs().max()),
+                float((fwd[SERVE_FLOOR_CHUNK] - fwd[None]).abs().max()))
+
+    with variant(True, f32):
+        run_f32 = serve.generate(model, prompt, SERVE_TOKENS)
+    dec_f32, _ = decode_vs_forward(run_f32, f32)
+    dec_bf16, dec_floor = decode_vs_forward(out, torch.bfloat16)
+    checks["decode f32 vs plain forward"] = dec_f32
+    checks["decode bf16 vs plain forward"] = dec_bf16
+    checks["forward bf16 plain chunk 128 vs 256"] = dec_floor
+    if dec_f32 >= SERVE_F32_TOL:
+        fail(f"f32 decode logits vs plain forward: off by {dec_f32}")
+    if dec_bf16 > SERVE_BF16_FLOOR_FACTOR * dec_floor:
+        fail(f"bf16 decode logits vs plain forward: off by {dec_bf16}; two "
+             f"plain lowerings differ by {dec_floor}")
+    same = (out_p["tokens"] == toks)
+    first_diff = [int(torch.nonzero(~row)[0]) if not bool(row.all())
+                  else None for row in same]
+
+    torch.cuda.synchronize()
+    prefill_ms = [r["prefill_ms"] for r in runs]
+    decode_s = [r["decode_s"] for r in runs]
+    prof_pre = device_profile(lambda: serve.generate(model, prompt, 0), top=6)
+    prof_all = device_profile(
+        lambda: serve.generate(model, prompt, SERVE_TOKENS), top=6)
+    ssd_dev = sum(v for k, v in prof_pre["by_kernel_s"].items()
+                  if "ssd_kernel" in k)
+    med_pre = statistics.median(prefill_ms)
+    med_all = statistics.median(p * 1e-3 + d
+                                for p, d in zip(prefill_ms, decode_s))
+    emit("serve", ok=True, arch=cfg.name, params=n_params,
+         init_s=init_s, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+         decode_tokens=SERVE_TOKENS, ssd_launches_per_prefill=cfg.n_layers,
+         prefill_ms=prefill_ms,
+         decode_tok_per_s=[SERVE_BATCH * SERVE_TOKENS / d for d in decode_s],
+         decode_ms_per_step=[d * 1e3 / SERVE_TOKENS for d in decode_s],
+         checks=checks,
+         greedy_tokens_shared=int(same.sum()), greedy_tokens=same.numel(),
+         first_divergence=first_diff,
+         prefill_busy_ms=prof_pre["device_busy_s"] * 1e3,
+         prefill_idle_share=1.0 - prof_pre["device_busy_s"] * 1e3 / med_pre,
+         prefill_ssd_device_ms=ssd_dev * 1e3, prefill_top_ms=prof_pre["top"],
+         serve_busy_ms=prof_all["device_busy_s"] * 1e3,
+         serve_idle_share=1.0 - prof_all["device_busy_s"] / med_all,
+         serve_top_ms=prof_all["top"],
+         max_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return ssd_stats, ssd_launches
+
+
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("CUDA is not available")
     sys.path.insert(0, os.path.join(ROOT, "src"))
+    # The plain versions' f32 products must run in f32, not TF32, or the
+    # comparisons would test TF32 rather than the kernels.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     from repro_torch.frontier import score_systems
     from repro_torch.frontier.__main__ import (_legacy_fast_p50,
                                                _legacy_recovery_prob,
@@ -163,12 +504,18 @@ def main() -> None:
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda, python=sys.version.split()[0])
 
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
     t0 = time.perf_counter()
-    path, log = kernel.build()
+    with ThreadPoolExecutor(2) as ex:          # one nvcc per source, at once
+        futs = {"quorum_tally": ex.submit(kernel.build),
+                "ssd_scan": ex.submit(ssd_kernel.build)}
+        built = {k: f.result() for k, f in futs.items()}
     emit("build", seconds=time.perf_counter() - t0,
-         library=os.path.relpath(path, ROOT),
-         ptxas=[ln.strip() for ln in log.splitlines()
-                if "registers" in ln or "spill" in ln])
+         **{k: {"library": os.path.relpath(path, ROOT),
+                "ptxas": [ln.strip() for ln in log.splitlines()
+                          if "registers" in ln or "spill" in ln]}
+            for k, (path, log) in built.items()})
 
     # ---- 3. kernels vs plain versions on the card -------------------------
     stats = {k: {"max_abs_err": 0.0} for k in REPLACES}
@@ -426,7 +773,9 @@ def main() -> None:
                 profiled_wall_s=prof["wall_s"], top_ms=prof["top"])
     emit("profile", **windows)
 
-    # ---- 7. kernels line ---------------------------------------------------
+    ssd_stats, ssd_launches = serve_phases(dev)
+
+    # ---- 9. kernels line ---------------------------------------------------
     launches = {"tally_decide": launches6["tally_decide"],
                 "masked_tally": launches4["masked_tally"],
                 "stream_tally_decide_hist":
@@ -437,7 +786,13 @@ def main() -> None:
          "max_abs_err": stats[k]["max_abs_err"], "ms": stats[k]["ms"],
          "plain_ms": stats[k]["plain_ms"], "bound_ms": stats[k]["bound_ms"],
          "bound_by": stats[k]["bound_by"], "library_ms": None}
-        for k in REPLACES]}
+        for k in REPLACES] + [
+        {"name": "ssd", "route": "cuda", "source": SSD_SOURCE,
+         "replaces": SSD_REPLACES, "launches": ssd_launches,
+         "max_abs_err": ssd_stats["max_abs_err"], "ms": ssd_stats["ms"],
+         "plain_ms": ssd_stats["plain_ms"],
+         "bound_ms": ssd_stats["bound_ms"],
+         "bound_by": ssd_stats["bound_by"], "library_ms": None}]}
     if any(k["launches"] <= 0 for k in line["kernels"]):
         fail(f"a kernel was not launched on its path: {launches}")
     print(json.dumps(line), flush=True)

@@ -3,8 +3,8 @@
 ``csrc/quorum_tally.cu`` holds three CUDA C++ kernels for ``sm_90a``; its
 header says which TPU kernel each replaces, what bounds it on the card and
 what its design does about that.  ``build()`` compiles the source with
-``nvcc`` on first use into ``build/`` beside this file (git-ignored), named
-by a hash of the source and flags, and ``ctypes`` loads it.  Nothing is
+``nvcc`` on first use into ``build/`` beside this file (git-ignored,
+``kernels/_build.py``), and ``ctypes`` loads it.  Nothing is
 compiled or loaded at import: this module imports on a machine without CUDA.
 
 Every wrapper checks device, dtype, shape and contiguity, allocates the
@@ -14,21 +14,16 @@ returned a CUDA error, and adds one to ``LAUNCHES[name]`` when it launches.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
-import os
-import shutil
-import subprocess
 import threading
 from pathlib import Path
 from typing import Dict, Tuple
 
 import torch
 
+from repro_torch.kernels import _build
+
 SOURCE = Path(__file__).resolve().parent / "csrc" / "quorum_tally.cu"
-BUILD_DIR = Path(__file__).resolve().parent / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 MAX_N = 128          # acceptors a trial may have (MAX_N in the source)
 MAX_K = 8            # values a race may have (MAX_K in the source)
@@ -46,33 +41,10 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def _nvcc() -> str:
-    cand = shutil.which("nvcc") or os.path.join(
-        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
-    if not os.path.exists(cand):
-        raise RuntimeError("nvcc not found: the quorum-tally kernels are "
-                           "built from csrc/ on a machine with the CUDA "
-                           "toolkit")
-    return cand
-
-
 def build() -> Tuple[Path, str]:
     """Compile ``csrc/quorum_tally.cu`` unless an up-to-date library exists.
     Returns (library path, compiler log; empty when nothing was built)."""
-    src = SOURCE.read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    out = BUILD_DIR / f"libquorum_tally_{digest[:16]}.so"
-    if out.exists():
-        return out, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
-    return out, proc.stdout + proc.stderr
+    return _build.build(SOURCE, "quorum_tally")
 
 
 def _load():

@@ -1,0 +1,133 @@
+"""The Mamba2 SSD chunked-scan kernel for Hopper, bound with ctypes.
+
+``csrc/ssd_scan.cu`` holds the CUDA C++ kernel for ``sm_90a``; its header
+says which TPU kernel it replaces, what bounds it on the card and what its
+design does about that.  ``build()`` compiles it with ``nvcc`` on first use
+into ``build/`` beside this file (git-ignored, ``kernels/_build.py``), and
+``ctypes`` loads it.  Nothing is compiled or loaded at import: this module
+imports on a machine without CUDA.
+
+``ssd`` checks device, dtypes, shapes, strides and sizes, allocates the
+outputs, launches on ``torch.cuda.current_stream()``, raises if the launch
+returned a CUDA error, and adds one to ``LAUNCHES["ssd"]`` when it launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import threading
+from pathlib import Path
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import _build
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd_scan.cu"
+
+MAX_HD = 128       # head dim: y accumulators held in registers (MAX_HD)
+MAX_DS = 128       # state dim: so hd * ds <= 16384 (64 KiB of f32 state)
+MAX_CHUNK = 2048   # the chunk's cumsum lives in shared memory
+
+LAUNCHES: Dict[str, int] = {"ssd": 0}
+
+_lib = None
+_lib_lock = threading.Lock()
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def build() -> Tuple[Path, str]:
+    """Compile ``csrc/ssd_scan.cu`` unless an up-to-date library exists.
+    Returns (library path, compiler log; empty when nothing was built)."""
+    return _build.build(SOURCE, "ssd_scan")
+
+
+def _load():
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            path, _ = build()
+            lib = ctypes.CDLL(str(path))
+            P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+            lib.ssd_smem.argtypes = [I, I, I]
+            lib.ssd_smem.restype = ctypes.c_size_t
+            lib.ssd_forward.argtypes = ([I, I, P, L, L, L, P, L, L, P, L, L,
+                                         P, L, L, P, P, P]
+                                        + [I] * 6 + [P])
+            lib.ssd_forward.restype = I
+            _lib = lib
+    return _lib
+
+
+_TYPES = (torch.float32, torch.bfloat16)
+
+
+def _check(t: torch.Tensor, name: str, shape, dtypes, device) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} lies on {t.device}, expected {device}")
+    if t.dtype not in dtypes:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected one of "
+                         f"{dtypes}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if t.stride(-1) != 1:
+        raise ValueError(f"{name} must be contiguous along its last axis, "
+                         f"has strides {t.stride()}")
+
+
+def ssd(xw: torch.Tensor, da: torch.Tensor, Bm: torch.Tensor,
+        Cm: torch.Tensor, chunk: int,
+        init_state: Optional[torch.Tensor] = None):
+    """xw (B,S,nh,hd) f32/bf16, da (B,S,nh) f32, Bm/Cm (B,S,ds) f32/bf16
+    (one dtype for both), init_state (B,nh,hd,ds) f32 contiguous or None ->
+    (y (B,S,nh,hd) in xw's dtype, final state (B,nh,hd,ds) f32).  Every
+    input but ``init_state`` may be strided on all axes but the last."""
+    if not xw.is_cuda:
+        raise ValueError(f"the SSD kernel takes CUDA tensors, got one on "
+                         f"{xw.device}; ops.py routes CPU tensors to the "
+                         f"plain version")
+    if xw.dim() != 4 or Bm.dim() != 3:
+        raise ValueError(f"xw (B,S,nh,hd) and Bm (B,S,ds) expected, got "
+                         f"{tuple(xw.shape)} / {tuple(Bm.shape)}")
+    B, S, nh, hd = xw.shape
+    ds = Bm.shape[-1]
+    dev = xw.device
+    _check(xw, "xw", (B, S, nh, hd), _TYPES, dev)
+    _check(da, "da", (B, S, nh), (torch.float32,), dev)
+    _check(Bm, "Bm", (B, S, ds), _TYPES, dev)
+    _check(Cm, "Cm", (B, S, ds), (Bm.dtype,), dev)
+    if not (1 <= hd <= MAX_HD and 1 <= ds <= MAX_DS):
+        raise ValueError(f"the SSD kernel takes hd <= {MAX_HD} and ds <= "
+                         f"{MAX_DS} (hd*ds <= {MAX_HD * MAX_DS}), got "
+                         f"hd={hd}, ds={ds}")
+    if not (1 <= chunk <= MAX_CHUNK and S % chunk == 0):
+        raise ValueError(f"the SSD kernel takes 1 <= chunk <= {MAX_CHUNK} "
+                         f"dividing S={S}, got chunk={chunk}")
+    if init_state is not None:
+        _check(init_state, "init_state", (B, nh, hd, ds), (torch.float32,),
+               dev)
+        if not init_state.is_contiguous():
+            raise ValueError("init_state must be contiguous")
+    y = torch.empty((B, S, nh, hd), dtype=xw.dtype, device=dev)
+    fin = torch.empty((B, nh, hd, ds), dtype=torch.float32, device=dev)
+    if B * nh == 0:
+        return y, fin
+    lib = _load()
+    with torch.cuda.device(dev):
+        err = lib.ssd_forward(
+            int(xw.dtype == torch.bfloat16), int(Bm.dtype == torch.bfloat16),
+            xw.data_ptr(), xw.stride(0), xw.stride(1), xw.stride(2),
+            da.data_ptr(), da.stride(0), da.stride(1),
+            Bm.data_ptr(), Bm.stride(0), Bm.stride(1),
+            Cm.data_ptr(), Cm.stride(0), Cm.stride(1),
+            None if init_state is None else init_state.data_ptr(),
+            y.data_ptr(), fin.data_ptr(), B, S, nh, hd, ds, chunk,
+            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    if err != 0:
+        raise RuntimeError(f"ssd launch failed with CUDA error {err}")
+    LAUNCHES["ssd"] += 1
+    return y, fin

@@ -7,16 +7,37 @@ nor the JAX package, so they run on a machine that has only PyTorch:
 
 Integer outputs must be equal; the fused kernel's f32 latency sum reduces
 per-block partials, so it is compared to 1e-5 relative; maxima are exact.
+The SSD kernel is held to its plain chunked version and to the recurrence
+at the JAX kernel tests' tolerances (1e-3 f32, 3e-2 with bf16 xw).
 """
 import numpy as np
 import pytest
 import torch
 
 from chip_smoke import stream_test_inputs as _inputs
+from repro_torch.configs import get_config, reduced_config
 from repro_torch.kernels.quorum_tally import kernel, ops, ref
+from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.kernels.ssd_scan import ref as ssd_ref
+from repro_torch.models import model as model_mod
+from repro_torch.models.ssm import ssd_chunked
 from repro_torch.montecarlo import streaming
 
 BINS = streaming.sketch_bins(0.01)
+
+
+def ssd_test_inputs(seed, B, S, nh, hd, ds, x_dtype, bc_dtype, dev):
+    """The JAX kernel tests' SSD inputs, drawn with numpy: xw and B, C
+    ~ 0.5 N(0,1), da = -0.3 |N(0,1)|, a nonzero initial state 0.1 N(0,1)."""
+    r = np.random.default_rng(seed)
+    t = lambda a, dt=torch.float32: torch.as_tensor(
+        a.astype(np.float32)).to(dev).to(dt)
+    return (t(r.standard_normal((B, S, nh, hd)) * 0.5, x_dtype),
+            t(-np.abs(r.standard_normal((B, S, nh))) * 0.3),
+            t(r.standard_normal((B, S, ds)) * 0.5, bc_dtype),
+            t(r.standard_normal((B, S, ds)) * 0.5, bc_dtype),
+            t(r.standard_normal((B, nh, hd, ds)) * 0.1))
 
 
 @pytest.fixture
@@ -106,3 +127,110 @@ def test_wrappers_raise_on_bad_input(cuda):
         kernel.masked_tally(torch.zeros((5, 8), dtype=torch.int32,
                                         device=cuda).T, torch.ones(
             (1, 5), device=cuda), torch.ones(1, device=cuda), 2)
+
+
+# ---------------------------------------------------------------------------
+# SSD scan: the kernel against the plain chunked version and the recurrence,
+# with TF32 off so the plain version's products are f32.  Tolerances are the
+# JAX kernel tests': 1e-3 in f32 (summation order), 3e-2 with bf16 xw (the
+# output is rounded to bf16).
+# ---------------------------------------------------------------------------
+
+SSD_CASES = [
+    (2, 128, 4, 16, 32, 32, torch.float32, torch.float32),
+    (1, 256, 8, 64, 128, 64, torch.float32, torch.float32),
+    (2, 64, 24, 64, 128, 64, torch.float32, torch.float32),
+    (1, 128, 4, 32, 64, 32, torch.bfloat16, torch.float32),
+    (2, 13, 4, 16, 32, 13, torch.float32, torch.float32),
+    (2, 13, 4, 16, 32, 13, torch.bfloat16, torch.bfloat16),
+    (1, 200, 3, 128, 128, 100, torch.float32, torch.bfloat16),
+    (2, 1024, 24, 64, 128, 256, torch.float32, torch.float32),
+]
+
+
+@pytest.fixture
+def no_tf32():
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = old
+
+
+@pytest.mark.parametrize("B,S,nh,hd,ds,chunk,x_dtype,bc_dtype", SSD_CASES)
+def test_ssd_kernel(cuda, no_tf32, B, S, nh, hd, ds, chunk, x_dtype,
+                    bc_dtype):
+    xw, da, Bm, Cm, s0 = ssd_test_inputs(S + nh, B, S, nh, hd, ds,
+                                         x_dtype, bc_dtype, cuda)
+    y, f = ssd_kernel.ssd(xw, da, Bm, Cm, chunk, s0)
+    torch.cuda.synchronize()
+    assert y.dtype == x_dtype and f.dtype == torch.float32
+    tol = 1e-3 if x_dtype == torch.float32 else 3e-2
+    y_c, f_c = ssd_chunked(xw, da, Bm, Cm, chunk, s0)
+    y_r, f_r = ssd_ref.ssd(xw.float(), da, Bm, Cm, s0)
+    for yy, ff in ((y_c, f_c), (y_r, f_r)):
+        assert (y.float() - yy.float()).abs().max() < tol
+        assert (f - ff).abs().max() < tol
+
+
+def test_ssd_kernel_strided_b_c_and_zero_init(cuda, no_tf32):
+    xw, da, Bm, Cm, _ = ssd_test_inputs(3, 2, 128, 4, 16, 32,
+                                        torch.bfloat16, torch.bfloat16, cuda)
+    u = torch.cat([xw.reshape(2, 128, 64), Bm, Cm], dim=-1)
+    y1, f1 = ssd_kernel.ssd(xw, da, u[..., 64:96], u[..., 96:], 64)
+    y2, f2 = ssd_kernel.ssd(xw, da, Bm.contiguous(), Cm.contiguous(), 64,
+                            torch.zeros(2, 4, 16, 32, device=cuda))
+    assert torch.equal(y1, y2) and torch.equal(f1, f2)
+
+
+def test_ssd_ops_launch_on_cuda_and_count(cuda):
+    xw, da, Bm, Cm, _ = ssd_test_inputs(4, 1, 96, 2, 16, 16, torch.float32,
+                                        torch.float32, cuda)
+    ssd_ops.reset_launches()
+    ssd_ops.ssd(xw, da, Bm, Cm, chunk=256)          # one chunk of 96
+    ssd_ops.ssd(xw, da, Bm, Cm, chunk=32)
+    assert ssd_ops.LAUNCHES == {"ssd": 2}
+    with pytest.raises(ValueError, match="multiple of chunk"):
+        ssd_ops.ssd(xw, da, Bm, Cm, chunk=64)
+
+
+def test_ssd_wrapper_raises_on_bad_input(cuda):
+    xw, da, Bm, Cm, _ = ssd_test_inputs(5, 1, 64, 2, 16, 16, torch.float32,
+                                        torch.float32, cuda)
+    with pytest.raises(ValueError, match="dtype"):
+        ssd_kernel.ssd(xw, da.double(), Bm, Cm, 32)
+    with pytest.raises(ValueError, match="dtype"):
+        ssd_kernel.ssd(xw, da, Bm, Cm.bfloat16(), 32)
+    with pytest.raises(ValueError, match="last axis"):
+        ssd_kernel.ssd(xw, da, Bm.transpose(1, 2).contiguous()
+                       .transpose(1, 2), Cm, 32)
+    with pytest.raises(ValueError, match="dividing"):
+        ssd_kernel.ssd(xw, da, Bm, Cm, 48)
+    big = torch.zeros(1, 64, 1, 256, device=cuda)
+    with pytest.raises(ValueError, match="hd <= 128"):
+        ssd_kernel.ssd(big, da[..., :1], Bm, Cm, 32)
+
+
+@pytest.mark.parametrize("prompt_len", [13, 45, 64])
+def test_model_prefill_runs_the_kernel_at_any_prompt_length(
+        cuda, no_tf32, monkeypatch, prompt_len):
+    """A prompt longer than a chunk (32 here) and not a multiple of it is
+    padded to whole chunks; on the card every layer launches the kernel and
+    agrees with the CPU's plain path in f32 (same seed, same weights)."""
+    monkeypatch.setattr(model_mod, "COMPUTE_DTYPE", torch.float32)
+    cfg = reduced_config(get_config("mamba2_130m"))
+    toks = torch.as_tensor(np.random.default_rng(prompt_len).integers(
+        0, cfg.vocab, (2, prompt_len)))
+    got = {}
+    for dev in (torch.device("cpu"), cuda):
+        m = model_mod.DecoderLM(cfg, device=dev, seed=0)
+        ssd_ops.reset_launches()
+        with torch.no_grad():
+            c, lg = m.prefill({"tokens": toks.to(dev)},
+                              m.init_cache(2, prompt_len))
+        torch.cuda.synchronize()
+        assert ssd_ops.LAUNCHES["ssd"] == (cfg.n_layers if dev.type == "cuda"
+                                           else 0)
+        got[dev.type] = [lg.float().cpu()] + [
+            sb["mamba_0"]["state"].cpu() for sb in c["layers"]]
+    for a, b in zip(got["cuda"], got["cpu"]):
+        assert (a - b).abs().max() < 1e-3 * max(1.0, float(b.abs().max()))

@@ -28,6 +28,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         sys.path.remove(SRC)
     assert "repro_torch.frontier.__main__" in names
     assert "repro_torch.kernels.quorum_tally.kernel" in names
+    for name in ("repro_torch.launch.serve", "repro_torch.models.model",
+                 "repro_torch.models.ssm", "repro_torch.models.layers",
+                 "repro_torch.models.convert",
+                 "repro_torch.kernels.ssd_scan.kernel",
+                 "repro_torch.kernels._build"):
+        assert name in names
     code = f"""
 import importlib, sys
 sys.path.insert(0, {ROOT!r})
@@ -50,9 +56,15 @@ from repro_torch.core.quorum import QuorumSpec
 from repro_torch.frontier import score_systems, cardinality_family
 from repro_torch.frontier.__main__ import run_sweep
 from repro_torch.montecarlo import engine
+from repro_torch.configs import get_config, reduced_config
+from repro_torch.launch import serve
+from repro_torch.models.model import DecoderLM
+cfg = reduced_config(get_config("mamba2_130m"))
 for fn in (lambda: score_systems(cardinality_family(3), trials=10),
            lambda: run_sweep(quick=True),
-           lambda: engine.build_mask_table([QuorumSpec(3, 2, 2, 3)])):
+           lambda: engine.build_mask_table([QuorumSpec(3, 2, 2, 3)]),
+           lambda: serve.main(["--arch", "mamba2_130m", "--smoke"]),
+           lambda: DecoderLM(cfg)):
     try:
         fn()
     except RuntimeError as e:
