@@ -6,13 +6,15 @@
 Phases, one JSON line each:
 
   1. device   the card's name and power limit (nvidia-smi), torch / CUDA
-  2. build    nvcc builds the quorum-tally and SSD-scan libraries from
-              csrc/, both at once, with ptxas' registers and spills
-  3. kernels  each kernel against its plain PyTorch version on the card, at
-              the main path's shapes and the kernel tests' shapes: integer
-              outputs equal, sum_ms to 1e-5 relative, max_ms equal; median
-              CUDA-event times of one call of kernel and plain version, and
-              the kernel's device time per call from torch.profiler
+  2. build    nvcc builds the quorum-tally, SSD-scan, flash-attention and
+              RMSNorm libraries from csrc/, all at once, with ptxas'
+              registers and spills
+  3. kernels  each quorum-tally kernel against its plain PyTorch version on
+              the card, at the main paths' shapes and the kernel tests'
+              shapes: integer outputs equal, sum_ms to 1e-5 relative, max_ms
+              equal; median CUDA-event times of one call of kernel and plain
+              version, and the kernel's device time per call from
+              torch.profiler
   4. masked materializing race   engine.race on the mixed n=12 table at
               8192 samples (the masked_tally path), checked bit-identical
               to the cardinality lowering on the table's cardinality rows
@@ -23,23 +25,40 @@ Phases, one JSON line each:
   profile     40 chunks of each pass of both settings, timed, then traced
               with torch.profiler: the card's busy and idle share and the
               busiest operations
-  7. ssd_kernel   the SSD-scan kernel against its plain versions on the
-              card (the chunked scan ``ssd_chunked`` and the recurrence
-              ``ref.ssd``): JAX's kernel-test shapes, a 13-token single
-              chunk, the serving shape with random inputs and with the
-              main path's own layer-0 inputs (bf16, B and C strided), each
-              with a nonzero initial state; event and device times
-  8. serve    mamba2_130m at full width (24 layers, d_model 768, vocab
-              50280), seeded weights, 4 requests of 1024 prompt tokens and
-              32 greedy decode steps through ``repro_torch.launch.serve``:
-              24 SSD launches per prefill; kernel path against plain path
-              (prefill logits and every layer's state) and decode against a
-              plain ``forward`` over prompt + generated tokens, in f32 to
-              1e-3 and in bf16 to twice what two plain lowerings differ by
-              (see SERVE_F32_TOL); token ids in range; prefill ms, decode
-              tok/s, the greedy tokens both paths share, the card's busy
-              share
-  9. the kernels line: launches on the main paths, error, times, bounds
+  quorum_reached   ops.quorum_reached on the n=11 race's 16384 x 11 votes
+              (the tally_votes path), equal to the plain version and to
+              tally_decide's reached bits
+  serve_mamba2_130m   mamba2_130m at full width (24 layers, d_model 768,
+              vocab 50280), seeded weights, 4 requests of 1024 prompt
+              tokens and 32 greedy decode steps through
+              ``repro_torch.launch.serve``: 24 SSD launches per prefill, 49
+              RMSNorm launches per pass; kernel path against plain path
+              (the kernels' ops swapped for their plain versions: prefill
+              logits, every superblock's first SSM state and attention
+              cache) and decode against a plain ``forward`` over prompt +
+              generated tokens, in f32 to 1e-3 and in bf16 to twice what
+              two plain lowerings differ by (see SERVE_F32_TOL); token ids
+              in range; prefill ms, decode tok/s, the greedy tokens both
+              paths share, the card's idle share, peak memory
+  serve_zamba2_2_7b   zamba2_2_7b at full width (54 Mamba2 layers, one
+              shared attention + SwiGLU block applied in 9 places, d_model
+              2560, vocab 32000, 2.42 G params), the same traffic and
+              checks: per prefill 54 SSD, 9 flash-attention and 127 RMSNorm
+              launches, 127 RMSNorm launches per decode step
+  ssd_kernel  the SSD-scan kernel against its plain versions (the chunked
+              scan ``ssd_chunked`` and the recurrence ``ref.ssd``): JAX's
+              kernel-test shapes, a 13-token single chunk, mamba2's
+              serving shape with random inputs, and both models' own
+              layer-0 serving inputs (bf16, B and C strided), each with a
+              nonzero initial state; event and device times at both
+              serving shapes
+  model_kernels   flash attention and RMSNorm against their plain versions:
+              JAX's kernel-test shapes and the zamba2 serving path's own
+              inputs in bf16 and as f32 (flash 2e-5 / 2e-2, RMSNorm 1e-5 /
+              5e-2, see close()); event, device, plain and library times
+              (scaled_dot_product_attention, rms_norm) and bounds there
+  the kernels line: all seven kernels' launches on their main paths, error,
+              times, bounds
 
 Launch counts are zeroed just before each main-path phase and read just
 after it; launches made to compare a kernel with its plain version do not
@@ -66,17 +85,42 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 FP32_OPS_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
 BF16_TC_OPS_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
 SOURCE = "src/repro_torch/kernels/quorum_tally/csrc/quorum_tally.cu"
-SSD_SOURCE = "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu"
+MODEL_SOURCES = {
+    "ssd": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+    "flash_attention":
+        "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+    "rmsnorm": "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
+}
 REPLACES = {
+    "tally_votes": "src/repro/kernels/quorum_tally/kernel.py:55",
     "tally_decide": "src/repro/kernels/quorum_tally/kernel.py:439",
     "masked_tally": "src/repro/kernels/quorum_tally/kernel.py:138",
     "stream_tally_decide_hist":
         "src/repro/kernels/quorum_tally/kernel.py:321",
+    "ssd": "src/repro/kernels/ssd_scan/kernel.py:66",
+    "flash_attention": "src/repro/kernels/flash_attention/kernel.py:92",
+    "rmsnorm": "src/repro/kernels/rmsnorm/kernel.py:32",
 }
-SSD_REPLACES = "src/repro/kernels/ssd_scan/kernel.py:66"
+QUORUM_KERNELS = ("tally_votes", "tally_decide", "masked_tally",
+                  "stream_tally_decide_hist")
 # Serving traffic: 4 requests of 1024 prompt tokens (four 256-token chunks,
-# three carried-state hand-offs a layer), then 32 greedy decode steps.
+# three carried-state hand-offs a Mamba2 layer), then 32 greedy decode
+# steps.
 SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS = 4, 1024, 32
+# JAX's kernel-test shapes (tests/test_kernels.py): attention as (B, H, KV,
+# S, T, hd, causal, window, dtype), RMSNorm as (shape, dtype).
+ATTN_CASES = [
+    (2, 4, 2, 256, 256, 64, True, None, torch.float32),
+    (1, 8, 8, 128, 128, 128, True, None, torch.float32),
+    (1, 4, 1, 128, 128, 64, True, 64, torch.float32),
+    (2, 2, 2, 64, 512, 32, True, None, torch.float32),
+    (1, 4, 2, 256, 256, 64, False, None, torch.float32),
+    (2, 4, 2, 256, 256, 64, True, None, torch.bfloat16),
+    (1, 2, 2, 128, 128, 256, True, 32, torch.bfloat16),
+]
+RMSNORM_CASES = [((4, 64, 256), torch.float32),
+                 ((2, 100, 384), torch.bfloat16),
+                 ((8, 300), torch.float32), ((1, 7, 130), torch.bfloat16)]
 # JAX's SSD kernel-test tolerances (tests/test_kernels.py:288): f32 differs
 # from the plain versions by summation order only; with bf16 xw the output
 # is rounded to bf16.  y is held to its dtype's, the f32 state to f32's,
@@ -86,13 +130,15 @@ SSD_TOL = {torch.float32: 1e-3, torch.bfloat16: 3e-2}
 # Serving checks, kernel path against plain path (and decode's recurrence
 # against a chunked forward).  Both do the same f32 arithmetic in another
 # order.  With f32 compute that is all they differ by: logits (about unit
-# scale) and every layer's state relative to its largest |state| must agree
-# to 1e-3, JAX's f32 kernel tolerance.  With bf16 compute (as served), a y
-# at a bf16 rounding edge rounds one ulp apart and the flip travels through
-# 24 layers of the bf16 residual stream, by as much as any change of
-# lowering does: the kernel may differ from the plain path by at most twice
-# what two plain lowerings equal in exact arithmetic (chunks of 256 and of
-# 128) differ by.
+# scale) and every superblock's first SSM state and attention cache,
+# relative to its largest entry, must agree to 1e-3, JAX's f32 kernel
+# tolerance.  With bf16 compute (as served), a value at a bf16 rounding
+# edge rounds one ulp apart and the flip travels through the layers of the
+# bf16 residual stream, by as much as any change of lowering does: the
+# kernels may differ from the plain path by at most twice what two plain
+# lowerings equal in exact arithmetic differ by (SSD chunks of 256 and of
+# 128; attention with its softmax weights cast to bf16 before P.V, as the
+# JAX oracle does, and kept in f32, as the kernel does).
 SERVE_F32_TOL = 1e-3
 SERVE_BF16_FLOOR_FACTOR = 2.0
 SERVE_FLOOR_CHUNK = 128
@@ -106,6 +152,18 @@ def emit(phase: str, **kw) -> None:
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: {msg}")
+
+
+def kernel_device_us(fn, symbol: str, reps: int = 10) -> tuple:
+    """(device microseconds per launch, launches recorded) of the kernels
+    whose name holds ``symbol``, over ``reps`` calls of ``fn`` traced by
+    torch.profiler.  Divided by the launches the trace recorded: on the
+    H100 short traces have dropped some kernel records (6 of 10 launches
+    recorded), and dividing by ``reps`` would then undercount."""
+    prof = device_profile(lambda: [fn() for _ in range(reps)])
+    t = sum(v for k, v in prof["by_kernel_s"].items() if symbol in k)
+    n = sum(v for k, v in prof["by_kernel_n"].items() if symbol in k)
+    return (t * 1e6 / n if n else float("nan")), n
 
 
 def cuda_ms(fn, reps: int = 30, warmup: int = 5) -> float:
@@ -125,11 +183,27 @@ def cuda_ms(fn, reps: int = 30, warmup: int = 5) -> float:
     return statistics.median(times)
 
 
+def back_to_back_us(fn, n: int = 50) -> float:
+    """Microseconds per call from CUDA events around ``n`` calls issued back
+    to back: the card's time per call wherever a call runs longer than the
+    host takes to issue the next, an upper bound on it elsewhere."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) * 1e3 / n
+
+
 def device_profile(fn, top: int = 0) -> dict:
     """Run ``fn`` once under torch.profiler: its wall seconds, the seconds
     the card was busy (the device time of every kernel, copy and memset it
-    ran), the device seconds by kernel name and, with ``top``, the busiest
-    kernels as [name, launches, ms]."""
+    ran), the device seconds and the recorded launches by kernel name and,
+    with ``top``, the busiest kernels as [name, launches, ms]."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -150,6 +224,7 @@ def device_profile(fn, top: int = 0) -> dict:
                                  for e in events) * 1e-6,
             "by_kernel_s": {e.key: e.self_device_time_total * 1e-6
                             for e in events},
+            "by_kernel_n": {e.key: e.count for e in events},
             "top": [[e.key[:70], e.count, e.self_device_time_total * 1e-3]
                     for e in events[:top]]}
 
@@ -214,68 +289,181 @@ def ssd_test_inputs(seed, B, S, nh, hd, ds, x_dtype, bc_dtype, dev):
             t(r.standard_normal((B, nh, hd, ds)) * 0.1))
 
 
-def serve_phases(dev):
-    """Phases 7 and 8: the SSD kernel against its plain versions, then the
-    serving path at full width.  Returns (the kernel's stats for the kernels
-    line, its launches in one serving run)."""
-    from repro_torch.configs import get_config
-    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+def close(got, want, tol):
+    """(max |error|, max |plain|, largest error / bound).  Each entry's bound
+    is tol * max(|plain entry|, min(1, max |plain|)): absolute at unit
+    scale, relative for large entries (a bf16 ulp grows with them), and
+    relative to the largest entry where all are small."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    wmax = float(w.abs().max()) if w.numel() else 0.0
+    bound = tol * torch.clamp(w.abs(), min=max(min(1.0, wmax), 1e-30))
+    return (float(err.max()) if err.numel() else 0.0, wmax,
+            float((err / bound).max()) if err.numel() else 0.0)
+
+
+def model_kernels():
+    """The ops modules of the model's three kernels, by kernel name, with
+    the attribute the model calls."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.rmsnorm import ops as rmsnorm_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
-    from repro_torch.kernels.ssd_scan import ref as ssd_ref
-    from repro_torch.launch import serve
-    from repro_torch.models import model as model_mod
-    from repro_torch.models.model import DecoderLM
+    return {"ssd": (ssd_ops, "ssd"),
+            "flash_attention": (flash_ops, "attention"),
+            "rmsnorm": (rmsnorm_ops, "rmsnorm")}
+
+
+def model_launches() -> dict:
+    return {k: m.LAUNCHES[k] for k, (m, _) in model_kernels().items()}
+
+
+def reset_model_launches() -> None:
+    for m, _ in model_kernels().values():
+        m.reset_launches()
+
+
+def plain_versions(floor: bool = False) -> dict:
+    """The plain versions swapped in for the model's kernels.  ``floor``
+    gives a second plain lowering, equal to the first in exact arithmetic:
+    attention with its softmax weights kept in f32 (the model's chunk is
+    changed by the caller)."""
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.rmsnorm import ref as rn_ref
     from repro_torch.models.ssm import ssd_chunked
 
-    cfg = get_config("mamba2_130m")
-    t0 = time.perf_counter()
-    model = DecoderLM(cfg, device=dev, seed=0)
-    init_s = time.perf_counter() - t0
-    n_params = sum(p.numel() for p in model.parameters())
-    prompt = serve.prompt_batch(cfg.vocab, SERVE_BATCH, SERVE_PROMPT, dev)
+    def ssd(xw, da, Bm, Cm, chunk=256, init_state=None):
+        return ssd_chunked(xw, da, Bm, Cm, min(chunk, xw.shape[1]),
+                           init_state)
 
-    # Warm-up run of the serving path (not counted), which also captures
-    # the inputs the main path hands the kernel in layer 0.
-    captured = []
-    real_ssd = ssd_ops.ssd
+    def attention(q, k, v, causal=True, window=None):
+        if not floor:
+            return fa_ref.attention(q, k, v, causal, window)
+        return fa_ref.attention(q.float(), k.float(), v.float(), causal,
+                                window).to(q.dtype)
 
-    def spy(xw, da, Bm, Cm, chunk=256, init_state=None):
-        if not captured:
-            captured.append((xw, da, Bm, Cm, chunk))
-        return real_ssd(xw, da, Bm, Cm, chunk, init_state)
+    return {"ssd": ssd, "flash_attention": attention,
+            "rmsnorm": rn_ref.rmsnorm}
 
-    ssd_ops.ssd = spy
+
+@contextlib.contextmanager
+def variant(model, kernel: bool = True, dtype=torch.bfloat16,
+            floor: bool = False):
+    """The serving path with the kernels or, swapped in for their ops, the
+    plain versions (``floor``: the second plain lowering, with the SSD
+    chunk SERVE_FLOOR_CHUNK); compute in ``dtype``."""
+    from repro_torch.models import model as model_mod
+    mods = model_kernels()
+    saved = ({k: getattr(m, a) for k, (m, a) in mods.items()}, model.cfg,
+             model_mod.COMPUTE_DTYPE)
+    model_mod.COMPUTE_DTYPE = dtype
+    if not kernel:
+        for k, fn in plain_versions(floor).items():
+            setattr(mods[k][0], mods[k][1], fn)
+    if floor:
+        cfg = model.cfg
+        model.cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(
+            cfg.ssm, chunk=SERVE_FLOOR_CHUNK))
     try:
-        serve.generate(model, prompt, 2)
+        yield
     finally:
-        ssd_ops.ssd = real_ssd
-    if not captured:
-        fail("the serving path never called ops.ssd")
+        for k, fn in saved[0].items():
+            setattr(mods[k][0], mods[k][1], fn)
+        model.cfg, model_mod.COMPUTE_DTYPE = saved[1], saved[2]
 
-    # ---- 7. ssd kernel vs its plain versions -------------------------------
+
+def capture_inputs(fn, d_inner: int) -> dict:
+    """Run ``fn`` with spies on the model's kernel ops; return the first
+    arguments each was handed: "ssd", "flash_attention", "rmsnorm" (the
+    first norm, d_model wide) and "gated_rmsnorm" (the first d_inner wide
+    one, Mamba2's gated norm)."""
+    got = {}
+    mods = model_kernels()
+    saved = {k: getattr(m, a) for k, (m, a) in mods.items()}
+
+    def spy(name):
+        real = saved[name]
+
+        def call(*args, **kw):
+            key = name
+            if name == "rmsnorm" and args[0].shape[-1] == d_inner:
+                key = "gated_rmsnorm"
+            got.setdefault(key, (args, kw))
+            return real(*args, **kw)
+        return call
+
+    for k, (m, a) in mods.items():
+        setattr(m, a, spy(k))
+    try:
+        fn()
+    finally:
+        for k, fn_ in saved.items():
+            setattr(mods[k][0], mods[k][1], fn_)
+    return got
+
+
+def ssd_check(errs, tag, xw, da, Bm, Cm, chunk, s0):
+    """The SSD kernel against its plain chunked version and the recurrence:
+    y within its dtype's tolerance, the f32 state within f32's, each times
+    min(1, max|plain|)."""
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
+    from repro_torch.models.ssm import ssd_chunked
+    y, f = ssd_kernel.ssd(xw, da, Bm, Cm, chunk, s0)
+    torch.cuda.synchronize()
+    if y.dtype != xw.dtype or tuple(f.shape) != tuple(s0.shape) \
+            or not bool(torch.isfinite(y.float()).all()):
+        fail(f"ssd {tag}: output dtype, shape or finiteness")
+    plain = {"chunked": ssd_chunked(xw, da, Bm, Cm, chunk, s0),
+             "recurrence": ssd_ref.ssd(xw.float(), da, Bm, Cm, s0)}
+    for name, (yp, fp) in plain.items():
+        e = dict(y_err=float((y.float() - yp.float()).abs().max()),
+                 state_err=float((f - fp).abs().max()),
+                 y_max=float(yp.float().abs().max()),
+                 state_max=float(fp.abs().max()))
+        e["y_tol"] = SSD_TOL[xw.dtype] * min(1.0, e["y_max"])
+        e["state_tol"] = SSD_TOL[torch.float32] * min(1.0, e["state_max"])
+        errs[f"{tag} vs {name}"] = e
+        if not (e["y_err"] < e["y_tol"]
+                and e["state_err"] < e["state_tol"]):
+            fail(f"ssd {tag} vs {name}: {e}")
+
+
+def ssd_timing(xw, da, Bm, Cm, chunk, s0) -> dict:
+    """Event, device and plain times of one SSD call, its bound."""
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    from repro_torch.models.ssm import ssd_chunked
+    B, S, nh, hd = xw.shape
+    ds = Bm.shape[-1]
+    kms = cuda_ms(lambda: ssd_kernel.ssd(xw, da, Bm, Cm, chunk, s0))
+    pms = cuda_ms(lambda: ssd_chunked(xw, da, Bm, Cm, chunk, s0), reps=10)
+    dev_us, dev_n = kernel_device_us(
+        lambda: ssd_kernel.ssd(xw, da, Bm, Cm, chunk, s0), "ssd_kernel")
+    b2b_us = back_to_back_us(lambda: ssd_kernel.ssd(xw, da, Bm, Cm, chunk,
+                                                    s0), n=20)
+    nbytes, least, full = ssd_cost(B, S, nh, hd, ds, chunk,
+                                   xw.element_size(), Bm.element_size(),
+                                   True)
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    o_ms = least / FP32_OPS_PER_S * 1e3
+    return dict(
+        shape=[B, S, nh, hd, ds, chunk], ms=kms, plain_ms=pms,
+        device_us=dev_us, device_launches_recorded=dev_n,
+        back_to_back_us=b2b_us, bound_ms=max(b_ms, o_ms),
+        bound_by="bytes" if b_ms >= o_ms else "operations",
+        bytes=nbytes, operations_least=least, operations_full=full,
+        bound_rule="max(bytes / 3.35 TB/s, least operations / 67 TFLOP/s "
+                   "f32: the kernel's arithmetic is f32)",
+        bytes_ms=b_ms, least_f32_ms=o_ms,
+        full_f32_ms=full / FP32_OPS_PER_S * 1e3,
+        full_bf16_tensor_core_ms=full / BF16_TC_OPS_PER_S * 1e3,
+        smem_bytes=ssd_kernel._load().ssd_smem(hd, ds, chunk))
+
+
+def ssd_phase(dev):
+    """Phase 7: the SSD kernel against its plain versions on the JAX kernel
+    tests' shapes and a 13-token single chunk, each with a nonzero initial
+    state.  Returns the errors."""
     errs = {}
-
-    def check(tag, xw, da, Bm, Cm, chunk, s0):
-        y, f = ssd_kernel.ssd(xw, da, Bm, Cm, chunk, s0)
-        torch.cuda.synchronize()
-        if y.dtype != xw.dtype or tuple(f.shape) != tuple(s0.shape) \
-                or not bool(torch.isfinite(y.float()).all()):
-            fail(f"ssd {tag}: output dtype, shape or finiteness")
-        plain = {"chunked": ssd_chunked(xw, da, Bm, Cm, chunk, s0),
-                 "recurrence": ssd_ref.ssd(xw.float(), da, Bm, Cm, s0)}
-        for name, (yp, fp) in plain.items():
-            e = dict(y_err=float((y.float() - yp.float()).abs().max()),
-                     state_err=float((f - fp).abs().max()),
-                     y_max=float(yp.float().abs().max()),
-                     state_max=float(fp.abs().max()))
-            e["y_tol"] = SSD_TOL[xw.dtype] * min(1.0, e["y_max"])
-            e["state_tol"] = SSD_TOL[torch.float32] * min(1.0,
-                                                          e["state_max"])
-            errs[f"{tag} vs {name}"] = e
-            if not (e["y_err"] < e["y_tol"]
-                    and e["state_err"] < e["state_tol"]):
-                fail(f"ssd {tag} vs {name}: {e}")
-
     f32, bf16 = torch.float32, torch.bfloat16
     cases = [("jax 2x128x4x16x32 c32 f32",
               (2, 128, 4, 16, 32, 32, f32, f32)),
@@ -287,103 +475,236 @@ def serve_phases(dev):
               (1, 128, 4, 32, 64, 32, bf16, f32)),
              ("S=13 single chunk f32", (2, 13, 4, 16, 32, 13, f32, f32)),
              ("S=13 single chunk bf16", (2, 13, 4, 16, 32, 13, bf16, bf16)),
-             ("serving shape random f32",
+             ("mamba2 serving shape random f32",
               (SERVE_BATCH, SERVE_PROMPT, 24, 64, 128, 256, f32, f32))]
     for i, (tag, (B, S, nh, hd, ds, chunk, xd, bd)) in enumerate(cases):
         xw, da, Bm, Cm, s0 = ssd_test_inputs(100 + i, B, S, nh, hd, ds, xd,
                                              bd, dev)
-        check(tag, xw, da, Bm, Cm, chunk, s0)
-    xw, da, Bm, Cm, chunk = captured[0]
+        ssd_check(errs, tag, xw, da, Bm, Cm, chunk, s0)
+    return errs
+
+
+def serving_ssd(errs, tag, captured, cfg, dev) -> dict:
+    """The SSD kernel at the inputs the serving path handed it in layer 0
+    (bf16, B and C strided), and those inputs as f32, each with a nonzero
+    initial state; then its times there."""
+    (xw, da, Bm, Cm, chunk, _), _ = captured["ssd"]
     B, S, nh, hd = xw.shape
     ds = Bm.shape[-1]
     ssm = cfg.ssm
     if Bm.is_contiguous() or (B, S, nh, hd, ds, chunk) != (
             SERVE_BATCH, SERVE_PROMPT, ssm.n_heads(cfg.d_model),
-            ssm.head_dim, ssm.d_state, min(ssm.chunk, SERVE_PROMPT)):
-        fail(f"serving-path SSD inputs: shape {(B, S, nh, hd, ds, chunk)}, "
+            ssm.head_dim, ssm.d_state, ssm.chunk):
+        fail(f"{tag} SSD inputs: shape {(B, S, nh, hd, ds, chunk)}, "
              f"B contiguous {Bm.is_contiguous()}")
+    chunk = min(chunk, S)
     gen = torch.Generator(device=dev).manual_seed(7)
     s0 = 0.1 * torch.randn((B, nh, hd, ds), generator=gen, device=dev)
-    check("serving path layer 0 bf16", xw, da, Bm, Cm, chunk, s0)
-    check("serving path layer 0 as f32", xw.float(), da, Bm.float(),
-          Cm.float(), chunk, s0)
+    ssd_check(errs, f"{tag} layer 0 bf16", xw, da, Bm, Cm, chunk, s0)
+    ssd_check(errs, f"{tag} layer 0 as f32", xw.float(), da, Bm.float(),
+              Cm.float(), chunk, s0)
+    return ssd_timing(xw, da, Bm, Cm, chunk, s0)
 
-    kms = cuda_ms(lambda: ssd_kernel.ssd(xw, da, Bm, Cm, chunk, s0))
-    pms = cuda_ms(lambda: ssd_chunked(xw, da, Bm, Cm, chunk, s0), reps=10)
-    reps = 10
-    by = device_profile(lambda: [ssd_kernel.ssd(xw, da, Bm, Cm, chunk, s0)
-                                 for _ in range(reps)])["by_kernel_s"]
-    dev_us = sum(v for k, v in by.items() if "ssd_kernel" in k) * 1e6 / reps
-    nbytes, least, full = ssd_cost(B, S, nh, hd, ds, chunk, 2, 2, True)
-    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    o_ms = least / FP32_OPS_PER_S * 1e3
-    ssd_stats = dict(
-        max_abs_err=max(max(e["y_err"], e["state_err"])
-                        for e in errs.values()), ms=kms,
-        plain_ms=pms, device_us=dev_us, bound_ms=max(b_ms, o_ms),
-        bound_by="bytes" if b_ms >= o_ms else "operations",
-        bytes=nbytes, operations_least=least, operations_full=full,
-        bound_rule="max(bytes / 3.35 TB/s, least operations / 67 TFLOP/s "
-                   "f32: the kernel's arithmetic is f32)",
-        bytes_ms=b_ms, least_f32_ms=o_ms,
-        full_f32_ms=full / FP32_OPS_PER_S * 1e3,
-        full_bf16_tensor_core_ms=full / BF16_TC_OPS_PER_S * 1e3,
-        smem_bytes=ssd_kernel._load().ssd_smem(hd, ds, chunk))
-    emit("ssd_kernel", ok=True, errors=errs, **ssd_stats)
 
-    # ---- 8. serving at full width ------------------------------------------
+def attention_cost(q, k, causal, window) -> tuple:
+    """(bytes, operations) of one attention call: q, k, v read and o
+    written once; two products of hd per (query, key) pair that the mask
+    keeps (the causal half, the window's band)."""
+    B, H, S, hd = q.shape
+    T = k.shape[2]
+    qp = torch.arange(S, dtype=torch.float64) + (T - S)
+    kp = torch.arange(T, dtype=torch.float64)
+    ok = torch.ones((S, T), dtype=torch.bool)
+    if causal:
+        ok &= kp[None, :] <= qp[:, None]
+    if window is not None:
+        ok &= (qp[:, None] - kp[None, :]) < window
+    pairs = int(ok.sum())
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    return nbytes, 4 * B * H * hd * pairs
+
+
+def model_kernel_phase(dev, captured, cfg) -> dict:
+    """Phase 9: flash attention and RMSNorm against their plain versions on
+    the JAX kernel tests' shapes and at the zamba2 serving path's own
+    inputs (bf16, and those inputs as f32); times, bounds and the library
+    call's time there.  Returns the stats of each for the kernels line."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.rmsnorm import kernel as rn_kernel
+    from repro_torch.kernels.rmsnorm import ref as rn_ref
+    f32, bf16 = torch.float32, torch.bfloat16
+    errs = {"flash_attention": {}, "rmsnorm": {}}
+
+    def check(kind, tag, got, want, tol):
+        err, mag, ratio = close(got, want, tol)
+        errs[kind][tag] = dict(err=err, plain_max=mag, err_over_bound=ratio)
+        if not ratio < 1.0 or not bool(torch.isfinite(got.float()).all()):
+            fail(f"{kind} {tag}: error {err} against |plain| up to {mag}, "
+                 f"{ratio} of the bound")
+
+    fa_tol = {f32: 2e-5, bf16: 2e-2}
+    rn_tol = {f32: 1e-5, bf16: 5e-2}
+    r = np.random.default_rng(11)
+    for B, H, KV, S, T, hd, causal, window, dt in ATTN_CASES:
+        q, k, v = (torch.as_tensor(r.standard_normal(s).astype(np.float32)
+                                   ).to(dev).to(dt)
+                   for s in ((B, H, S, hd), (B, KV, T, hd), (B, KV, T, hd)))
+        check("flash_attention", f"jax {B}x{H}/{KV}x{S}x{T}x{hd} causal="
+              f"{causal} window={window} {dt}",
+              fa_kernel.attention(q, k, v, causal, window),
+              fa_ref.attention(q.float(), k.float(), v.float(), causal,
+                               window), fa_tol[dt])
+    for shape, dt in RMSNORM_CASES:
+        x = torch.as_tensor(r.standard_normal(shape).astype(np.float32)
+                            ).to(dev).to(dt)
+        s = torch.as_tensor(r.standard_normal(shape[-1]).astype(np.float32)
+                            ).to(dev)
+        check("rmsnorm", f"jax {shape} {dt}", rn_kernel.rmsnorm(x, s),
+              rn_ref.rmsnorm(x, s), rn_tol[dt])
+
+    (q, k, v), fkw = captured["flash_attention"]
+    causal, window = fkw.get("causal", True), fkw.get("window")
+    if q.dtype != bf16 or tuple(q.shape) != (
+            SERVE_BATCH, cfg.n_heads, SERVE_PROMPT, cfg.hd) \
+            or not q.transpose(1, 2).is_contiguous():
+        fail(f"serving flash inputs: {q.dtype} {tuple(q.shape)} strides "
+             f"{q.stride()}")
+    for dt in (bf16, f32):
+        qq, kk, vv = (x.to(dt) for x in (q, k, v))
+        check("flash_attention", f"zamba2 serving {dt}",
+              fa_kernel.attention(qq, kk, vv, causal, window),
+              fa_ref.attention(qq.float(), kk.float(), vv.float(), causal,
+                               window), fa_tol[dt])
+    norms = {}
+    for key in ("rmsnorm", "gated_rmsnorm"):
+        (x, s, *rest), _ = captured[key]
+        eps = rest[0] if rest else 1e-6
+        s = s.detach()
+        norms[key] = (x, s, eps)
+        for dt in (bf16, f32):
+            check("rmsnorm", f"zamba2 serving {key} {tuple(x.shape)} {dt}",
+                  rn_kernel.rmsnorm(x.to(dt), s, eps),
+                  rn_ref.rmsnorm(x.to(dt), s, eps), rn_tol[dt])
+
+    # times at the serving inputs; device time from the profiler
+    def stats(symbol, kf, pf, lf, nbytes, ops, ops_rate):
+        kms, pms, lms = cuda_ms(kf), cuda_ms(pf, reps=10), cuda_ms(lf)
+        dev_us, dev_n = kernel_device_us(kf, symbol)
+        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        o_ms = ops / ops_rate * 1e3
+        return dict(ms=kms, plain_ms=pms, library_ms=lms, device_us=dev_us,
+                    device_launches_recorded=dev_n,
+                    back_to_back_us=back_to_back_us(kf),
+                    bound_ms=max(b_ms, o_ms),
+                    bound_by="bytes" if b_ms >= o_ms else "operations",
+                    bytes=nbytes, operations=ops, bytes_ms=b_ms,
+                    operations_ms=o_ms)
+
+    nbytes, ops = attention_cost(q, k, causal, window)
+    out = {"flash_attention": dict(
+        shape=list(q.shape), errors=errs["flash_attention"],
+        smem_bytes=fa_kernel._load().flash_smem(q.shape[-1]),
+        bound_rule="max(q, k, v, o bytes / 3.35 TB/s, the causal pairs' "
+                   "4*hd operations / 989 TFLOP/s bf16 tensor cores)",
+        **stats("flash_kernel",
+                lambda: fa_kernel.attention(q, k, v, causal, window),
+                lambda: fa_ref.attention(q, k, v, causal, window),
+                lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=causal,
+                    enable_gqa=q.shape[1] != k.shape[1]),
+                nbytes, ops, BF16_TC_OPS_PER_S))}
+    for key in ("rmsnorm", "gated_rmsnorm"):
+        x, s, eps = norms[key]
+        D = x.shape[-1]
+        out[key] = dict(shape=list(x.shape), **stats(
+            "rmsnorm_kernel",
+            lambda: rn_kernel.rmsnorm(x, s, eps),
+            lambda: rn_ref.rmsnorm(x, s, eps),
+            lambda: F.rms_norm(x, (D,), s, eps),
+            2 * x.numel() * x.element_size() + 4 * D, 3 * x.numel(),
+            FP32_OPS_PER_S))
+    out["rmsnorm"]["errors"] = errs["rmsnorm"]
+    if window is not None:
+        fail("the zamba2 shared block is global: no window expected")
+    return out
+
+
+def serve_phase(arch: str, dev, n_tokens: int) -> dict:
+    """Serve ``arch`` at full width, seeded weights, SERVE_BATCH requests of
+    SERVE_PROMPT tokens then ``n_tokens`` greedy decode steps, through
+    ``repro_torch.launch.serve``; hold the kernel path against the plain
+    path and decode against a plain forward (see SERVE_F32_TOL).  Returns
+    the model, its prompt, the launches of one serving run, the inputs the
+    path handed each kernel, and the phase's numbers so far, for
+    ``serve_profile`` to finish and emit."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models.model import DecoderLM
+
+    cfg = get_config(arch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = DecoderLM(cfg, device=dev, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    prompt = serve.prompt_batch(cfg.vocab, SERVE_BATCH, SERVE_PROMPT, dev)
+    n_mamba = cfg.pattern.count("mamba") * cfg.n_superblocks
+    n_attn = (len(cfg.pattern) - cfg.pattern.count("mamba")) \
+        * cfg.n_superblocks
+    per_pass = 2 * (n_mamba + n_attn) + 1          # every norm, and the head's
+    per_run = {"ssd": n_mamba, "flash_attention": n_attn,
+               "rmsnorm": per_pass * (1 + n_tokens)}
+
+    # Warm-up run (not counted), which also captures the inputs the main
+    # path hands each kernel.
+    d_inner = cfg.ssm.d_inner(cfg.d_model)
+    captured = capture_inputs(lambda: serve.generate(model, prompt, 2),
+                              d_inner)
+
     runs = []
     for _ in range(3):
-        ssd_ops.reset_launches()
-        out = serve.generate(model, prompt, SERVE_TOKENS)
+        reset_model_launches()
+        out = serve.generate(model, prompt, n_tokens)
         torch.cuda.synchronize()
-        launches = dict(ssd_ops.LAUNCHES)
-        if launches != {"ssd": cfg.n_layers}:
-            fail(f"serving launches {launches}, expected {cfg.n_layers} "
-                 f"SSD launches per prefill")
+        launches = model_launches()
+        if launches != per_run:
+            fail(f"{arch} serving launches {launches}, expected {per_run}")
         runs.append(out)
-    ssd_launches = launches["ssd"]
     out = runs[0]
     toks = out["tokens"]
-    if tuple(toks.shape) != (SERVE_BATCH, SERVE_TOKENS + 1) \
+    if tuple(toks.shape) != (SERVE_BATCH, n_tokens + 1) \
             or int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab:
-        fail(f"serving tokens: shape {tuple(toks.shape)}, range "
+        fail(f"{arch} serving tokens: shape {tuple(toks.shape)}, range "
              f"[{int(toks.min())}, {int(toks.max())}]")
     if any(not torch.equal(r["tokens"], toks) for r in runs[1:]):
-        fail("serving is not deterministic across runs")
+        fail(f"{arch} serving is not deterministic across runs")
 
-    # (a) kernel vs plain path: prefill logits and every layer's state,
-    # with f32 compute and as served (bf16), against the bf16 floor
-    def plain_ssd(xw, da, Bm, Cm, chunk=256, init_state=None):
-        return ssd_chunked(xw, da, Bm, Cm, min(chunk, xw.shape[1]),
-                           init_state)
-
-    @contextlib.contextmanager
-    def variant(kernel, dtype=torch.bfloat16, chunk=None):
-        """The serving path with the kernel or, swapped in for ``ops.ssd``,
-        its plain chunked version; in ``dtype``; with another chunk."""
-        saved = (ssd_ops.ssd, model.cfg, model_mod.COMPUTE_DTYPE)
-        model_mod.COMPUTE_DTYPE = dtype
-        if not kernel:
-            ssd_ops.ssd = plain_ssd
-        if chunk is not None:
-            model.cfg = dataclasses.replace(
-                cfg, ssm=dataclasses.replace(cfg.ssm, chunk=chunk))
-        try:
-            yield
-        finally:
-            ssd_ops.ssd, model.cfg, model_mod.COMPUTE_DTYPE = saved
-
-    def prefill_once(kernel, dtype, chunk=None):
-        with variant(kernel, dtype, chunk), torch.inference_mode():
-            ssd_ops.reset_launches()
-            c, lg = model.prefill({"tokens": prompt},
-                                  model.init_cache(SERVE_BATCH, SERVE_PROMPT))
+    # (a) kernel vs plain path: prefill logits, every Mamba2 layer 0's state
+    # and every attention cache, with f32 compute and as served (bf16),
+    # against the bf16 floor
+    def prefill_once(kernel, dtype, floor=False):
+        with variant(model, kernel, dtype, floor), torch.inference_mode():
+            reset_model_launches()
+            c, lg = model.prefill({"tokens": prompt}, model.init_cache(
+                SERVE_BATCH, SERVE_PROMPT))
             torch.cuda.synchronize()
-            if ssd_ops.LAUNCHES["ssd"] != (cfg.n_layers if kernel else 0):
-                fail(f"prefill kernel={kernel} {dtype}: {ssd_ops.LAUNCHES}")
-        return [sb["mamba_0"]["state"] for sb in c["layers"]], \
-            lg[:, -1].float()
+            want = ({"ssd": n_mamba, "flash_attention": n_attn,
+                     "rmsnorm": per_pass} if kernel
+                    else dict.fromkeys(per_run, 0))
+            if model_launches() != want:
+                fail(f"{arch} prefill kernel={kernel} {dtype}: "
+                     f"{model_launches()}")
+        states = []
+        for sb in c["layers"]:
+            for key, cc in sorted(sb.items()):
+                if key == "mamba_0":
+                    states.append(cc["state"])
+                elif "k" in cc:
+                    states.append(cc["k"].float())
+        return states, lg[:, -1].float()
 
     def diff(a, b):
         return (float((a[1] - b[1]).abs().max()),
@@ -391,91 +712,108 @@ def serve_phases(dev):
                                                   1e-30)
                  for x, y in zip(a[0], b[0])])
 
+    f32 = torch.float32
     checks = {}
     checks["prefill f32 kernel vs plain"] = diff(prefill_once(True, f32),
                                                  prefill_once(False, f32))
     lg_err, st_err = checks["prefill f32 kernel vs plain"]
     if lg_err >= SERVE_F32_TOL or max(st_err) >= SERVE_F32_TOL:
-        fail(f"f32 prefill kernel vs plain: logits off by {lg_err}, states "
-             f"by {max(st_err)} relative")
+        fail(f"{arch} f32 prefill kernel vs plain: logits off by {lg_err}, "
+             f"states and caches by {max(st_err)} relative")
     plain = prefill_once(False, torch.bfloat16)
     checks["prefill bf16 kernel vs plain"] = diff(
         prefill_once(True, torch.bfloat16), plain)
-    checks["prefill bf16 plain chunk 128 vs 256"] = diff(
-        prefill_once(False, torch.bfloat16, SERVE_FLOOR_CHUNK), plain)
+    checks["prefill bf16 plain floor lowering vs plain"] = diff(
+        prefill_once(False, torch.bfloat16, floor=True), plain)
     (lg_k, st_k), (lg_f, st_f) = (
         checks["prefill bf16 kernel vs plain"],
-        checks["prefill bf16 plain chunk 128 vs 256"])
+        checks["prefill bf16 plain floor lowering vs plain"])
     if lg_k > SERVE_BF16_FLOOR_FACTOR * lg_f \
             or max(st_k) > SERVE_BF16_FLOOR_FACTOR * max(st_f):
-        fail(f"bf16 prefill kernel vs plain: logits off by {lg_k}, states "
-             f"by {max(st_k)} relative; two plain lowerings differ by "
-             f"{lg_f} and {max(st_f)}")
+        fail(f"{arch} bf16 prefill kernel vs plain: logits off by {lg_k}, "
+             f"states by {max(st_k)} relative; two plain lowerings differ "
+             f"by {lg_f} and {max(st_f)}")
 
     # the plain path end to end, for the tokens the two paths share
-    with variant(False):
-        out_p = serve.generate(model, prompt, SERVE_TOKENS)
+    with variant(model, False):
+        out_p = serve.generate(model, prompt, n_tokens)
 
     # (c) decode logits vs a plain forward over prompt + generated tokens
     def decode_vs_forward(run, dtype):
-        seq = torch.cat([prompt, run["tokens"][:, :SERVE_TOKENS]], dim=1)
+        seq = torch.cat([prompt, run["tokens"][:, :n_tokens]], dim=1)
         got = torch.stack([run["prefill_logits"]] + run["step_logits"],
                           dim=1).float()
         fwd = {}
-        for chunk in (None, SERVE_FLOOR_CHUNK):
-            with variant(False, dtype, chunk), torch.inference_mode():
-                fwd[chunk] = model.forward({"tokens": seq})[
+        for floor in (False, True):
+            with variant(model, False, dtype, floor), torch.inference_mode():
+                fwd[floor] = model.forward({"tokens": seq})[
                     :, SERVE_PROMPT - 1:].float()
         if not bool(torch.isfinite(got).all()):
-            fail(f"{dtype} serving logits not finite")
-        return (float((got - fwd[None]).abs().max()),
-                float((fwd[SERVE_FLOOR_CHUNK] - fwd[None]).abs().max()))
+            fail(f"{arch} {dtype} serving logits not finite")
+        return (float((got - fwd[False]).abs().max()),
+                float((fwd[True] - fwd[False]).abs().max()))
 
-    with variant(True, f32):
-        run_f32 = serve.generate(model, prompt, SERVE_TOKENS)
+    with variant(model, True, f32):
+        run_f32 = serve.generate(model, prompt, n_tokens)
     dec_f32, _ = decode_vs_forward(run_f32, f32)
     dec_bf16, dec_floor = decode_vs_forward(out, torch.bfloat16)
     checks["decode f32 vs plain forward"] = dec_f32
     checks["decode bf16 vs plain forward"] = dec_bf16
-    checks["forward bf16 plain chunk 128 vs 256"] = dec_floor
+    checks["forward bf16 plain floor lowering vs plain"] = dec_floor
     if dec_f32 >= SERVE_F32_TOL:
-        fail(f"f32 decode logits vs plain forward: off by {dec_f32}")
+        fail(f"{arch} f32 decode logits vs plain forward: off by {dec_f32}")
     if dec_bf16 > SERVE_BF16_FLOOR_FACTOR * dec_floor:
-        fail(f"bf16 decode logits vs plain forward: off by {dec_bf16}; two "
-             f"plain lowerings differ by {dec_floor}")
+        fail(f"{arch} bf16 decode logits vs plain forward: off by "
+             f"{dec_bf16}; two plain lowerings differ by {dec_floor}")
     same = (out_p["tokens"] == toks)
     first_diff = [int(torch.nonzero(~row)[0]) if not bool(row.all())
                   else None for row in same]
 
-    torch.cuda.synchronize()
-    prefill_ms = [r["prefill_ms"] for r in runs]
-    decode_s = [r["decode_s"] for r in runs]
-    prof_pre = device_profile(lambda: serve.generate(model, prompt, 0), top=6)
+    phase = dict(
+        arch=cfg.name, params=n_params, param_count=cfg.param_count(),
+        init_s=init_s, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+        decode_tokens=n_tokens, launches_per_run=launches,
+        launches_per_prefill={"ssd": n_mamba, "flash_attention": n_attn,
+                              "rmsnorm": per_pass},
+        prefill_ms=[r["prefill_ms"] for r in runs],
+        decode_s=[r["decode_s"] for r in runs], checks=checks,
+        greedy_tokens_shared=int(same.sum()), greedy_tokens=same.numel(),
+        first_divergence=first_diff,
+        max_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return {"launches": launches, "captured": captured, "cfg": cfg,
+            "model": model, "prompt": prompt, "phase": phase}
+
+
+def serve_profile(res: dict) -> None:
+    """Trace a prefill and a whole serving run of ``serve_phase``'s model
+    with torch.profiler (the card's busy and idle share, device time by
+    kernel) and emit the serving phase.  Runs after every per-kernel
+    timing: on the card, short traces taken after these long ones lost
+    kernel events."""
+    from repro_torch.launch import serve
+    model, prompt, ph = res["model"], res["prompt"], dict(res["phase"])
+    n_tokens = ph["decode_tokens"]
+    prefill_ms, decode_s = ph["prefill_ms"], ph.pop("decode_s")
+    prof_pre = device_profile(lambda: serve.generate(model, prompt, 0), top=8)
     prof_all = device_profile(
-        lambda: serve.generate(model, prompt, SERVE_TOKENS), top=6)
-    ssd_dev = sum(v for k, v in prof_pre["by_kernel_s"].items()
-                  if "ssd_kernel" in k)
+        lambda: serve.generate(model, prompt, n_tokens), top=8)
+    by_kernel = {k: sum(v for name, v in prof_pre["by_kernel_s"].items()
+                        if sym in name) * 1e3
+                 for k, sym in (("ssd", "ssd_kernel"),
+                                ("flash_attention", "flash_kernel"),
+                                ("rmsnorm", "rmsnorm_kernel"))}
     med_pre = statistics.median(prefill_ms)
     med_all = statistics.median(p * 1e-3 + d
                                 for p, d in zip(prefill_ms, decode_s))
-    emit("serve", ok=True, arch=cfg.name, params=n_params,
-         init_s=init_s, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
-         decode_tokens=SERVE_TOKENS, ssd_launches_per_prefill=cfg.n_layers,
-         prefill_ms=prefill_ms,
-         decode_tok_per_s=[SERVE_BATCH * SERVE_TOKENS / d for d in decode_s],
-         decode_ms_per_step=[d * 1e3 / SERVE_TOKENS for d in decode_s],
-         checks=checks,
-         greedy_tokens_shared=int(same.sum()), greedy_tokens=same.numel(),
-         first_divergence=first_diff,
+    emit(f"serve_{ph['arch']}", ok=True, **ph,
+         decode_tok_per_s=[SERVE_BATCH * n_tokens / d for d in decode_s],
+         decode_ms_per_step=[d * 1e3 / n_tokens for d in decode_s],
          prefill_busy_ms=prof_pre["device_busy_s"] * 1e3,
          prefill_idle_share=1.0 - prof_pre["device_busy_s"] * 1e3 / med_pre,
-         prefill_ssd_device_ms=ssd_dev * 1e3, prefill_top_ms=prof_pre["top"],
+         prefill_kernel_device_ms=by_kernel, prefill_top_ms=prof_pre["top"],
          serve_busy_ms=prof_all["device_busy_s"] * 1e3,
          serve_idle_share=1.0 - prof_all["device_busy_s"] / med_all,
-         serve_top_ms=prof_all["top"],
-         max_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
-    return ssd_stats, ssd_launches
-
+         serve_top_ms=prof_all["top"])
 
 
 
@@ -505,11 +843,14 @@ def main() -> None:
          cuda=torch.version.cuda, python=sys.version.split()[0])
 
     from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.rmsnorm import kernel as rn_kernel
     from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as ex:          # one nvcc per source, at once
-        futs = {"quorum_tally": ex.submit(kernel.build),
-                "ssd_scan": ex.submit(ssd_kernel.build)}
+    libs = {"quorum_tally": kernel, "ssd_scan": ssd_kernel,
+            "flash_attention": fa_kernel, "rmsnorm": rn_kernel}
+    with ThreadPoolExecutor(len(libs)) as ex:  # one nvcc per source, at once
+        futs = {k: ex.submit(m.build) for k, m in libs.items()}
         built = {k: f.result() for k, f in futs.items()}
     emit("build", seconds=time.perf_counter() - t0,
          **{k: {"library": os.path.relpath(path, ROOT),
@@ -518,7 +859,7 @@ def main() -> None:
             for k, (path, log) in built.items()})
 
     # ---- 3. kernels vs plain versions on the card -------------------------
-    stats = {k: {"max_abs_err": 0.0} for k in REPLACES}
+    stats = {k: {"max_abs_err": 0.0} for k in QUORUM_KERNELS}
 
     def same(a, b, what):
         if not torch.equal(a, b):
@@ -548,6 +889,14 @@ def main() -> None:
     want = ref.tally_decide(v11, 2, 7)
     for a, b, f in zip(got, want, ("counts", "winner", "max", "reached")):
         same(a, b, f"tally_decide (16384, 11) {f}")
+    same(kernel.tally_votes(v11, 2), ref.tally_votes(v11, 2),
+         "tally_votes (16384, 11)")
+    for S, n, V in ((100, 11, 2), (1024, 11, 3), (3000, 7, 2), (5000, 32, 5),
+                    (700, 200, 12)):
+        r = np.random.default_rng(S + n)
+        v = torch.as_tensor(r.integers(-1, V, (S, n)).astype(np.int32)).to(dev)
+        same(kernel.tally_votes(v, V), ref.tally_votes(v, V),
+             f"tally_votes {(S, n, V)}")
     for S, n, q, V in ((100, 11, 7, 2), (2049, 11, 9, 3), (500, 7, 4, 4)):
         g = torch.Generator(device=dev).manual_seed(S + V)
         v = torch.randint(-1, V, (S, n), generator=g, device=dev,
@@ -618,6 +967,8 @@ def main() -> None:
 
     args_c, kw_c = args12["coordinated"]
     timed = {
+        "tally_votes": (lambda: kernel.tally_votes(v11, 2),
+                        lambda: ref.tally_votes(v11, 2)),
         "tally_decide": (lambda: kernel.tally_decide(v11, 2, 0),
                          lambda: ref.tally_decide(v11, 2, 0)),
         "masked_tally": (
@@ -631,6 +982,7 @@ def main() -> None:
     G1, G2c = table12["p1_w"].shape[1], table12["p2c_w"].shape[1]
     mask_bytes = 4 * M12 * 12 * (G1 + G2c + G2f) + 4 * M12 * (G1 + G2c + G2f)
     bytes_ = {
+        "tally_votes": S11 * 11 * 4 + S11 * 2 * 4,
         "tally_decide": S11 * 11 * 4 + S11 * 2 * 4 + S11 * 4 * 2 + S11,
         "masked_tally": (S12 * 12 * 4 + M12 * G2f * 13 * 4
                          + S12 * M12 * G2f * 4),
@@ -641,23 +993,22 @@ def main() -> None:
     # tallies; the fused kernel adds one pass over each phase's n arrivals
     # per (system, trial), the least a selection can read.
     ops_ = {
+        "tally_votes": S11 * 11 * 2,
         "tally_decide": S11 * 11 * 2,
         "masked_tally": S12 * M12 * G2f * 12 * 2,
         "stream_tally_decide_hist": M12 * S12 * (G2f * 12 * 2 + 3 * 12),
     }
-    symbol = {"tally_decide": "tally_decide_kernel",
+    symbol = {"tally_votes": "tally_votes_kernel",
+              "tally_decide": "tally_decide_kernel",
               "masked_tally": "masked_tally_kernel",
               "stream_tally_decide_hist": "stream_kernel"}
     for k, (kf, pf) in timed.items():
         kms, pms = cuda_ms(kf), cuda_ms(pf)
-        reps = 20
-        by = device_profile(lambda: [kf() for _ in range(reps)]
-                            )["by_kernel_s"]
-        dev_ms = sum(s for name, s in by.items()
-                     if symbol[k] in name) * 1e3 / reps
+        dev_us, dev_n = kernel_device_us(kf, symbol[k], reps=20)
         b_ms = bytes_[k] / HBM_BYTES_PER_S * 1e3
         o_ms = ops_[k] / FP32_OPS_PER_S * 1e3
-        stats[k].update(ms=kms, plain_ms=pms, device_ms=dev_ms,
+        stats[k].update(ms=kms, plain_ms=pms, device_us=dev_us,
+                        device_launches_recorded=dev_n,
                         bound_ms=max(b_ms, o_ms),
                         bound_by="bytes" if b_ms >= o_ms else "operations",
                         bytes=bytes_[k], operations=ops_[k])
@@ -670,7 +1021,7 @@ def main() -> None:
                       samples=8192)
     torch.cuda.synchronize()
     launches4 = dict(ops.LAUNCHES)
-    if launches4 != {"tally_decide": 0, "masked_tally": 1,
+    if launches4 != {"tally_votes": 0, "tally_decide": 0, "masked_tally": 1,
                      "stream_tally_decide_hist": 0}:
         fail(f"masked race launches {launches4}")
     lat = out["latency_ms"]
@@ -694,7 +1045,7 @@ def main() -> None:
     fr = score_systems(members, n=12, trials=2_000_000, chunk=8192, seed=0)
     torch.cuda.synchronize()
     launches5 = dict(ops.LAUNCHES)
-    if launches5 != {"tally_decide": 0, "masked_tally": 0,
+    if launches5 != {"tally_votes": 0, "tally_decide": 0, "masked_tally": 0,
                      "stream_tally_decide_hist": MIXED_RACE_CHUNKS}:
         fail(f"mixed batch launches {launches5}")
     race, fast = fr.streams["race"], fr.streams["fast"]
@@ -728,8 +1079,8 @@ def main() -> None:
     sw = run_sweep(quick=False, device=dev)
     torch.cuda.synchronize()
     launches6 = dict(ops.LAUNCHES)
-    if launches6 != {"tally_decide": SWEEP_RACE_CHUNKS, "masked_tally": 0,
-                     "stream_tally_decide_hist": 0}:
+    if launches6 != {"tally_votes": 0, "tally_decide": SWEEP_RACE_CHUNKS,
+                     "masked_tally": 0, "stream_tally_decide_hist": 0}:
         fail(f"sweep launches {launches6}")
     res = sw["result"]
     with open(os.path.join(ROOT, "BENCH_baseline.json")) as fh:
@@ -773,26 +1124,65 @@ def main() -> None:
                 profiled_wall_s=prof["wall_s"], top_ms=prof["top"])
     emit("profile", **windows)
 
-    ssd_stats, ssd_launches = serve_phases(dev)
+    # ---- quorum_reached (tally_votes) --------------------------------------
+    ops.reset_launches()
+    reached = ops.quorum_reached(v11, 2, 7)
+    torch.cuda.synchronize()
+    launches_qr = dict(ops.LAUNCHES)
+    if launches_qr != {"tally_votes": 1, "tally_decide": 0,
+                       "masked_tally": 0, "stream_tally_decide_hist": 0}:
+        fail(f"quorum_reached launches {launches_qr}")
+    same(reached, ref.quorum_reached(v11, 2, 7), "quorum_reached")
+    same(reached, want[3], "quorum_reached vs tally_decide's reached")
+    emit("quorum_reached", ok=True, launches=launches_qr,
+         reached_share=float(reached.float().mean()))
 
-    # ---- 9. kernels line ---------------------------------------------------
-    launches = {"tally_decide": launches6["tally_decide"],
+    # ---- the model paths ----------------------------------------------------
+    # Every per-kernel timing runs before the serving traces (serve_profile).
+    ssd_errs = ssd_phase(dev)
+    mamba = serve_phase("mamba2_130m", dev, SERVE_TOKENS)
+    zamba = serve_phase("zamba2_2_7b", dev, SERVE_TOKENS)
+    ssd_mamba = serving_ssd(ssd_errs, "mamba2 serving", mamba["captured"],
+                            mamba["cfg"], dev)
+    ssd_zamba = serving_ssd(ssd_errs, "zamba2 serving", zamba["captured"],
+                            zamba["cfg"], dev)
+    ssd_err = max(max(e["y_err"], e["state_err"]) for e in ssd_errs.values())
+    emit("ssd_kernel", ok=True, errors=ssd_errs, max_abs_err=ssd_err,
+         mamba2_serving=ssd_mamba, zamba2_serving=ssd_zamba)
+    mk = model_kernel_phase(dev, zamba["captured"], zamba["cfg"])
+    emit("model_kernels", ok=True, **mk)
+    serve_profile(mamba)
+    del mamba
+    serve_profile(zamba)
+
+    # ---- the kernels line ---------------------------------------------------
+    launches = {"tally_votes": launches_qr["tally_votes"],
+                "tally_decide": launches6["tally_decide"],
                 "masked_tally": launches4["masked_tally"],
                 "stream_tally_decide_hist":
-                    launches5["stream_tally_decide_hist"]}
+                    launches5["stream_tally_decide_hist"],
+                **zamba["launches"]}
+    model_stats = {
+        "ssd": dict(ssd_zamba, max_abs_err=ssd_err, library_ms=None),
+        "flash_attention": dict(
+            mk["flash_attention"], max_abs_err=max(
+                e["err"] for e in mk["flash_attention"]["errors"].values())),
+        "rmsnorm": dict(mk["rmsnorm"], max_abs_err=max(
+            e["err"] for e in mk["rmsnorm"]["errors"].values())),
+    }
     line = {"kernels": [
         {"name": k, "route": "cuda", "source": SOURCE,
          "replaces": REPLACES[k], "launches": launches[k],
          "max_abs_err": stats[k]["max_abs_err"], "ms": stats[k]["ms"],
          "plain_ms": stats[k]["plain_ms"], "bound_ms": stats[k]["bound_ms"],
          "bound_by": stats[k]["bound_by"], "library_ms": None}
-        for k in REPLACES] + [
-        {"name": "ssd", "route": "cuda", "source": SSD_SOURCE,
-         "replaces": SSD_REPLACES, "launches": ssd_launches,
-         "max_abs_err": ssd_stats["max_abs_err"], "ms": ssd_stats["ms"],
-         "plain_ms": ssd_stats["plain_ms"],
-         "bound_ms": ssd_stats["bound_ms"],
-         "bound_by": ssd_stats["bound_by"], "library_ms": None}]}
+        for k in QUORUM_KERNELS] + [
+        {"name": k, "route": "cuda", "source": MODEL_SOURCES[k],
+         "replaces": REPLACES[k], "launches": launches[k],
+         "max_abs_err": st["max_abs_err"], "ms": st["ms"],
+         "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
+         "bound_by": st["bound_by"], "library_ms": st["library_ms"]}
+        for k, st in model_stats.items()]}
     if any(k["launches"] <= 0 for k in line["kernels"]):
         fail(f"a kernel was not launched on its path: {launches}")
     print(json.dumps(line), flush=True)

@@ -1,0 +1,2 @@
+"""Flash attention (forward): ``ref.py`` (plain PyTorch), ``kernel.py``
+(the CUDA kernel's binding), ``ops.py`` (dispatch by device)."""

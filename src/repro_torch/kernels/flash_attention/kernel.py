@@ -1,0 +1,133 @@
+"""The flash-attention kernel for Hopper, bound with ctypes.
+
+``csrc/flash_attention.cu`` holds the CUDA C++ kernel for ``sm_90a``; its
+header says which TPU kernel it replaces, what bounds it on the card and
+what its design does about that.  ``build()`` compiles it with ``nvcc`` on
+first use into ``build/`` beside this file (git-ignored,
+``kernels/_build.py``), and ``ctypes`` loads it.  Nothing is compiled or
+loaded at import: this module imports on a machine without CUDA.
+
+``attention`` refuses inputs that autograd would record through (the kernel
+has no backward), checks device, dtypes, shapes, strides and sizes, allocates
+the output, launches on ``torch.cuda.current_stream()``, raises if the launch
+returned a CUDA error, and adds one to ``LAUNCHES["flash_attention"]`` when
+it launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+import threading
+from pathlib import Path
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import _build, refuse_grad
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+
+MAX_HD = 256          # the output accumulators are sized for hd <= 256
+
+LAUNCHES: Dict[str, int] = {"flash_attention": 0}
+
+_lib = None
+_lib_lock = threading.Lock()
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def build() -> Tuple[Path, str]:
+    """Compile ``csrc/flash_attention.cu`` unless an up-to-date library
+    exists.  Returns (library path, compiler log; empty when nothing was
+    built)."""
+    return _build.build(SOURCE, "flash_attention")
+
+
+def _load():
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            path, _ = build()
+            lib = ctypes.CDLL(str(path))
+            P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+            lib.flash_smem.argtypes = [I]
+            lib.flash_smem.restype = ctypes.c_size_t
+            lib.flash_forward.argtypes = ([I] + [P, L, L, L] * 4 + [I] * 8
+                                          + [ctypes.c_float, P])
+            lib.flash_forward.restype = I
+            _lib = lib
+    return _lib
+
+
+def _check(t: torch.Tensor, name: str, shape, dtype, device) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} lies on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if t.stride(-1) != 1:
+        raise ValueError(f"{name} must be contiguous along its last axis, "
+                         f"has strides {t.stride()}")
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool = True, window: Optional[int] = None
+              ) -> torch.Tensor:
+    """q (B,H,S,hd), k/v (B,KV,T,hd), f32 or bf16 (one dtype for all) ->
+    o (B,H,S,hd) in q's dtype, laid out in memory as q is (a (B,S,H,hd)
+    tensor viewed as (B,H,S,hd) gives one viewed the same way).  Every input
+    may be strided on all axes but the last."""
+    refuse_grad("flash-attention", q, k, v)
+    if not q.is_cuda:
+        raise ValueError(f"the flash-attention kernel takes CUDA tensors, "
+                         f"got one on {q.device}; ops.py routes CPU tensors "
+                         f"to ref.py")
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError(f"q (B,H,S,hd) and k/v (B,KV,T,hd) expected, got "
+                         f"{tuple(q.shape)} / {tuple(k.shape)}")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"q has dtype {q.dtype}, expected float32 or "
+                         f"bfloat16")
+    B, H, S, hd = q.shape
+    KV, T = k.shape[1], k.shape[2]
+    dev = q.device
+    _check(q, "q", (B, H, S, hd), q.dtype, dev)
+    _check(k, "k", (B, KV, T, hd), q.dtype, dev)
+    _check(v, "v", (B, KV, T, hd), q.dtype, dev)
+    if not (1 <= hd <= MAX_HD):
+        raise ValueError(f"the flash-attention kernel takes 1 <= hd <= "
+                         f"{MAX_HD}, got {hd}")
+    if KV < 1 or H % KV:
+        raise ValueError(f"H={H} must be a multiple of KV={KV}")
+    if causal and S > T:
+        raise ValueError(f"causal attention takes the queries as the last S "
+                         f"of T positions, so S <= T; got S={S}, T={T}")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1 or None, got {window}")
+    if B * H > 65535 or max(S, T) >= 2 ** 31:
+        raise ValueError(f"the flash-attention kernel takes B*H <= 65535 and "
+                         f"S, T < 2^31; got B*H={B * H}, S={S}, T={T}")
+    o = torch.empty_like(q)            # q's layout: strided like q
+    if B * H * S == 0:
+        return o
+    lib = _load()
+    args = []
+    for t in (q, k, v, o):
+        args += [t.data_ptr(), t.stride(0), t.stride(1), t.stride(2)]
+    with torch.cuda.device(dev):
+        err = lib.flash_forward(
+            int(q.dtype == torch.bfloat16), *args, B, H, KV, S, T, hd,
+            int(causal), 0 if window is None else int(window),
+            1.0 / math.sqrt(hd),
+            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    if err != 0:
+        raise RuntimeError(f"flash_attention launch failed with CUDA error "
+                           f"{err}")
+    LAUNCHES["flash_attention"] += 1
+    return o

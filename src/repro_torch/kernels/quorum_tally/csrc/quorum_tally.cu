@@ -8,6 +8,16 @@
 // point launches on the stream it is given, allocates nothing and returns
 // cudaGetLastError().
 //
+// tally_votes              replaces src/repro/kernels/quorum_tally/kernel.py
+//                          :tally_votes (_tally_kernel).
+//   Bound: device memory.  It reads S*n*4 bytes of votes and writes S*K*4
+//   bytes of counts; the work is n*K integer compares a trial.
+//   Design: tally_decide's counting loop (count_row below) without the
+//   decide outputs: one thread per trial, 8 counters in registers, one pass
+//   over the row for each 8 values, so any K and any n.  Votes outside
+//   [0, K), such as the -1 of "no vote" (the TPU kernel's padding), are
+//   counted for no value.
+//
 // tally_decide             replaces src/repro/kernels/quorum_tally/kernel.py
 //                          :tally_decide (_tally_decide_kernel).
 //   Bound: device memory.  It reads S*n*4 bytes of votes and writes
@@ -53,8 +63,35 @@
 #define MAX_N 128
 
 // ---------------------------------------------------------------------------
-// tally_decide
+// tally_votes and tally_decide
 // ---------------------------------------------------------------------------
+
+// c[v] = number of the n votes of `row` equal to base + v, for v < MAX_K
+// (the callers use the first min(K - base, MAX_K)).
+__device__ __forceinline__ void count_row(const int* __restrict__ row, int n,
+                                          int base, int (&c)[MAX_K]) {
+#pragma unroll
+  for (int v = 0; v < MAX_K; ++v) c[v] = 0;
+  for (int a = 0; a < n; ++a) {
+    int x = row[a];
+#pragma unroll
+    for (int v = 0; v < MAX_K; ++v) c[v] += (x == base + v);
+  }
+}
+
+__global__ void tally_votes_kernel(const int* __restrict__ votes, int S,
+                                   int n, int K, int* __restrict__ counts) {
+  int s = blockIdx.x * blockDim.x + threadIdx.x;
+  if (s >= S) return;
+  int c[MAX_K];
+  for (int base = 0; base < K; base += MAX_K) {
+    count_row(votes + (size_t)s * n, n, base, c);
+#pragma unroll
+    for (int v = 0; v < MAX_K; ++v) {
+      if (base + v < K) counts[(size_t)s * K + base + v] = c[v];
+    }
+  }
+}
 
 __global__ void tally_decide_kernel(const int* __restrict__ votes, int S,
                                     int n, int K, int q,
@@ -65,14 +102,7 @@ __global__ void tally_decide_kernel(const int* __restrict__ votes, int S,
   int s = blockIdx.x * blockDim.x + threadIdx.x;
   if (s >= S) return;
   int c[MAX_K];
-#pragma unroll
-  for (int v = 0; v < MAX_K; ++v) c[v] = 0;
-  const int* row = votes + (size_t)s * n;
-  for (int a = 0; a < n; ++a) {
-    int x = row[a];
-#pragma unroll
-    for (int v = 0; v < MAX_K; ++v) c[v] += (x == v);
-  }
+  count_row(votes + (size_t)s * n, n, 0, c);
   int best = c[0], w = 0;
 #pragma unroll
   for (int v = 1; v < MAX_K; ++v) {
@@ -315,6 +345,15 @@ __global__ void stream_kernel(
 // ---------------------------------------------------------------------------
 
 extern "C" {
+
+int qt_tally_votes(const void* votes, int S, int n, int K, void* counts,
+                   void* stream) {
+  const int threads = 256;
+  const int blocks = (S + threads - 1) / threads;
+  tally_votes_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      (const int*)votes, S, n, K, (int*)counts);
+  return (int)cudaGetLastError();
+}
 
 int qt_tally_decide(const void* votes, int S, int n, int K, int q,
                     void* counts, void* winner, void* max_count,

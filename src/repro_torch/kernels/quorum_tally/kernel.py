@@ -1,6 +1,6 @@
 """Hopper kernels for the quorum tally, bound with ctypes.
 
-``csrc/quorum_tally.cu`` holds three CUDA C++ kernels for ``sm_90a``; its
+``csrc/quorum_tally.cu`` holds four CUDA C++ kernels for ``sm_90a``; its
 header says which TPU kernel each replaces, what bounds it on the card and
 what its design does about that.  ``build()`` compiles the source with
 ``nvcc`` on first use into ``build/`` beside this file (git-ignored,
@@ -29,8 +29,8 @@ MAX_N = 128          # acceptors a trial may have (MAX_N in the source)
 MAX_K = 8            # values a race may have (MAX_K in the source)
 MAX_SMEM = 232_448   # shared memory one block may use on Hopper
 
-LAUNCHES: Dict[str, int] = {"tally_decide": 0, "masked_tally": 0,
-                            "stream_tally_decide_hist": 0}
+LAUNCHES: Dict[str, int] = {"tally_votes": 0, "tally_decide": 0,
+                            "masked_tally": 0, "stream_tally_decide_hist": 0}
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -54,6 +54,8 @@ def _load():
             path, _ = build()
             lib = ctypes.CDLL(str(path))
             P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            lib.qt_tally_votes.argtypes = [P, I, I, I, P, P]
+            lib.qt_tally_votes.restype = I
             lib.qt_tally_decide.argtypes = [P, I, I, I, I, P, P, P, P, P]
             lib.qt_tally_decide.restype = I
             lib.qt_masked_tally.argtypes = [P, P, P, I, I, I, I, P, P]
@@ -103,6 +105,29 @@ def _raise_on(err: int, name: str) -> None:
 
 def _stream(device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def tally_votes(votes: torch.Tensor, n_values: int) -> torch.Tensor:
+    """(S, n) int32 votes (< 0 = no vote) -> (S, K) int32 counts, for any
+    n and K (one pass over each row per 8 values)."""
+    if votes.dim() != 2:
+        raise ValueError(f"votes must be (S, n), got {tuple(votes.shape)}")
+    S, n = votes.shape
+    _require_cuda(votes)
+    if not 1 <= n_values < 2 ** 30:
+        raise ValueError(f"tally_votes takes 1 <= K < 2^30 values, got "
+                         f"K={n_values}")
+    dev = votes.device
+    _check(votes, "votes", torch.int32, (S, n), dev)
+    counts = torch.empty((S, n_values), dtype=torch.int32, device=dev)
+    if S:
+        lib = _load()
+        with torch.cuda.device(dev):
+            err = lib.qt_tally_votes(votes.data_ptr(), S, n, n_values,
+                                     counts.data_ptr(), _stream(dev))
+        _raise_on(err, "tally_votes")
+        LAUNCHES["tally_votes"] += 1
+    return counts
 
 
 def tally_decide(votes: torch.Tensor, n_values: int, q) -> tuple:

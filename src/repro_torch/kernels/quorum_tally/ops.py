@@ -24,6 +24,19 @@ def _on_card(t: torch.Tensor) -> bool:
                      f"plain version, on the CPU; got a tensor on {t.device}")
 
 
+def tally_votes(votes: torch.Tensor, n_values: int) -> torch.Tensor:
+    """(S, K) int32 count of each value's votes in (S, n) votes."""
+    if _on_card(votes):
+        return kernel.tally_votes(votes, n_values)
+    return ref.tally_votes(votes, n_values)
+
+
+def quorum_reached(votes: torch.Tensor, n_values: int, q: int
+                   ) -> torch.Tensor:
+    """(S,) bool: some value gathered >= q of the (S, n) votes."""
+    return (tally_votes(votes, n_values) >= q).any(dim=-1)
+
+
 def tally_decide(votes: torch.Tensor, n_values: int, q) -> tuple:
     """(counts, winner, max_count, reached) of (S, n) votes."""
     if _on_card(votes):

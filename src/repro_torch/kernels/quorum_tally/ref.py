@@ -22,6 +22,12 @@ def tally_votes(votes: torch.Tensor, n_values: int) -> torch.Tensor:
     return (votes[..., None] == vals).sum(dim=-2).to(torch.int32)
 
 
+def quorum_reached(votes: torch.Tensor, n_values: int, q: int
+                   ) -> torch.Tensor:
+    """(S,) bool: some value gathered >= q votes."""
+    return (tally_votes(votes, n_values) >= q).any(dim=-1)
+
+
 def tally_decide(votes: torch.Tensor, n_values: int, q) -> tuple:
     """Plain version of the fused tally+decide kernel.
 

@@ -7,7 +7,8 @@ into ``build/`` beside this file (git-ignored, ``kernels/_build.py``), and
 ``ctypes`` loads it.  Nothing is compiled or loaded at import: this module
 imports on a machine without CUDA.
 
-``ssd`` checks device, dtypes, shapes, strides and sizes, allocates the
+``ssd`` refuses inputs that autograd would record through (the kernel has no
+backward), checks device, dtypes, shapes, strides and sizes, allocates the
 outputs, launches on ``torch.cuda.current_stream()``, raises if the launch
 returned a CUDA error, and adds one to ``LAUNCHES["ssd"]`` when it launches.
 """
@@ -20,7 +21,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, refuse_grad
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd_scan.cu"
 
@@ -86,6 +87,7 @@ def ssd(xw: torch.Tensor, da: torch.Tensor, Bm: torch.Tensor,
     (one dtype for both), init_state (B,nh,hd,ds) f32 contiguous or None ->
     (y (B,S,nh,hd) in xw's dtype, final state (B,nh,hd,ds) f32).  Every
     input but ``init_state`` may be strided on all axes but the last."""
+    refuse_grad("SSD", xw, da, Bm, Cm, init_state)
     if not xw.is_cuda:
         raise ValueError(f"the SSD kernel takes CUDA tensors, got one on "
                          f"{xw.device}; ops.py routes CPU tensors to the "

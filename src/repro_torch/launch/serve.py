@@ -1,12 +1,14 @@
 """Serving launcher of the port: prefill + batched greedy decode.
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2_130m
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2_2_7b
       [--batch 4] [--prompt-len 1024] [--tokens 32] [--smoke] [--device cpu]
 
-Serves the full configuration on the card, where every prefill runs the SSD
-kernel once a layer, with weights from the port's seeded initialiser and a
-random prompt batch made from a seed.  ``--smoke`` serves the reduced
-configuration; ``--device cpu`` runs the plain versions on the CPU.  Prints prefill ms and decode tok/s.
+Serves the full configuration on the card -- where every prefill runs the
+SSD kernel in each Mamba2 layer, flash attention in each attention block
+and RMSNorm at every norm -- with weights from the port's seeded
+initialiser and a random prompt batch made from a seed.  ``--smoke``
+serves the reduced configuration; ``--device cpu`` runs the plain versions
+on the CPU.  Prints prefill ms and decode tok/s.
 """
 from __future__ import annotations
 

@@ -5,7 +5,9 @@ model.DecoderLM.init`` with its leaves as numpy arrays (the caller converts
 them; this module imports no JAX) and returns the port's ``state_dict``.
 JAX stacks each block kind's params over superblocks on a leading axis; the
 port keeps one module per superblock, so ``blocks/<key>/<name>`` of shape
-(n_superblocks, ...) becomes ``blocks.<i>.<key>.<name>`` for each i.
+(n_superblocks, ...) becomes ``blocks.<i>.<key>.<name>`` for each i.  Every
+other leaf -- ``embed``, ``head``, ``final_norm`` and zamba2's unstacked
+weight-shared block ``shared/...`` -- keeps its name with dots.
 """
 from __future__ import annotations
 

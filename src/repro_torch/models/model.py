@@ -3,23 +3,32 @@
 
 Layers are grouped into *superblocks* (``cfg.pattern``); the JAX package
 stacks their params and scans over them, the port keeps one module per
-superblock in an ``nn.ModuleList`` and walks it in Python.  The port runs
-the ``"mamba"`` block kind so far (the pure-SSM ``mamba2_130m``); the other
-kinds raise ``NotImplementedError`` until attention, MLP and MoE are ported
-(ROADMAP.md queue 1 items 10b and 10d).
+superblock in an ``nn.ModuleList`` and walks it in Python.  zamba2's
+weight-shared attention block (``"shared_attn"``) is one module,
+``shared``, applied at its place in every superblock with that place's own
+KV cache.  The port runs the block kinds ``"mamba"``, ``"global"``,
+``"local"`` and ``"shared_attn"`` with a dense MLP; MoE, MLA and the
+frontends raise ``NotImplementedError`` (ROADMAP.md queue 1 item 10d).
 
 Entry points, as in the JAX package:
   forward(batch)                 -> logits (scoring path, no cache)
   prefill(batch, cache)          -> (cache, logits of the last position)
   decode_step(cache, tokens)     -> (logits, cache)
 
+KV caches are ring buffers with an explicit position buffer ``k_pos``
+(-1 = empty): a slot is attendable iff its stored position is in
+[q_pos - window, q_pos].  Prefill attends over the prompt's own k/v (the
+flash kernel on the card); decode attends over (ring buffer ++ current
+k/v) with ``valid = k_pos >= 0`` in plain torch.
+
 Params are f32; compute runs in ``COMPUTE_DTYPE`` (bf16), with weights cast
-at use.  The JAX package's ``use_ssd_kernel`` switch has no counterpart: the
-device decides, so a prefill or forward on the card runs the SSD kernel in
-every layer and one on the CPU its plain version (``kernels/ssd_scan/ops``).  The model is built on the card unless ``device="cpu"`` (or
-``"meta"``, which allocates nothing and draws no weights) is given; weights
-come from a CPU ``torch.Generator`` seeded with ``seed``, so a seed gives
-the same weights on every device.
+at use.  The device decides every kernel: on the card a prefill or forward
+runs the SSD kernel in every Mamba2 layer, flash attention in every
+attention block and the RMSNorm kernel in every norm; on the CPU each runs
+its plain version (``kernels/*/ops``).  The model is built on the card
+unless ``device="cpu"`` (or ``"meta"``, which allocates nothing and draws
+no weights) is given; weights come from a CPU ``torch.Generator`` seeded
+with ``seed``, so a seed gives the same weights on every device.
 """
 from __future__ import annotations
 
@@ -51,16 +60,33 @@ class MambaLayer(nn.Module):
         self.mamba = ssm_mod.Mamba(cfg, generator, device)
 
 
+class AttnLayer(nn.Module):
+    """One attention block (``"global"``, ``"local"``, or the shared block):
+    ln1, GQA attention, ln2, dense MLP."""
+
+    def __init__(self, cfg: ArchConfig, generator, device):
+        super().__init__()
+        self.ln1 = layers.Norm(cfg, device)
+        self.attn = layers.Attention(cfg, generator, device)
+        self.ln2 = layers.Norm(cfg, device)
+        self.ffn = layers.MLP(cfg, generator, device)
+
+
+PORTED_KINDS = {"mamba", "global", "local", "shared_attn"}
+
+
 class DecoderLM(nn.Module):
     def __init__(self, cfg: ArchConfig, device=None, seed: int = 0):
         super().__init__()
         device = device_mod.resolve(device)
-        unported = sorted(set(cfg.pattern) - {"mamba"})
-        if unported or cfg.frontend is not None:
+        unported = sorted(set(cfg.pattern) - PORTED_KINDS)
+        if unported or cfg.moe is not None or cfg.mla is not None \
+                or cfg.frontend is not None:
             raise NotImplementedError(
-                f"{cfg.name}: the port runs 'mamba' blocks without a "
-                f"frontend so far; {unported or cfg.frontend} wait for "
-                f"ROADMAP.md queue 1 items 10b and 10d")
+                f"{cfg.name}: the port runs {sorted(PORTED_KINDS)} blocks "
+                f"with a dense MLP and no frontend so far; MoE, MLA, "
+                f"frontends and other block kinds wait for ROADMAP.md "
+                f"queue 1 item 10d")
         self.cfg = cfg
         gen = (None if device.type == "meta"
                else torch.Generator().manual_seed(seed))
@@ -68,25 +94,58 @@ class DecoderLM(nn.Module):
             layers.normal((cfg.vocab, cfg.d_model), gen, device) * 0.02)
         self.head = layers.dense_init((cfg.d_model, cfg.vocab), gen, device)
         self.final_norm = layers.Norm(cfg, device)
+        layer_cls = {"mamba": MambaLayer, "global": AttnLayer,
+                     "local": AttnLayer}
         self.blocks = nn.ModuleList(
-            nn.ModuleDict({_kind_key(kind, j): MambaLayer(cfg, gen, device)
-                           for j, kind in enumerate(cfg.pattern)})
+            nn.ModuleDict({_kind_key(kind, j): layer_cls[kind](cfg, gen,
+                                                                device)
+                           for j, kind in enumerate(cfg.pattern)
+                           if kind != "shared_attn"})
             for _ in range(cfg.n_superblocks))
+        if "shared_attn" in cfg.pattern:
+            self.shared = AttnLayer(cfg, gen, device)
 
     # ----------------------------------------------------------- embeddings
     def embed_inputs(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         return self.embed[batch["tokens"]].to(COMPUTE_DTYPE)
 
     # ---------------------------------------------------------------- blocks
-    def _apply_block(self, kind: str, p: MambaLayer, x: torch.Tensor,
-                     cache: Optional[Cache]
+    def _apply_block(self, kind: str, p: nn.Module, x: torch.Tensor,
+                     cache: Optional[Cache], pos0: int
                      ) -> Tuple[torch.Tensor, Optional[Cache]]:
-        """One block on x (B,S,D); returns (x, new_cache_slice)."""
-        h = p.ln(x)
-        y, nc = ssm_mod.mamba_block(self.cfg, p.mamba, h, cache=cache)
-        return x + y, nc
+        """One block on x (B,S,D) at positions pos0.. ; returns (x,
+        new_cache_slice).  ``kind`` is "mamba", "global" or "local"."""
+        cfg = self.cfg
+        if kind == "mamba":
+            h = p.ln(x)
+            y, nc = ssm_mod.mamba_block(cfg, p.mamba, h, cache=cache)
+            return x + y, nc
 
-    def _run_blocks(self, x: torch.Tensor, cache: Optional[List[Cache]]
+        S = x.shape[1]
+        window = cfg.window if kind == "local" else None
+        q_pos = pos0 + torch.arange(S, dtype=torch.int32, device=x.device)
+        h = p.ln1(x)
+        # Decode (S == 1) attends over (prior ring buffer ++ current k/v);
+        # prefill attends over the prompt's own k/v only.  The write to the
+        # ring buffer is separate and goes to new_cache.
+        k, v = layers.project_kv(cfg, p.attn, h, q_pos)
+        new_cache = (None if cache is None
+                     else _cache_write_kv(cache, k, v, q_pos))
+        if cache is not None and S == 1:
+            k_all = torch.cat([cache["k"], k.to(cache["k"].dtype)], dim=1)
+            v_all = torch.cat([cache["v"], v.to(cache["v"].dtype)], dim=1)
+            k_pos = torch.cat([cache["k_pos"], q_pos])
+            y = layers.attention(cfg, p.attn, h, k_all, v_all, q_pos,
+                                 k_pos.clamp_min(0), window=window,
+                                 k_valid=k_pos >= 0)
+        else:
+            y = layers.attention(cfg, p.attn, h, k, v, q_pos, q_pos,
+                                 window=window)
+        x = x + y
+        return x + layers.apply_mlp(cfg, p.ffn, p.ln2(x)), new_cache
+
+    def _run_blocks(self, x: torch.Tensor, cache: Optional[List[Cache]],
+                    pos0: int = 0
                     ) -> Tuple[torch.Tensor, Optional[List[Cache]]]:
         new_cache: List[Cache] = []
         for i, sb in enumerate(self.blocks):
@@ -94,7 +153,11 @@ class DecoderLM(nn.Module):
             for j, kind in enumerate(self.cfg.pattern):
                 key = _kind_key(kind, j)
                 c_j = None if cache is None else cache[i][key]
-                x, nc = self._apply_block(kind, sb[key], x, c_j)
+                if kind == "shared_attn":
+                    p_j, kind = self.shared, "global"
+                else:
+                    p_j = sb[key]
+                x, nc = self._apply_block(kind, p_j, x, c_j, pos0)
                 if nc is not None:
                     new_sb[key] = nc
             new_cache.append(new_sb)
@@ -113,16 +176,30 @@ class DecoderLM(nn.Module):
 
     # -- serving ----------------------------------------------------------
     def init_cache(self, batch: int, max_len: int) -> Cache:
-        """{"pos", "layers": one {key: {"conv", "state"}} per superblock}.
-        An SSM cache does not grow with ``max_len``; the argument is the
-        JAX package's, for the attention caches of later block kinds."""
+        """{"pos", "layers": one {key: cache} per superblock}.  A Mamba2
+        block's cache is {"conv", "state"}; an attention block's is a ring
+        buffer {"k", "v": (batch, T, KV, hd) in COMPUTE_DTYPE, "k_pos": (T,)
+        int32 of -1}, with T = cfg.window for "local" blocks, else
+        ``max_len``."""
+        cfg = self.cfg
         dev = self.embed.device
-        spec = ssm_mod.mamba_cache_spec(self.cfg, batch)
-        layers_ = [{_kind_key(kind, j): {
-            name: torch.zeros(shp, dtype=dt, device=dev)
-            for name, (shp, dt) in spec.items()}
-            for j, kind in enumerate(self.cfg.pattern)}
-            for _ in range(self.cfg.n_superblocks)]
+        spec = (ssm_mod.mamba_cache_spec(cfg, batch)
+                if "mamba" in cfg.pattern else {})
+
+        def one(kind):
+            if kind == "mamba":
+                return {name: torch.zeros(shp, dtype=dt, device=dev)
+                        for name, (shp, dt) in spec.items()}
+            T = cfg.window if kind == "local" else max_len
+            kv = (batch, T, cfg.n_kv_heads, cfg.hd)
+            return {"k": torch.zeros(kv, dtype=COMPUTE_DTYPE, device=dev),
+                    "v": torch.zeros(kv, dtype=COMPUTE_DTYPE, device=dev),
+                    "k_pos": torch.full((T,), -1, dtype=torch.int32,
+                                        device=dev)}
+
+        layers_ = [{_kind_key(kind, j): one(kind)
+                    for j, kind in enumerate(cfg.pattern)}
+                   for _ in range(cfg.n_superblocks)]
         return {"pos": 0, "layers": layers_}
 
     def prefill(self, batch: Dict[str, torch.Tensor], cache: Cache
@@ -138,7 +215,42 @@ class DecoderLM(nn.Module):
                     ) -> Tuple[torch.Tensor, Cache]:
         """One decode step: tokens (B,1) -> logits (B,1,V), updated cache."""
         x = self.embed[tokens].to(COMPUTE_DTYPE)
-        x, new_layers = self._run_blocks(x, cache["layers"])
+        pos = cache["pos"]
+        x, new_layers = self._run_blocks(x, cache["layers"], pos)
         logits = self._head(x)
-        return logits, {"pos": cache["pos"] + tokens.shape[1],
-                        "layers": new_layers}
+        return logits, {"pos": pos + tokens.shape[1], "layers": new_layers}
+
+
+# ---------------------------------------------------------------------------
+# Cache write helpers (ring buffers with explicit position tracking).
+# ---------------------------------------------------------------------------
+
+def _ring_write(buf: torch.Tensor, new: torch.Tensor, pos_buf: torch.Tensor,
+                q_pos: torch.Tensor, axis: int = 1
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Write new (B,S,...) into the ring buffer (B,T,...) at q_pos % T.
+    Returns new tensors (buffer, positions); the inputs are not changed."""
+    T = buf.shape[axis]
+    S = new.shape[axis]
+    if S >= T:
+        # keep the last T entries (a prompt longer than the window), rolled
+        # so that slot(p) = p % T holds: decode writes then evict exactly
+        # the oldest entry.
+        tail = new.narrow(axis, S - T, T)
+        tail_pos = q_pos[S - T:]
+        shift = int(tail_pos[0]) % T
+        return (torch.roll(tail, shift, dims=axis).to(buf.dtype),
+                torch.roll(tail_pos, shift, dims=0))
+    # JAX's _scatter_axis is Tensor.index_copy (out of place) here.
+    idx = (q_pos[0].long() % T + torch.arange(S, device=buf.device)) % T
+    return (buf.index_copy(axis, idx, new.to(buf.dtype)),
+            pos_buf.index_copy(0, idx, q_pos.to(pos_buf.dtype)))
+
+
+def _cache_write_kv(cache: Cache, k: torch.Tensor, v: torch.Tensor,
+                    q_pos: torch.Tensor) -> Cache:
+    """The attention block's cache after writing k/v (B,S,KV,hd) at
+    q_pos."""
+    kn, pn = _ring_write(cache["k"], k, cache["k_pos"], q_pos)
+    vn, _ = _ring_write(cache["v"], v, cache["k_pos"], q_pos)
+    return {"k": kn, "v": vn, "k_pos": pn}

@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.rmsnorm import ops as rmsnorm_ops
 
 from .layers import dense_init, normal
 
@@ -204,10 +205,9 @@ def mamba_block(cfg: ArchConfig, p: Mamba, x: torch.Tensor,
 
     y = y + xh * p.Dskip[:, None].to(xh.dtype)
     y = y.reshape(B, S, di)
-    # gated RMSNorm then out-projection
-    g = y * F.silu(z)
-    ms = g.float().square().mean(-1, keepdim=True)
-    g = (g.float() * torch.rsqrt(ms + 1e-6) * p.norm_scale).to(dt_)
+    # gated RMSNorm (the RMSNorm kernel on the card: f32 statistics, eps
+    # 1e-6, the result in g's dtype) then out-projection
+    g = rmsnorm_ops.rmsnorm(y * F.silu(z), p.norm_scale, 1e-6)
     out = g @ p.wo.to(dt_)
 
     new_cache = None

@@ -8,15 +8,24 @@ nor the JAX package, so they run on a machine that has only PyTorch:
 Integer outputs must be equal; the fused kernel's f32 latency sum reduces
 per-block partials, so it is compared to 1e-5 relative; maxima are exact.
 The SSD kernel is held to its plain chunked version and to the recurrence
-at the JAX kernel tests' tolerances (1e-3 f32, 3e-2 with bf16 xw).
+at the JAX kernel tests' tolerances (1e-3 f32, 3e-2 with bf16 xw).  Flash
+attention is held to its plain version on f32 inputs at the JAX kernel
+tests' 2e-5 (f32) and 2e-2 (bf16: the output is rounded to bf16); RMSNorm
+at 1e-5 (f32) and 5e-2 (bf16), each times max(1, |plain|) (outputs reach
+about 20, where one bf16 ulp is 0.125).
 """
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import stream_test_inputs as _inputs
 from repro_torch.configs import get_config, reduced_config
+from repro_torch.kernels.flash_attention import kernel as fa_kernel
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.quorum_tally import kernel, ops, ref
+from repro_torch.kernels.rmsnorm import kernel as rn_kernel
+from repro_torch.kernels.rmsnorm import ops as rn_ops
+from repro_torch.kernels.rmsnorm import ref as rn_ref
 from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan import ref as ssd_ref
@@ -25,6 +34,28 @@ from repro_torch.models.ssm import ssd_chunked
 from repro_torch.montecarlo import streaming
 
 BINS = streaming.sketch_bins(0.01)
+
+
+def stream_test_inputs(seed, S, n, M, G, K, dev):
+    """The stream kernel's test inputs: integral weights, quantized arrival
+    times (ties), ~10% lost 2b lanes, trailing padding trials."""
+    r = np.random.default_rng(seed)
+    votes = r.integers(-1, K, (S, n)).astype(np.int32)
+    arrive = np.floor(np.exp(r.standard_normal((S, n))) * 8.0) / 4.0
+    classic = np.floor(np.exp(r.standard_normal((S, n))) * 8.0) / 4.0
+    val_arr = np.floor(np.exp(r.standard_normal((S, K, n))) * 8.0) / 4.0 + .25
+    lost = (votes[:, None, :] != np.arange(K)[None, :, None]) \
+        | (r.random((S, K, n)) < 0.1)
+    val_arr = np.where(lost, 1e9, val_arr)
+    masks = []
+    for _ in range(3):
+        masks.append(r.integers(0, 3, (M, G, n)).astype(np.float32))
+        masks.append(r.integers(1, n + 2, (M, G)).astype(np.float32))
+    valid = np.arange(S) < S - S // 7
+    f = lambda x: torch.as_tensor(np.asarray(x, np.float32)).to(dev)
+    return ([torch.as_tensor(votes).to(dev), f(val_arr), f(arrive),
+             f(classic)] + [f(m) for m in masks]
+            + [torch.as_tensor(valid).to(dev)])
 
 
 def ssd_test_inputs(seed, B, S, nh, hd, ds, x_dtype, bc_dtype, dev):
@@ -82,7 +113,7 @@ def test_masked_tally_kernel(cuda, S, n, V, G):
     (8192, 12, 13, 12, 2, (12, 4, 8)),
 ])
 def test_stream_kernel(cuda, S, n, M, G, K, k_sat):
-    args = _inputs(S * 13 + M, S, n, M, G, K, cuda)
+    args = stream_test_inputs(S * 13 + M, S, n, M, G, K, cuda)
     kw = dict(n_values=K, k_sat=k_sat, precision=0.01, bins=BINS,
               undecided_ms=5e8)
     h_k, s_k = kernel.stream_tally_decide_hist(*args, **kw)
@@ -95,7 +126,7 @@ def test_stream_kernel(cuda, S, n, M, G, K, k_sat):
 
 
 def test_stream_kernel_all_invalid_block(cuda):
-    args = _inputs(3, 128, 5, 1, 2, 2, cuda)
+    args = stream_test_inputs(3, 128, 5, 1, 2, 2, cuda)
     args[-1] = torch.zeros(128, dtype=torch.bool, device=cuda)
     h, s = kernel.stream_tally_decide_hist(
         *args, n_values=2, k_sat=(3, 3, 3), precision=0.01, bins=BINS,
@@ -110,8 +141,9 @@ def test_ops_launch_on_cuda_and_count(cuda):
     ops.tally_decide(votes, 2, 3)
     ops.masked_tally(votes, torch.ones((2, 5), device=cuda),
                      torch.ones(2, device=cuda), 2)
-    assert ops.LAUNCHES == {"tally_decide": 1, "masked_tally": 1,
-                            "stream_tally_decide_hist": 0}
+    ops.quorum_reached(votes, 2, 3)
+    assert ops.LAUNCHES == {"tally_votes": 1, "tally_decide": 1,
+                            "masked_tally": 1, "stream_tally_decide_hist": 0}
 
 
 def test_wrappers_raise_on_bad_input(cuda):
@@ -123,10 +155,29 @@ def test_wrappers_raise_on_bad_input(cuda):
     with pytest.raises(ValueError, match="n <= 128"):
         kernel.tally_decide(torch.zeros((8, 129), dtype=torch.int32,
                                         device=cuda), 2, 3)
+    with pytest.raises(ValueError, match="1 <= K"):
+        kernel.tally_votes(votes, 0)
+    with pytest.raises(ValueError, match="dtype"):
+        kernel.tally_votes(votes.long(), 2)
     with pytest.raises(ValueError, match="contiguous"):
         kernel.masked_tally(torch.zeros((5, 8), dtype=torch.int32,
                                         device=cuda).T, torch.ones(
             (1, 5), device=cuda), torch.ones(1, device=cuda), 2)
+
+
+@pytest.mark.parametrize("S,n,V", [(100, 11, 2), (1024, 11, 3),
+                                   (3000, 7, 2), (5000, 32, 5),
+                                   (16384, 11, 2), (700, 200, 12),
+                                   (1000, 5, 17)])
+def test_tally_votes_kernel(cuda, S, n, V):
+    r = np.random.default_rng(S + n)
+    votes = torch.as_tensor(r.integers(-1, V, (S, n)).astype(np.int32),
+                            device=cuda)
+    assert torch.equal(kernel.tally_votes(votes, V),
+                       ref.tally_votes(votes, V))
+    q = n // 2 + 1
+    assert torch.equal(ops.quorum_reached(votes, V, q),
+                       ref.quorum_reached(votes, V, q))
 
 
 # ---------------------------------------------------------------------------
@@ -234,3 +285,180 @@ def test_model_prefill_runs_the_kernel_at_any_prompt_length(
             sb["mamba_0"]["state"].cpu() for sb in c["layers"]]
     for a, b in zip(got["cuda"], got["cpu"]):
         assert (a - b).abs().max() < 1e-3 * max(1.0, float(b.abs().max()))
+
+
+# ---------------------------------------------------------------------------
+# Flash attention and RMSNorm: the kernels against their plain versions.
+# ---------------------------------------------------------------------------
+
+# (B, H, KV, S, T, hd, causal, window, dtype): JAX's ATTN_CASES
+# (tests/test_kernels.py), then ragged S and T, hd 80 (zamba2's) and 48,
+# a window without causality, and the zamba2 serving shape.
+FA_CASES = [
+    (2, 4, 2, 256, 256, 64, True, None, torch.float32),
+    (1, 8, 8, 128, 128, 128, True, None, torch.float32),
+    (1, 4, 1, 128, 128, 64, True, 64, torch.float32),
+    (2, 2, 2, 64, 512, 32, True, None, torch.float32),
+    (1, 4, 2, 256, 256, 64, False, None, torch.float32),
+    (2, 4, 2, 256, 256, 64, True, None, torch.bfloat16),
+    (1, 2, 2, 128, 128, 256, True, 32, torch.bfloat16),
+    (2, 4, 4, 100, 100, 80, True, None, torch.float32),
+    (1, 4, 2, 37, 200, 48, True, 50, torch.bfloat16),
+    (1, 2, 1, 130, 130, 80, False, 17, torch.float32),
+    (4, 32, 32, 1024, 1024, 80, True, None, torch.bfloat16),
+]
+
+
+def fa_inputs(seed, B, H, KV, S, T, hd, dtype, dev):
+    r = np.random.default_rng(seed)
+    t = lambda shape: torch.as_tensor(r.standard_normal(shape).astype(
+        np.float32)).to(dev).to(dtype)
+    return t((B, H, S, hd)), t((B, KV, T, hd)), t((B, KV, T, hd))
+
+
+@pytest.mark.parametrize("B,H,KV,S,T,hd,causal,window,dtype", FA_CASES)
+def test_flash_attention_kernel(cuda, no_tf32, B, H, KV, S, T, hd, causal,
+                                window, dtype):
+    q, k, v = fa_inputs(S + hd, B, H, KV, S, T, hd, dtype, cuda)
+    o = fa_kernel.attention(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    assert o.dtype == dtype and o.shape == q.shape
+    want = fa_ref.attention(q.float(), k.float(), v.float(), causal, window)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    assert (o.float() - want).abs().max() < tol * max(
+        1.0, float(want.abs().max()))
+
+
+def test_flash_attention_reads_the_model_layout(cuda):
+    """(B,S,H,hd) tensors viewed as (B,H,S,hd): the kernel reads them
+    through their strides and writes its output in the same layout."""
+    q, k, v = fa_inputs(1, 2, 4, 2, 96, 96, 80, torch.bfloat16, cuda)
+    qs, ks, vs = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    o = fa_kernel.attention(qs.transpose(1, 2), ks.transpose(1, 2),
+                            vs.transpose(1, 2), True, None)
+    assert o.transpose(1, 2).is_contiguous()
+    assert torch.equal(o, fa_kernel.attention(q, k, v, True, None))
+
+
+def test_flash_ops_launch_on_cuda_and_count(cuda):
+    q, k, v = fa_inputs(2, 1, 2, 1, 64, 64, 32, torch.float32, cuda)
+    fa_ops.reset_launches()
+    fa_ops.attention(q, k, v)
+    fa_ops.attention(q, k, v, causal=False, window=8)
+    assert fa_ops.LAUNCHES == {"flash_attention": 2}
+
+
+def test_flash_wrapper_raises_on_bad_input(cuda):
+    q, k, v = fa_inputs(3, 1, 4, 2, 64, 64, 32, torch.float32, cuda)
+    with pytest.raises(ValueError, match="dtype"):
+        fa_kernel.attention(q, k.bfloat16(), v)
+    with pytest.raises(ValueError, match="multiple of KV"):
+        fa_kernel.attention(q[:, :3], k, v)
+    with pytest.raises(ValueError, match="S <= T"):
+        fa_kernel.attention(q, k[:, :, :32], v[:, :, :32])
+    with pytest.raises(ValueError, match="last axis"):
+        fa_kernel.attention(q.transpose(2, 3).contiguous().transpose(2, 3),
+                            k, v)
+    with pytest.raises(ValueError, match="hd <= 256"):
+        big = torch.zeros(1, 1, 8, 264, device=cuda)
+        fa_kernel.attention(big, big, big)
+
+
+RN_CASES = [((4, 64, 256), torch.float32), ((2, 100, 384), torch.bfloat16),
+            ((8, 300), torch.float32), ((1, 7, 130), torch.bfloat16),
+            ((4096, 2560), torch.bfloat16), ((4096, 5120), torch.bfloat16),
+            ((3, 5, 2560), torch.float32)]
+
+
+def rn_inputs(seed, shape, dtype, dev):
+    r = np.random.default_rng(seed)
+    x = torch.as_tensor(r.standard_normal(shape).astype(np.float32))
+    s = torch.as_tensor(r.standard_normal(shape[-1]).astype(np.float32))
+    return x.to(dev).to(dtype), s.to(dev)
+
+
+@pytest.mark.parametrize("shape,dtype", RN_CASES)
+def test_rmsnorm_kernel(cuda, shape, dtype):
+    x, s = rn_inputs(shape[-1], shape, dtype, cuda)
+    y = rn_kernel.rmsnorm(x, s)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and y.shape == x.shape
+    want = rn_ref.rmsnorm(x, s).float()
+    tol = 1e-5 if dtype == torch.float32 else 5e-2
+    assert (y.float() - want).abs().max() < tol * max(
+        1.0, float(want.abs().max()))
+
+
+def test_rmsnorm_kernel_strided_rows(cuda):
+    """The last position of each sequence: rows with a stride of S*D."""
+    x, s = rn_inputs(7, (4, 9, 2560), torch.bfloat16, cuda)
+    y = rn_kernel.rmsnorm(x[:, -1:], s)
+    assert y.is_contiguous()
+    assert torch.equal(y, rn_kernel.rmsnorm(x[:, -1:].contiguous(), s))
+
+
+def test_rmsnorm_ops_launch_on_cuda_and_count(cuda):
+    x, s = rn_inputs(8, (4, 64), torch.float32, cuda)
+    rn_ops.reset_launches()
+    rn_ops.rmsnorm(x, s)
+    rn_ops.rmsnorm(x.bfloat16(), s)
+    assert rn_ops.LAUNCHES == {"rmsnorm": 2}
+
+
+def test_rmsnorm_wrapper_raises_on_bad_input(cuda):
+    x, s = rn_inputs(9, (4, 64), torch.float32, cuda)
+    with pytest.raises(ValueError, match="dtype"):
+        rn_kernel.rmsnorm(x.double(), s)
+    with pytest.raises(ValueError, match="scale"):
+        rn_kernel.rmsnorm(x, s.bfloat16())
+    with pytest.raises(ValueError, match="scale"):
+        rn_kernel.rmsnorm(x, s[:32])
+    with pytest.raises(ValueError, match="last axis"):
+        rn_kernel.rmsnorm(x.T.contiguous().T, s)
+
+
+@pytest.mark.parametrize("prompt_len", [45, 64])
+def test_zamba2_prefill_runs_the_three_kernels(cuda, no_tf32, monkeypatch,
+                                               prompt_len):
+    """Reduced zamba2 on the card: every prefill launches the SSD kernel in
+    each Mamba2 layer, flash attention at each of the shared block's places
+    and RMSNorm at every norm; with f32 compute it agrees with the CPU's
+    plain path (same seed, same weights) to 1e-3 of the largest value."""
+    monkeypatch.setattr(model_mod, "COMPUTE_DTYPE", torch.float32)
+    cfg = reduced_config(get_config("zamba2_2_7b"))
+    toks = torch.as_tensor(np.random.default_rng(prompt_len).integers(
+        0, cfg.vocab, (2, prompt_len)))
+    n_attn = cfg.n_superblocks
+    got = {}
+    for dev in (torch.device("cpu"), cuda):
+        m = model_mod.DecoderLM(cfg, device=dev, seed=0)
+        for ops_ in (ssd_ops, fa_ops, rn_ops):
+            ops_.reset_launches()
+        with torch.no_grad():
+            c, lg = m.prefill({"tokens": toks.to(dev)},
+                              m.init_cache(2, prompt_len + 1))
+        torch.cuda.synchronize()
+        on = dev.type == "cuda"
+        assert ssd_ops.LAUNCHES["ssd"] == cfg.n_layers * on
+        assert fa_ops.LAUNCHES["flash_attention"] == n_attn * on
+        assert rn_ops.LAUNCHES["rmsnorm"] == (
+            2 * (cfg.n_layers + n_attn) + 1) * on
+        got[dev.type] = [lg.float().cpu()] + [
+            sb[key][name].float().cpu() for sb in c["layers"]
+            for key, name in (("mamba_0", "state"), ("shared_attn_6", "k"),
+                              ("shared_attn_6", "v"))]
+    for a, b in zip(got["cuda"], got["cpu"]):
+        assert (a - b).abs().max() < 1e-3 * max(1.0, float(b.abs().max()))
+
+
+def test_forward_under_autograd_raises_on_the_card(cuda):
+    """The card's kernels have no backward: a forward pass that autograd
+    would record raises instead of returning logits cut off from the
+    weights; under no_grad the same call runs."""
+    cfg = reduced_config(get_config("zamba2_2_7b"))
+    m = model_mod.DecoderLM(cfg, device=cuda, seed=0)
+    toks = torch.zeros((1, 16), dtype=torch.long, device=cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        m({"tokens": toks})
+    with torch.no_grad():
+        assert m({"tokens": toks}).shape == (1, 16, cfg.vocab)

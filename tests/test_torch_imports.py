@@ -32,6 +32,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "repro_torch.models.ssm", "repro_torch.models.layers",
                  "repro_torch.models.convert",
                  "repro_torch.kernels.ssd_scan.kernel",
+                 "repro_torch.kernels.flash_attention.kernel",
+                 "repro_torch.kernels.flash_attention.ops",
+                 "repro_torch.kernels.flash_attention.ref",
+                 "repro_torch.kernels.rmsnorm.kernel",
+                 "repro_torch.kernels.rmsnorm.ops",
+                 "repro_torch.kernels.rmsnorm.ref",
                  "repro_torch.kernels._build"):
         assert name in names
     code = f"""
@@ -64,6 +70,7 @@ for fn in (lambda: score_systems(cardinality_family(3), trials=10),
            lambda: run_sweep(quick=True),
            lambda: engine.build_mask_table([QuorumSpec(3, 2, 2, 3)]),
            lambda: serve.main(["--arch", "mamba2_130m", "--smoke"]),
+           lambda: serve.main(["--arch", "zamba2_2_7b", "--smoke"]),
            lambda: DecoderLM(cfg)):
     try:
         fn()

@@ -134,11 +134,14 @@ def test_weights_follow_the_seed():
 
 
 def test_unported_architectures_raise():
+    """MoE, MLA and the frontends are not ported: those architectures
+    raise; the others build."""
     for arch in ARCH_IDS:
-        if arch == "mamba2_130m":
-            continue
         cfg = reduced_config(get_config(arch))
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        if cfg.moe or cfg.mla or cfg.frontend:
+            with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+                torch_model.DecoderLM(cfg, device="meta")
+        else:
             torch_model.DecoderLM(cfg, device="meta")
 
 

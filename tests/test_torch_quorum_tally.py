@@ -298,8 +298,9 @@ def test_ops_runs_plain_versions_on_cpu_without_launching():
     th = t([3.0, 9.0], np.float32)
     assert torch.equal(ops.masked_tally(votes, w, th, 2),
                        ref.masked_tally(votes, w, th, 2))
-    assert ops.LAUNCHES == {"tally_decide": 0, "masked_tally": 0,
-                            "stream_tally_decide_hist": 0}
+    assert torch.equal(ops.tally_votes(votes, 2), ref.tally_votes(votes, 2))
+    assert ops.LAUNCHES == {"tally_votes": 0, "tally_decide": 0,
+                            "masked_tally": 0, "stream_tally_decide_hist": 0}
 
 
 def test_ops_rejects_other_devices():
@@ -308,12 +309,15 @@ def test_ops_rejects_other_devices():
                                      device="meta"), 2, 3)
 
 
-@pytest.mark.parametrize("call", ["tally_decide", "masked_tally", "stream"])
+@pytest.mark.parametrize("call", ["tally_votes", "tally_decide",
+                                  "masked_tally", "stream"])
 def test_kernel_wrappers_refuse_cpu_tensors(call):
     """The CUDA wrappers never run a CPU tensor, and raise before building."""
     votes = torch.zeros((8, 5), dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        if call == "tally_decide":
+        if call == "tally_votes":
+            kernel.tally_votes(votes, 2)
+        elif call == "tally_decide":
             kernel.tally_decide(votes, 2, 3)
         elif call == "masked_tally":
             kernel.masked_tally(votes, torch.ones((1, 5)), torch.ones(1), 2)
