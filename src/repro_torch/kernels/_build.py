@@ -2,8 +2,9 @@
 
 Each kernel package keeps its source under ``csrc/`` and calls ``build``
 on first use.  The library goes into ``build/`` beside the package's
-``kernel.py`` (git-ignored), named by a hash of the source and the flags, so
-an edited source or flag builds anew and an unchanged one is reused.  There
+``kernel.py`` (git-ignored), named by a hash of the source, the shared
+headers in ``include/`` (passed with ``-I``) and the flags, so an edited
+source, header or flag builds anew and an unchanged one is reused.  There
 is no fallback: without ``nvcc``, or when it fails, ``build`` raises.
 """
 from __future__ import annotations
@@ -17,6 +18,7 @@ from typing import Tuple
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+INCLUDE = Path(__file__).resolve().parent / "include"
 
 
 def nvcc() -> str:
@@ -33,7 +35,8 @@ def build(source: Path, name: str) -> Tuple[Path, str]:
     """Compile ``source`` into ``build/lib<name>_<hash>.so`` beside it,
     unless that library exists.  Returns (library path, compiler log; empty
     when nothing was built)."""
-    src = source.read_bytes()
+    src = source.read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(INCLUDE.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     build_dir = source.parent.parent / "build"
     out = build_dir / f"lib{name}_{digest[:16]}.so"
@@ -41,7 +44,8 @@ def build(source: Path, name: str) -> Tuple[Path, str]:
         return out, ""
     build_dir.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
+    proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-I", str(INCLUDE), "-o",
+                           str(tmp), str(source)],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {source.name} "

@@ -1,7 +1,9 @@
 """The flash-attention kernel for Hopper, bound with ctypes.
 
-``csrc/flash_attention.cu`` holds the CUDA C++ kernel for ``sm_90a``; its
-header says which TPU kernel it replaces, what bounds it on the card and
+``csrc/flash_attention.cu`` holds the CUDA C++ kernel for ``sm_90a`` in two
+instances: bf16 inputs run the tensor-core instance (``mma.sync`` bf16
+products, P rounded to bf16 in registers), f32 inputs the f32-FMA instance;
+its header says which TPU kernel it replaces, what bounds it on the card and
 what its design does about that.  ``build()`` compiles it with ``nvcc`` on
 first use into ``build/`` beside this file (git-ignored,
 ``kernels/_build.py``), and ``ctypes`` loads it.  Nothing is compiled or
@@ -11,7 +13,8 @@ loaded at import: this module imports on a machine without CUDA.
 has no backward), checks device, dtypes, shapes, strides and sizes, allocates
 the output, launches on ``torch.cuda.current_stream()``, raises if the launch
 returned a CUDA error, and adds one to ``LAUNCHES["flash_attention"]`` when
-it launches.
+it launches, and one to ``LAUNCHES["flash_attention_tc"]`` when that launch
+is the tensor-core instance's.
 """
 from __future__ import annotations
 
@@ -29,7 +32,7 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 
 MAX_HD = 256          # the output accumulators are sized for hd <= 256
 
-LAUNCHES: Dict[str, int] = {"flash_attention": 0}
+LAUNCHES: Dict[str, int] = {"flash_attention": 0, "flash_attention_tc": 0}
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -54,10 +57,10 @@ def _load():
             path, _ = build()
             lib = ctypes.CDLL(str(path))
             P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-            lib.flash_smem.argtypes = [I]
+            lib.flash_smem.argtypes = [I, I]
             lib.flash_smem.restype = ctypes.c_size_t
             lib.flash_forward.argtypes = ([I] + [P, L, L, L] * 4 + [I] * 8
-                                          + [ctypes.c_float, P])
+                                          + [ctypes.c_float, I, P])
             lib.flash_forward.restype = I
             _lib = lib
     return _lib
@@ -120,14 +123,20 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     args = []
     for t in (q, k, v, o):
         args += [t.data_ptr(), t.stride(0), t.stride(1), t.stride(2)]
+    tc = q.dtype == torch.bfloat16
+    # 16-byte copies need every row of q, k and v to start 16-byte aligned
+    vec = hd % 8 == 0 and all(
+        t.data_ptr() % 16 == 0 and all(x % 8 == 0 for x in t.stride()[:3])
+        for t in (q, k, v))
     with torch.cuda.device(dev):
         err = lib.flash_forward(
-            int(q.dtype == torch.bfloat16), *args, B, H, KV, S, T, hd,
-            int(causal), 0 if window is None else int(window),
-            1.0 / math.sqrt(hd),
-            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+            int(tc), *args, B, H, KV, S, T, hd, int(causal),
+            0 if window is None else int(window), 1.0 / math.sqrt(hd),
+            int(vec), ctypes.c_void_p(torch.cuda.current_stream(dev)
+                                      .cuda_stream))
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed with CUDA error "
                            f"{err}")
     LAUNCHES["flash_attention"] += 1
+    LAUNCHES["flash_attention_tc"] += int(tc)
     return o

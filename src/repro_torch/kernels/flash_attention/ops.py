@@ -2,8 +2,9 @@
 
 A CPU tensor gets the plain version in ``ref.py``; a CUDA tensor gets the
 hand-written kernel in ``kernel.py``, or the exception its wrapper raises.
-Nothing falls back from one to the other.  ``LAUNCHES`` counts the kernel's
-launches; ``reset_launches()`` zeroes it.
+Nothing falls back from one to the other.  ``LAUNCHES["flash_attention"]``
+counts the kernel's launches, ``LAUNCHES["flash_attention_tc"]`` those of
+its bf16 tensor-core instance among them; ``reset_launches()`` zeroes both.
 """
 from __future__ import annotations
 

@@ -1,16 +1,23 @@
 """The Mamba2 SSD chunked-scan kernel for Hopper, bound with ctypes.
 
-``csrc/ssd_scan.cu`` holds the CUDA C++ kernel for ``sm_90a``; its header
-says which TPU kernel it replaces, what bounds it on the card and what its
-design does about that.  ``build()`` compiles it with ``nvcc`` on first use
-into ``build/`` beside this file (git-ignored, ``kernels/_build.py``), and
-``ctypes`` loads it.  Nothing is compiled or loaded at import: this module
-imports on a machine without CUDA.
+``csrc/ssd_scan.cu`` holds the CUDA C++ kernel for ``sm_90a`` in two
+instances: with xw, B and C in bf16 the tensor-core instance (two
+launches: chunk states with state passing, then C.B with the chunk
+outputs; every product on the tensor cores, the f32 factors split into
+hi + lo bf16 halves), with any of them in f32 the f32-FMA instance; its
+header says which TPU kernel it replaces, what bounds it on the card and
+what its design does about that.
+``build()`` compiles it with ``nvcc`` on first use into ``build/`` beside
+this file (git-ignored, ``kernels/_build.py``), and ``ctypes`` loads it.
+Nothing is compiled or loaded at import: this module imports on a machine
+without CUDA.
 
 ``ssd`` refuses inputs that autograd would record through (the kernel has no
 backward), checks device, dtypes, shapes, strides and sizes, allocates the
-outputs, launches on ``torch.cuda.current_stream()``, raises if the launch
-returned a CUDA error, and adds one to ``LAUNCHES["ssd"]`` when it launches.
+outputs (and the tensor-core instance's f32 scratch), launches on
+``torch.cuda.current_stream()``, raises if a launch returned a CUDA error,
+and adds one to ``LAUNCHES["ssd"]`` when it launches, and one to
+``LAUNCHES["ssd_tc"]`` when that is the tensor-core instance.
 """
 from __future__ import annotations
 
@@ -29,7 +36,7 @@ MAX_HD = 128       # head dim: y accumulators held in registers (MAX_HD)
 MAX_DS = 128       # state dim: so hd * ds <= 16384 (64 KiB of f32 state)
 MAX_CHUNK = 2048   # the chunk's cumsum lives in shared memory
 
-LAUNCHES: Dict[str, int] = {"ssd": 0}
+LAUNCHES: Dict[str, int] = {"ssd": 0, "ssd_tc": 0}
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -59,6 +66,12 @@ def _load():
                                          P, L, L, P, P, P]
                                         + [I] * 6 + [P])
             lib.ssd_forward.restype = I
+            lib.ssd_tc_smem.argtypes = [I, I, I]
+            lib.ssd_tc_smem.restype = ctypes.c_size_t
+            lib.ssd_tc_forward.argtypes = ([P, L, L, L, P, L, L, P, L, L,
+                                            P, L, L, P, P, P, P, P, P]
+                                           + [I] * 7 + [P])
+            lib.ssd_tc_forward.restype = I
             _lib = lib
     return _lib
 
@@ -119,6 +132,34 @@ def ssd(xw: torch.Tensor, da: torch.Tensor, Bm: torch.Tensor,
     if B * nh == 0:
         return y, fin
     lib = _load()
+    tc = xw.dtype == torch.bfloat16 and Bm.dtype == torch.bfloat16
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    s0 = None if init_state is None else init_state.data_ptr()
+    if tc:
+        # scratch: the in-chunk cumsums in f32, the state before each chunk
+        # as its hi and lo bf16 halves
+        nc = S // chunk
+        cum = torch.empty((B, nc, nh, chunk), dtype=torch.float32,
+                          device=dev)
+        st = torch.empty((2, B, nc, nh, hd, ds), dtype=torch.bfloat16,
+                         device=dev)
+        vec = hd % 8 == 0 and ds % 8 == 0 and all(
+            t.data_ptr() % 16 == 0 and all(x % 8 == 0 for x in t.stride()[:-1])
+            for t in (xw, Bm, Cm))
+        with torch.cuda.device(dev):
+            err = lib.ssd_tc_forward(
+                xw.data_ptr(), xw.stride(0), xw.stride(1), xw.stride(2),
+                da.data_ptr(), da.stride(0), da.stride(1),
+                Bm.data_ptr(), Bm.stride(0), Bm.stride(1),
+                Cm.data_ptr(), Cm.stride(0), Cm.stride(1), s0,
+                y.data_ptr(), fin.data_ptr(), cum.data_ptr(),
+                st[0].data_ptr(), st[1].data_ptr(), B, S, nh, hd, ds, chunk,
+                int(vec), stream)
+        if err != 0:
+            raise RuntimeError(f"ssd launch failed with CUDA error {err}")
+        LAUNCHES["ssd"] += 1
+        LAUNCHES["ssd_tc"] += 1
+        return y, fin
     with torch.cuda.device(dev):
         err = lib.ssd_forward(
             int(xw.dtype == torch.bfloat16), int(Bm.dtype == torch.bfloat16),
@@ -126,9 +167,8 @@ def ssd(xw: torch.Tensor, da: torch.Tensor, Bm: torch.Tensor,
             da.data_ptr(), da.stride(0), da.stride(1),
             Bm.data_ptr(), Bm.stride(0), Bm.stride(1),
             Cm.data_ptr(), Cm.stride(0), Cm.stride(1),
-            None if init_state is None else init_state.data_ptr(),
-            y.data_ptr(), fin.data_ptr(), B, S, nh, hd, ds, chunk,
-            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+            s0, y.data_ptr(), fin.data_ptr(), B, S, nh, hd, ds, chunk,
+            stream)
     if err != 0:
         raise RuntimeError(f"ssd launch failed with CUDA error {err}")
     LAUNCHES["ssd"] += 1

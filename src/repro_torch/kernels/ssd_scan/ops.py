@@ -4,8 +4,10 @@ A CPU tensor gets the plain version of what the kernel computes, the port's
 ``models.ssm.ssd_chunked``; a CUDA tensor gets the hand-written kernel in
 ``kernel.py``, or the exception its wrapper raises.  Nothing falls back from
 one to the other.  Both keep the JAX contract: ``chunk = min(chunk, S)``,
-``S`` a multiple of it, ``init_state=None`` meaning zeros.  ``LAUNCHES``
-counts the kernel's launches; ``reset_launches()`` zeroes it.
+``S`` a multiple of it, ``init_state=None`` meaning zeros.
+``LAUNCHES["ssd"]`` counts the kernel's calls, ``LAUNCHES["ssd_tc"]`` those
+of its bf16 tensor-core instance among them (two launches each);
+``reset_launches()`` zeroes both.
 """
 from __future__ import annotations
 

@@ -1,6 +1,21 @@
-"""Oracle for the SSD scan: the O(S) sequential recurrence (independent of
-the chunked algorithm the kernel implements)."""
+"""Plain versions for the SSD scan.
+
+``ssd`` is the oracle: the O(S) sequential recurrence, independent of the
+chunked algorithm the kernel implements.  The other functions are the plain
+versions of the four steps of the chunked decomposition that the kernel's
+tensor-core instance computes (``csrc/ssd_scan.cu``, whose two launches
+fuse steps 2 and 3, then 1 and 4), and ``ssd_decomposed`` composes them.  With
+``split=True`` they round where that instance rounds: the inputs xw, B and
+C are bf16 (exact on the tensor cores), and every f32 factor that meets
+them in a product -- the decayed scores, e^{cum_end - cum_j} xw_j and the
+carried state -- is replaced by its hi + lo bf16 halves
+(``split_bf16``)."""
 from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
 
 from repro_torch.models.ssm import ssd_reference
 
@@ -9,3 +24,94 @@ def ssd(xw, da, Bm, Cm, init_state=None):
     """xw (B,S,nh,hd), da (B,S,nh), Bm/Cm (B,S,ds) ->
     (y (B,S,nh,hd), final_state (B,nh,hd,ds))."""
     return ssd_reference(xw, da, Bm, Cm, init_state)
+
+
+def split_bf16(x: torch.Tensor) -> torch.Tensor:
+    """The value an f32 factor has on the tensor cores when split into two
+    bf16 halves, hi = bf16(x) and lo = bf16(x - hi): hi + lo, in f32."""
+    hi = x.to(torch.bfloat16).float()
+    return hi + (x - hi).to(torch.bfloat16).float()
+
+
+def cb(Bm: torch.Tensor, Cm: torch.Tensor, chunk: int) -> torch.Tensor:
+    """Step 1: C_i . B_j per (batch row, chunk), shared by every head:
+    (B, nc, L, L) f32 (the kernel forms it tile by tile inside step 4,
+    only on or below the diagonal)."""
+    B, S, ds = Bm.shape
+    nc = S // chunk
+    return torch.einsum("bcis,bcjs->bcij",
+                        Cm.reshape(B, nc, chunk, ds).float(),
+                        Bm.reshape(B, nc, chunk, ds).float())
+
+
+def chunk_states(xw: torch.Tensor, da: torch.Tensor, Bm: torch.Tensor,
+                 chunk: int, split: bool = False
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Step 2: the in-chunk cumsum of da, (B, nc, nh, L), and each chunk's
+    own state sum_j e^{cum_end - cum_j} xw_j (x) B_j, (B, nc, nh, hd, ds)."""
+    B, S, nh, hd = xw.shape
+    ds = Bm.shape[-1]
+    nc = S // chunk
+    cum = torch.cumsum(da.float().reshape(B, nc, chunk, nh), dim=2)
+    w = torch.exp(cum[:, :, -1:, :] - cum)                    # (B,nc,L,nh)
+    a = w[..., None] * xw.reshape(B, nc, chunk, nh, hd).float()
+    if split:
+        a = split_bf16(a)
+    st = torch.einsum("bcjhp,bcjs->bchps", a,
+                      Bm.reshape(B, nc, chunk, ds).float())
+    return cum.transpose(2, 3).contiguous(), st
+
+
+def pass_states(states: torch.Tensor, cum: torch.Tensor,
+                init_state: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Step 3: walk the chunks in order: (the state before each chunk,
+    (B, nc, nh, hd, ds); the final state, (B, nh, hd, ds))."""
+    B, nc, nh, hd, ds = states.shape
+    cur = (states.new_zeros((B, nh, hd, ds)) if init_state is None
+           else init_state.float())
+    decay = torch.exp(cum[..., -1])                           # (B,nc,nh)
+    before = []
+    for c in range(nc):
+        before.append(cur)
+        cur = cur * decay[:, c, :, None, None] + states[:, c]
+    return torch.stack(before, dim=1), cur
+
+
+def chunk_outputs(xw: torch.Tensor, Cm: torch.Tensor, cbm: torch.Tensor,
+                  cum: torch.Tensor, before: torch.Tensor,
+                  split: bool = False) -> torch.Tensor:
+    """Step 4: y_i = sum_{j<=i} CB_ij e^{cum_i - cum_j} xw_j
+    + e^{cum_i} C_i . state_before, (B, S, nh, hd) f32.  The mask is inside
+    the exponent: pairs j > i get e^{-inf} = 0."""
+    B, S, nh, hd = xw.shape
+    nc, L = cbm.shape[1], cbm.shape[2]
+    ds = Cm.shape[-1]
+    cum_t = cum.transpose(2, 3)                               # (B,nc,L,nh)
+    seg = cum_t[:, :, :, None, :] - cum_t[:, :, None, :, :]   # (B,nc,Li,Lj,nh)
+    ii = torch.arange(L, device=xw.device)
+    causal = (ii[:, None] >= ii[None, :])[None, None, :, :, None]
+    w = cbm[..., None] * torch.exp(torch.where(causal, seg, -math.inf))
+    st = before
+    if split:
+        w, st = split_bf16(w), split_bf16(before)
+    y = torch.einsum("bcijh,bcjhp->bcihp", w,
+                     xw.reshape(B, nc, L, nh, hd).float())
+    y = y + (torch.einsum("bcis,bchps->bcihp",
+                          Cm.reshape(B, nc, L, ds).float(), st)
+             * torch.exp(cum_t)[..., None])
+    return y.reshape(B, S, nh, hd)
+
+
+def ssd_decomposed(xw: torch.Tensor, da: torch.Tensor, Bm: torch.Tensor,
+                   Cm: torch.Tensor, chunk: int,
+                   init_state: Optional[torch.Tensor] = None,
+                   split: bool = False
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The four steps composed: (y in xw's dtype, final state f32).
+    ``split=True`` is the plain emulation of the tensor-core instance."""
+    cbm = cb(Bm, Cm, chunk)
+    cum, own = chunk_states(xw, da, Bm, chunk, split)
+    before, final = pass_states(own, cum, init_state)
+    y = chunk_outputs(xw, Cm, cbm, cum, before, split)
+    return y.to(xw.dtype), final

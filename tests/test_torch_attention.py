@@ -9,7 +9,11 @@ rounded to bf16, and the port's plain version casts its softmax weights to
 bf16 where the TPU kernel keeps them in f32), the JAX kernel tests' own;
 RMSNorm 1e-5 (f32) and 5e-2 (bf16) times max(1, |value|) per entry (one
 bf16 ulp is 0.0625 at 8); vote counts and the ring buffer exactly; the
-model layers 1e-5 in f32 (the same arithmetic in another order).
+model layers 1e-5 in f32 (the same arithmetic in another order).  The
+emulation of the flash kernel's bf16 tensor-core instance
+(``ref.attention_tc``: bf16 q, k, v, f32 scores, each key tile's softmax
+weights rounded to bf16) is held to the JAX kernel and oracle at JAX's bf16
+2e-2.
 """
 import dataclasses
 
@@ -89,6 +93,35 @@ def test_flash_ref_matches_jax(B, H, KV, S, T, hd, causal, window, dtype):
         assert np.abs(_np(got) - _np(want)).max() < tol
 
 
+# JAX's ATTN_CASES in bf16, then hd 80 (zamba2's) with ragged S and T,
+# hd 32 non-causal with a window, and hd 48 (zero-padded to 64 on the card)
+TC_CASES = [c[:-1] + (torch.bfloat16,) for c in ATTN_CASES] + [
+    (1, 4, 2, 45, 1000, 80, True, None, torch.bfloat16),
+    (2, 2, 1, 100, 100, 32, False, 17, torch.bfloat16),
+    (1, 4, 4, 128, 192, 48, True, 70, torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize("B,H,KV,S,T,hd,causal,window,dtype", TC_CASES)
+def test_flash_tensor_core_emulation_matches_jax(B, H, KV, S, T, hd, causal,
+                                                 window, dtype):
+    r = np.random.default_rng(S * 5 + hd)
+    (q, jq), (k, jk), (v, jv) = (
+        _pair(r.standard_normal(s), dtype)
+        for s in ((B, H, S, hd), (B, KV, T, hd), (B, KV, T, hd)))
+    got = fa_ref.attention_tc(q, k, v, causal, window)
+    assert got.dtype == dtype and tuple(got.shape) == (B, H, S, hd)
+    f32 = lambda x: x.astype(jnp.float32)
+    want = [jfa_ref.attention(f32(jq), f32(jk), f32(jv), causal=causal,
+                              window=window)]
+    if S % 64 == 0 and T % 64 == 0:
+        want.append(jfa_ops.attention(jq, jk, jv, causal=causal,
+                                      window=window, block_q=64,
+                                      block_k=64))
+    for w in want:
+        assert np.abs(_np(got) - _np(w)).max() < 2e-2
+
+
 def test_flash_ref_layout_of_the_model():
     """The model hands (B,S,H,hd) tensors transposed to (B,H,S,hd)."""
     r = np.random.default_rng(5)
@@ -152,7 +185,7 @@ def test_cpu_dispatch_launches_no_kernel():
     fa_ops.attention(x, x, x)
     rn_ops.rmsnorm(x, torch.ones(16))
     qt_ops.quorum_reached(torch.zeros((4, 3), dtype=torch.int32), 2, 2)
-    assert fa_ops.LAUNCHES == {"flash_attention": 0}
+    assert fa_ops.LAUNCHES == {"flash_attention": 0, "flash_attention_tc": 0}
     assert rn_ops.LAUNCHES == {"rmsnorm": 0}
     assert qt_ops.LAUNCHES["tally_votes"] == 0
 

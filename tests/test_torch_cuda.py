@@ -8,11 +8,17 @@ nor the JAX package, so they run on a machine that has only PyTorch:
 Integer outputs must be equal; the fused kernel's f32 latency sum reduces
 per-block partials, so it is compared to 1e-5 relative; maxima are exact.
 The SSD kernel is held to its plain chunked version and to the recurrence
-at the JAX kernel tests' tolerances (1e-3 f32, 3e-2 with bf16 xw).  Flash
-attention is held to its plain version on f32 inputs at the JAX kernel
-tests' 2e-5 (f32) and 2e-2 (bf16: the output is rounded to bf16); RMSNorm
-at 1e-5 (f32) and 5e-2 (bf16), each times max(1, |plain|) (outputs reach
-about 20, where one bf16 ulp is 0.125).
+at the JAX kernel tests' tolerances (1e-3 f32, 3e-2 with bf16 xw); its
+tensor-core instance (bf16 xw, B and C) also to its plain emulation, y to
+3e-2 times max(|plain|, min(1, max|plain|)) (y is rounded to bf16; the
+serving shapes' y reach about 10, where one bf16 ulp is 0.0625), the f32
+state to 1e-3 times min(1, max|plain|).  Flash attention is held to its
+plain version on f32 inputs at the JAX kernel tests' 2e-5 (f32) and 2e-2
+(bf16: the output is rounded to bf16), and its bf16 tensor-core instance
+to its plain emulation at 2e-2 too; RMSNorm at 1e-5 (f32) and 5e-2 (bf16),
+each times max(1, |plain|) (outputs reach about 20, where one bf16 ulp is
+0.125).  The tests of the tensor-core instances check their own launch
+counters.
 """
 import numpy as np
 import pytest
@@ -233,13 +239,63 @@ def test_ssd_kernel_strided_b_c_and_zero_init(cuda, no_tf32):
     assert torch.equal(y1, y2) and torch.equal(f1, f2)
 
 
+# The tensor-core instance (bf16 xw, B and C): (B, S, nh, hd, ds, chunk,
+# B and C strided, nonzero initial state).  Both serving shapes, a single
+# ragged 13-token chunk, chunks of 64 and 256, chunk 100 (ragged 64-row
+# tiles), hd = ds = 128, and hd 20 / ds 12 (rows not 16-byte aligned: the
+# element-by-element copies).
+SSD_TC_CASES = [
+    (4, 1024, 80, 64, 64, 256, True, True),
+    (4, 1024, 24, 64, 128, 256, True, True),
+    (2, 13, 4, 16, 32, 13, False, True),
+    (2, 13, 4, 16, 32, 13, True, False),
+    (2, 256, 4, 32, 64, 64, True, True),
+    (1, 512, 3, 128, 128, 256, False, True),
+    (2, 200, 3, 40, 24, 100, True, True),
+    (1, 96, 2, 20, 12, 32, True, True),
+]
+
+
+def ssd_close(got, want, tol, rel: bool) -> bool:
+    """|got - want| <= tol * max(|want|, min(1, max|want|)) entrywise
+    (``rel``), else <= tol * min(1, max|want|)."""
+    g, w = got.float(), want.float()
+    scale = min(1.0, float(w.abs().max()))
+    bound = tol * (torch.clamp(w.abs(), min=scale) if rel else scale)
+    return bool(((g - w).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("B,S,nh,hd,ds,chunk,strided,init", SSD_TC_CASES)
+def test_ssd_tensor_core_kernel(cuda, no_tf32, B, S, nh, hd, ds, chunk,
+                                strided, init):
+    bf = torch.bfloat16
+    xw, da, Bm, Cm, s0 = ssd_test_inputs(S + ds, B, S, nh, hd, ds, bf, bf,
+                                         cuda)
+    if strided:              # column slices of one tensor, as the model's
+        u = torch.cat([xw.reshape(B, S, nh * hd), Bm, Cm], dim=-1)
+        Bm, Cm = u[..., nh * hd:nh * hd + ds], u[..., nh * hd + ds:]
+    s0 = s0 if init else None
+    ssd_ops.reset_launches()
+    y, f = ssd_kernel.ssd(xw, da, Bm, Cm, chunk, s0)
+    torch.cuda.synchronize()
+    assert ssd_ops.LAUNCHES == {"ssd": 1, "ssd_tc": 1}
+    assert y.dtype == bf and f.dtype == torch.float32
+    for yp, fp in (ssd_chunked(xw, da, Bm, Cm, chunk, s0),
+                   ssd_ref.ssd_decomposed(xw, da, Bm, Cm, chunk, s0,
+                                          split=True)):
+        assert ssd_close(y, yp, 3e-2, rel=True)
+        assert ssd_close(f, fp, 1e-3, rel=False)
+
+
 def test_ssd_ops_launch_on_cuda_and_count(cuda):
     xw, da, Bm, Cm, _ = ssd_test_inputs(4, 1, 96, 2, 16, 16, torch.float32,
                                         torch.float32, cuda)
     ssd_ops.reset_launches()
     ssd_ops.ssd(xw, da, Bm, Cm, chunk=256)          # one chunk of 96
     ssd_ops.ssd(xw, da, Bm, Cm, chunk=32)
-    assert ssd_ops.LAUNCHES == {"ssd": 2}
+    assert ssd_ops.LAUNCHES == {"ssd": 2, "ssd_tc": 0}
+    ssd_ops.ssd(xw.bfloat16(), da, Bm.bfloat16(), Cm.bfloat16(), chunk=32)
+    assert ssd_ops.LAUNCHES == {"ssd": 3, "ssd_tc": 1}
     with pytest.raises(ValueError, match="multiple of chunk"):
         ssd_ops.ssd(xw, da, Bm, Cm, chunk=64)
 
@@ -306,6 +362,16 @@ FA_CASES = [
     (1, 4, 2, 37, 200, 48, True, 50, torch.bfloat16),
     (1, 2, 1, 130, 130, 80, False, 17, torch.float32),
     (4, 32, 32, 1024, 1024, 80, True, None, torch.bfloat16),
+    # the tensor-core instance: hd 32, 64, 80, 128, 256; GQA; a window;
+    # non-causal; ragged S and T; hd 20 (rows not 16-byte aligned)
+    (2, 4, 4, 128, 128, 32, True, None, torch.bfloat16),
+    (1, 8, 2, 256, 256, 64, True, None, torch.bfloat16),
+    (2, 4, 1, 192, 192, 80, True, 50, torch.bfloat16),
+    (1, 4, 4, 200, 200, 128, False, None, torch.bfloat16),
+    (1, 2, 2, 100, 130, 256, True, None, torch.bfloat16),
+    (1, 4, 2, 45, 1000, 80, True, None, torch.bfloat16),
+    (1, 2, 1, 130, 130, 80, False, 17, torch.bfloat16),
+    (1, 2, 2, 33, 77, 20, True, None, torch.bfloat16),
 ]
 
 
@@ -320,13 +386,21 @@ def fa_inputs(seed, B, H, KV, S, T, hd, dtype, dev):
 def test_flash_attention_kernel(cuda, no_tf32, B, H, KV, S, T, hd, causal,
                                 window, dtype):
     q, k, v = fa_inputs(S + hd, B, H, KV, S, T, hd, dtype, cuda)
+    fa_ops.reset_launches()
     o = fa_kernel.attention(q, k, v, causal, window)
     torch.cuda.synchronize()
+    tc = dtype == torch.bfloat16
+    assert fa_ops.LAUNCHES == {"flash_attention": 1,
+                               "flash_attention_tc": int(tc)}
     assert o.dtype == dtype and o.shape == q.shape
-    want = fa_ref.attention(q.float(), k.float(), v.float(), causal, window)
+    want = [fa_ref.attention(q.float(), k.float(), v.float(), causal,
+                             window)]
+    if tc:
+        want.append(fa_ref.attention_tc(q, k, v, causal, window))
     tol = 2e-5 if dtype == torch.float32 else 2e-2
-    assert (o.float() - want).abs().max() < tol * max(
-        1.0, float(want.abs().max()))
+    for w in want:
+        assert (o.float() - w.float()).abs().max() < tol * max(
+            1.0, float(w.abs().max()))
 
 
 def test_flash_attention_reads_the_model_layout(cuda):
@@ -340,12 +414,26 @@ def test_flash_attention_reads_the_model_layout(cuda):
     assert torch.equal(o, fa_kernel.attention(q, k, v, True, None))
 
 
+def test_flash_attention_unaligned_rows(cuda):
+    """Rows that do not start on 16 bytes (an odd row stride) take the
+    element-by-element copies and give the same result as aligned rows."""
+    q, k, v = fa_inputs(4, 1, 4, 2, 96, 96, 64, torch.bfloat16, cuda)
+    odd = [torch.zeros(x.shape[:-1] + (65,), dtype=x.dtype, device=cuda)
+           for x in (q, k, v)]
+    for o_, x in zip(odd, (q, k, v)):
+        o_[..., 1:] = x
+    got = fa_kernel.attention(*(o_[..., 1:] for o_ in odd), True, None)
+    assert torch.equal(got, fa_kernel.attention(q, k, v, True, None))
+
+
 def test_flash_ops_launch_on_cuda_and_count(cuda):
     q, k, v = fa_inputs(2, 1, 2, 1, 64, 64, 32, torch.float32, cuda)
     fa_ops.reset_launches()
     fa_ops.attention(q, k, v)
     fa_ops.attention(q, k, v, causal=False, window=8)
-    assert fa_ops.LAUNCHES == {"flash_attention": 2}
+    assert fa_ops.LAUNCHES == {"flash_attention": 2, "flash_attention_tc": 0}
+    fa_ops.attention(q.bfloat16(), k.bfloat16(), v.bfloat16())
+    assert fa_ops.LAUNCHES == {"flash_attention": 3, "flash_attention_tc": 1}
 
 
 def test_flash_wrapper_raises_on_bad_input(cuda):
@@ -449,6 +537,25 @@ def test_zamba2_prefill_runs_the_three_kernels(cuda, no_tf32, monkeypatch,
                               ("shared_attn_6", "v"))]
     for a, b in zip(got["cuda"], got["cpu"]):
         assert (a - b).abs().max() < 1e-3 * max(1.0, float(b.abs().max()))
+
+
+def test_bf16_prefill_runs_the_tensor_core_instances(cuda):
+    """Served in bf16, every Mamba2 layer's SSD call and every flash call of
+    a reduced zamba2 prefill is the tensor-core instance's."""
+    cfg = reduced_config(get_config("zamba2_2_7b"))
+    m = model_mod.DecoderLM(cfg, device=cuda, seed=0)
+    toks = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab, (2, 70))).to(cuda)
+    ssd_ops.reset_launches()
+    fa_ops.reset_launches()
+    with torch.no_grad():
+        _, lg = m.prefill({"tokens": toks}, m.init_cache(2, 71))
+    torch.cuda.synchronize()
+    assert lg.dtype == torch.bfloat16 and bool(torch.isfinite(
+        lg.float()).all())
+    assert ssd_ops.LAUNCHES == {"ssd": cfg.n_layers, "ssd_tc": cfg.n_layers}
+    assert fa_ops.LAUNCHES == {"flash_attention": cfg.n_superblocks,
+                               "flash_attention_tc": cfg.n_superblocks}
 
 
 def test_forward_under_autograd_raises_on_the_card(cuda):

@@ -7,6 +7,13 @@ same chunked algorithm, so f32 agrees to 1e-4 (summation order only); with
 bf16 ``xw`` the output is rounded to bf16 (half an ulp is 2^-9 relative),
 so bf16 agrees to JAX's own 3e-2.  The recurrences (``ref.ssd``) agree to
 1e-5 in f32.
+
+The plain versions of the tensor-core instance's four steps
+(``ref.ssd_decomposed``) are held to the JAX kernel and recurrence at the
+same tolerances, and its emulation (``split=True``: bf16 xw, B and C, every
+f32 factor split into hi + lo bf16 halves) at JAX's bf16 ones: y to 3e-2
+times max(1, |y|) (y is rounded to bf16, half an ulp is 2^-9 relative), the
+f32 state to 1e-3.
 """
 import os
 import stat
@@ -147,3 +154,96 @@ def test_build_without_nvcc_raises(tmp_path, monkeypatch):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build(src_dir / "k.cu", "k")
+
+
+# ---------------------------------------------------------------------------
+# The tensor-core instance's decomposition and its emulation
+# ---------------------------------------------------------------------------
+
+def _bf(a):
+    return torch.from_numpy(a).bfloat16()
+
+
+@pytest.mark.parametrize("B,S,nh,hd,ds,chunk,dtype", CASES)
+def test_decomposition_matches_jax(B, S, nh, hd, ds, chunk, dtype):
+    """C.B, chunk states, state passing and chunk outputs, composed."""
+    xw, da, Bm, Cm, s0 = _inputs(S * 17 + hd, B, S, nh, hd, ds)
+    jd, td = ((jnp.float32, torch.float32) if dtype == "f32"
+              else (jnp.bfloat16, torch.bfloat16))
+    c = min(chunk, S)
+    yj, fj = jax_kernel.ssd(jnp.asarray(xw).astype(jd), jnp.asarray(da),
+                            jnp.asarray(Bm), jnp.asarray(Cm), chunk=c,
+                            init_state=jnp.asarray(s0), interpret=True)
+    t = torch.from_numpy
+    yt, ft = ref.ssd_decomposed(t(xw).to(td), t(da), t(Bm), t(Cm), c,
+                                t(s0))
+    assert yt.dtype == td and ft.dtype == torch.float32
+    tol = 1e-4 if dtype == "f32" else 3e-2
+    assert np.abs(yt.float().numpy() - np.asarray(
+        yj.astype(jnp.float32))).max() < tol
+    assert np.abs(ft.numpy() - np.asarray(fj)).max() < tol
+    yr, fr = jax_ssd_reference(jnp.asarray(xw).astype(jd), jnp.asarray(da),
+                               jnp.asarray(Bm), jnp.asarray(Cm),
+                               jnp.asarray(s0))
+    assert np.abs(yt.float().numpy() - np.asarray(
+        yr.astype(jnp.float32))).max() < tol
+    assert np.abs(ft.numpy() - np.asarray(fr)).max() < tol
+
+
+@pytest.mark.parametrize("B,S,nh,hd,ds,chunk,dtype", CASES)
+def test_tensor_core_emulation_matches_jax(B, S, nh, hd, ds, chunk, dtype):
+    """The serving path's dtypes (bf16 xw, B and C) through the JAX kernel
+    and through the emulation of the tensor-core instance."""
+    xw, da, Bm, Cm, s0 = _inputs(S * 19 + ds, B, S, nh, hd, ds)
+    c = min(chunk, S)
+    bf = lambda a: jnp.asarray(a).astype(jnp.bfloat16)
+    yj, fj = jax_kernel.ssd(bf(xw), jnp.asarray(da), bf(Bm), bf(Cm),
+                            chunk=c, init_state=jnp.asarray(s0),
+                            interpret=True)
+    t = torch.from_numpy
+    yt, ft = ref.ssd_decomposed(_bf(xw), t(da), _bf(Bm), _bf(Cm), c, t(s0),
+                                split=True)
+    assert yt.dtype == torch.bfloat16
+    yj = np.asarray(yj.astype(jnp.float32))
+    assert (np.abs(yt.float().numpy() - yj)
+            <= 3e-2 * np.maximum(1.0, np.abs(yj))).all()
+    assert np.abs(ft.numpy() - np.asarray(fj)).max() < 1e-3
+
+
+def test_hi_lo_split_keeps_the_state_within_its_bound():
+    """Why the f32 factors are split: rounded once to bf16 they would move
+    the f32 state by more than its 1e-3 bound at the serving path's scale;
+    split into hi + lo halves they keep it to about 1e-5."""
+    xw, da, Bm, Cm, s0 = _inputs(23, 2, 512, 8, 64, 64)
+    args = (_bf(xw), torch.from_numpy(da), _bf(Bm), _bf(Cm), 128,
+            torch.from_numpy(s0))
+    _, exact = ref.ssd_decomposed(*args)
+    _, split = ref.ssd_decomposed(*args, split=True)
+    assert (split - exact).abs().max() < 1e-4
+    once = lambda x: x.to(torch.bfloat16).float()
+    orig = ref.split_bf16
+    ref.split_bf16 = once
+    try:
+        _, rounded = ref.ssd_decomposed(*args, split=True)
+    finally:
+        ref.split_bf16 = orig
+    assert (rounded - exact).abs().max() > 1e-3
+
+
+def test_steps_match_the_chunked_scan():
+    """Each step's output against the quantity ``ssd_chunked`` forms."""
+    xw, da, Bm, Cm, s0 = (torch.from_numpy(a) for a in
+                          _inputs(29, 2, 96, 3, 8, 16))
+    chunk = 32
+    cbm = ref.cb(Bm, Cm, chunk)
+    assert tuple(cbm.shape) == (2, 3, 32, 32)
+    assert torch.allclose(cbm[1, 2], Cm[1, 64:] @ Bm[1, 64:].T, atol=1e-5)
+    cum, own = ref.chunk_states(xw, da, Bm, chunk)
+    assert torch.allclose(cum[0, 1, 2], torch.cumsum(da[0, 32:64, 2], 0))
+    before, fin = ref.pass_states(own, cum, s0)
+    assert torch.equal(before[:, 0], s0)
+    _, fin_c = ops.ssd(xw, da, Bm, Cm, chunk, s0)
+    assert (fin - fin_c).abs().max() < 1e-5
+    y, _ = ref.ssd_decomposed(xw, da, Bm, Cm, chunk, s0)
+    y_c, _ = ops.ssd(xw, da, Bm, Cm, chunk, s0)
+    assert (y - y_c).abs().max() < 1e-5
