@@ -78,6 +78,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import shutil
 import statistics
@@ -279,9 +280,14 @@ def mixed_members(n: int = 12):
             + families.grid_family(n) + families.weighted_family(n))
 
 
-def stream_test_inputs(seed, S, n, M, G, K, dev):
+def stream_test_inputs(seed, S, n, M, G, K, dev, quarters=False, pad=False,
+                       inf=False):
     """The kernel tests' stream inputs: integral weights, quantized arrival
-    times (ties), ~10% lost 2b lanes, trailing padding trials."""
+    times (ties), ~10% lost 2b lanes, trailing padding trials.  ``quarters``:
+    weights and thresholds in quarters instead, sums exact in f32 in any
+    order; ``pad``: each phase's last row a padding row (zero weights,
+    threshold 2^30) as ``build_mask_table`` pads; ``inf``: ~20% of the
+    arrive and classic lanes +inf."""
     r = np.random.default_rng(seed)
     votes = r.integers(-1, K, (S, n)).astype(np.int32)
     arrive = np.floor(np.exp(r.standard_normal((S, n))) * 8.0) / 4.0
@@ -292,8 +298,19 @@ def stream_test_inputs(seed, S, n, M, G, K, dev):
     val_arr = np.where(lost, 1e9, val_arr)
     masks = []
     for _ in range(3):
-        masks.append(r.integers(0, 3, (M, G, n)).astype(np.float32))
-        masks.append(r.integers(1, n + 2, (M, G)).astype(np.float32))
+        if quarters:
+            w = r.integers(0, 9, (M, G, n)) / 4.0
+            t = r.integers(1, 4 * n + 8, (M, G)) / 4.0
+        else:
+            w = r.integers(0, 3, (M, G, n))
+            t = r.integers(1, n + 2, (M, G))
+        w, t = w.astype(np.float32), t.astype(np.float32)
+        if pad:
+            w[:, -1], t[:, -1] = 0.0, 2.0 ** 30
+        masks += [w, t]
+    if inf:
+        arrive[r.random((S, n)) < 0.2] = np.inf
+        classic[r.random((S, n)) < 0.2] = np.inf
     valid = np.arange(S) < S - S // 7
     f = lambda x: torch.as_tensor(np.asarray(x, np.float32)).to(dev)
     return ([torch.as_tensor(votes).to(dev), f(val_arr), f(arrive),
@@ -1047,14 +1064,40 @@ def main() -> None:
                         table12["p2f_w"], table12["p2f_t"], valid12],
                        dict(kw12, k_sat=ks))
         check_stream(*args12[rec], f"stream n=12 {rec}")
-    for S, n, M, G, K, ks in ((300, 11, 2, 3, 2, (4, 5, 6)),
-                              (1025, 9, 1, 6, 3, (9, 9, 9)),
-                              (513, 7, 3, 1, 2, (2, 3, 2)),
-                              (700, 11, 4, 2, 2, (11, 1, 7))):
-        a = stream_test_inputs(S * 13 + M, S, n, M, G, K, dev)
+    # the kernel tests' shapes, then the edges of the design: more rows than
+    # a warp's 32, K = 8, n past the register-resident orders (16, 32) up to
+    # MAX_N, more systems than a block's 16, quarter weights, k_sat below n,
+    # +inf lanes, padding rows.
+    for S, n, M, G, K, ks, opts in (
+            (300, 11, 2, 3, 2, (4, 5, 6), {}),
+            (1025, 9, 1, 6, 3, (9, 9, 9), {}),
+            (513, 7, 3, 1, 2, (2, 3, 2), {}),
+            (700, 11, 4, 2, 2, (11, 1, 7), {}),
+            (1000, 12, 5, 39, 2, (12, 12, 12), dict(pad=True)),
+            (600, 9, 3, 4, 8, (9, 9, 9), {}),
+            (500, 17, 3, 5, 3, (17, 9, 12), {}),
+            (400, 33, 2, 4, 2, (33, 20, 25), {}),
+            (300, 128, 2, 3, 2, (128, 64, 100), {}),
+            (200, 128, 1, 2, 8, (128, 128, 128), {}),
+            (2000, 11, 300, 3, 2, (11, 6, 8), dict(pad=True)),
+            (1500, 12, 13, 12, 2, (12, 12, 12), dict(quarters=True,
+                                                     pad=True)),
+            (1025, 12, 4, 6, 2, (5, 3, 4), {}),
+            (1000, 12, 4, 5, 2, (12, 12, 12), dict(inf=True, pad=True))):
+        a = stream_test_inputs(S * 13 + M, S, n, M, G, K, dev, **opts)
         check_stream(a, dict(n_values=K, k_sat=ks, precision=0.01,
                              bins=bins, undecided_ms=5e8),
-                     f"stream {(S, n, M, G, K, ks)}")
+                     f"stream {(S, n, M, G, K, ks, sorted(opts))}")
+    # two calls back to back: the same bits, sum_ms included.
+    for rec in ("coordinated", "uncoordinated"):
+        h_a, s_a = kernel.stream_tally_decide_hist(*args12[rec][0],
+                                                   **args12[rec][1])
+        h_b, s_b = kernel.stream_tally_decide_hist(*args12[rec][0],
+                                                   **args12[rec][1])
+        same(h_a, h_b, f"stream n=12 {rec} repeated hist")
+        for f in s_a:
+            same(s_a[f].view(torch.int32), s_b[f].view(torch.int32),
+                 f"stream n=12 {rec} repeated {f}")
     a = stream_test_inputs(3, 128, 5, 1, 2, 2, dev)
     a[-1] = torch.zeros((128,), dtype=torch.bool, device=dev)
     h, s = kernel.stream_tally_decide_hist(
@@ -1090,13 +1133,19 @@ def main() -> None:
                                      + mask_bytes + M12 * (bins + 5) * 4),
     }
     # operations: one compare or add per (trial, acceptor, value) of the
-    # tallies; the fused kernel adds one pass over each phase's n arrivals
-    # per (system, trial), the least a selection can read.
+    # tallies.  The fused kernel: per (system, trial) the masked tally
+    # against the fast rows (G2f*n*K adds) and each phase's weight
+    # contraction (G1*k1 + G2c*k2c + G2f*k2f adds); per trial one ordering
+    # of its K + 2 rows (n*ceil(log2 n) compares a row, a comparison
+    # sort's least).
+    k1, k2c, k2f = kw_c["k_sat"]
     ops_ = {
         "tally_votes": S11 * 11 * 2,
         "tally_decide": S11 * 11 * 2,
         "masked_tally": S12 * M12 * G2f * 12 * 2,
-        "stream_tally_decide_hist": M12 * S12 * (G2f * 12 * 2 + 3 * 12),
+        "stream_tally_decide_hist": (
+            M12 * S12 * (G2f * 12 * 2 + G1 * k1 + G2c * k2c + G2f * k2f)
+            + S12 * (2 + 2) * 12 * math.ceil(math.log2(12))),
     }
     symbol = {"tally_votes": "tally_votes_kernel",
               "tally_decide": "tally_decide_kernel",
@@ -1104,10 +1153,15 @@ def main() -> None:
               "stream_tally_decide_hist": "stream_kernel"}
     for k, (kf, pf) in timed.items():
         kms, pms = cuda_ms(kf), cuda_ms(pf)
+        ops.reset_launches()
+        kf()
+        per_call = ops.LAUNCHES[k]
         dev_us, dev_n, _ = kernel_device_us(kf, symbol[k], reps=20)
         b_ms = bytes_[k] / HBM_BYTES_PER_S * 1e3
         o_ms = ops_[k] / FP32_OPS_PER_S * 1e3
         stats[k].update(ms=kms, plain_ms=pms, device_us=dev_us,
+                        launches_per_call=per_call,
+                        back_to_back_us=back_to_back_us(kf),
                         device_launches_recorded=dev_n,
                         bound_ms=max(b_ms, o_ms),
                         bound_by="bytes" if b_ms >= o_ms else "operations",

@@ -39,25 +39,41 @@
 //
 // stream_tally_decide_hist replaces kernel.py:stream_tally_decide_hist
 //                          (_stream_kernel, _select_sat).
-//   Bound: the per-trial selection work (k steps of an n-lane scan per
-//   phase) at the main path's shapes; the chunk's bytes are read once per
-//   system from L2.
-//   Design: one block per (trial tile of 128, system m), one thread per
-//   trial.  System m's three mask sets sit in shared memory.  The selection
-//   network keeps _select_sat's semantics without a sorted copy: step j
-//   extracts the smallest (value, lane) pair after the previous one, so
-//   ties go to the lowest lane, and the selected acceptor's weight is added
-//   to up to 8 rows held in registers; the first step at which any row
-//   crosses its threshold gives the saturation instant (extraction instants
-//   never decrease, so later rows only search the steps before it).  The
-//   TPU grid accumulated across its sequential trial blocks; here blocks run
-//   in no order, so each block builds its histogram in shared memory and
-//   adds it, and the three counts, to the output with int32 atomics (exact
-//   in any order), and writes its latency sum and max as per-block partials
-//   that the wrapper reduces with a deterministic torch reduction.
+//   Bound: device memory at the main path's shapes.  A chunk's votes and
+//   K + 2 arrival rows, S*(K+3)*n*4 bytes, are read once; the work -- per
+//   trial one ordering of its K + 2 rows, per (trial, system) the masked
+//   tally (G2f*n*K adds) and the weight contractions (G1*k1 + G2c*k2c +
+//   G2f*k2f adds) -- takes less time at the f32 rate.  In practice the
+//   kernel is bound by the latency of its dependent chains: a lane's adds
+//   along an order, one position after another.
+//   Design: a trial's rows (its K val_arr rows, arrive, classic) are each
+//   ordered once, stable ascending with ties to the lowest lane, which is the
+//   order _select_sat extracts, and every system reads that order.  A block
+//   stages a tile of 32 trials in shared memory with 16-byte asynchronous
+//   copies and ranks each row's (key, lane) pairs.  Then each warp takes one
+//   system, one trial a lane: the masked tally over vote bit masks (the
+//   lowest value whose voters' weights reach a fast row), the fast phase only
+//   when a value reached a fast quorum, the recovery phases only when the
+//   fast one did not decide.  Only live rows take part (a row of zero weights
+//   and positive threshold never crosses), held in shared memory transposed
+//   in groups of four -- one 16-byte load gives four rows' weights of a lane
+//   -- where they fit, else read from device memory; a group adds along the
+//   order with __fadd_rn until one of its rows crosses, stopping at the
+//   earliest crossing found so far, and a phase with one live row walks it
+//   alone.  For n <= 16 an instance keeps a trial's order in registers;
+//   above, up to MAX_N, it reads it from shared memory.  A block covers up to
+//   16 systems; counts and the latency sum and max stay in registers, the
+//   histogram takes one int32 atomic per distinct bucket of a warp (exact in
+//   any order), and the last block of a group, found with a fence and an
+//   atomic ticket, reduces the per-block partials in block order, so sum_ms
+//   is the same bit for bit from call to call.  A call is one fill (the
+//   histogram and the tickets, cudaMemsetAsync) and one launch.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include "sm90_mma.cuh"
 
 #define MAX_K 8
 #define MAX_N 128
@@ -172,172 +188,776 @@ __global__ void masked_tally_kernel(const int* __restrict__ votes,
 // stream_tally_decide_hist
 // ---------------------------------------------------------------------------
 
-#define ST_BS 128
-#define SEL_ROWS 8
+#define ST_TILE 32          // trials a tile: one per lane of a warp
+#define ST_MAX_MG 16        // systems a block: one warp each
+#define ST_MIN_WARPS 4      // warps a block has at least, for the staging
+#define ST_MAX_SMEM (232448 - 1024)   // dynamic shared memory a block may use
+#define FULL 0xffffffffu
 
-// Earliest instant some row of (w, t) saturates over the k first arrivals
-// of x in stable ascending order; `big` when no row does.
-__device__ float select_sat(const float* __restrict__ x, int n,
-                            const float* w, const float* t, int G, int k,
-                            float big) {
-  float best = big;
-  int limit = k;
-  for (int g0 = 0; g0 < G; g0 += SEL_ROWS) {
-    float cs[SEL_ROWS];
-#pragma unroll
-    for (int r = 0; r < SEL_ROWS; ++r) cs[r] = 0.0f;
-    float pv = 0.0f;
-    int pl = -1;
-    for (int j = 0; j < limit; ++j) {
-      float cv = 0.0f;
-      int cl = -1;
-      for (int i = 0; i < n; ++i) {
-        float xi = x[i];
-        bool after = pl < 0 || xi > pv || (xi == pv && i > pl);
-        if (after && (cl < 0 || xi < cv)) {
-          cv = xi;
-          cl = i;
-        }
-      }
-      pv = cv;
-      pl = cl;
-      bool crossed = false;
-#pragma unroll
-      for (int r = 0; r < SEL_ROWS; ++r) {
-        int g = g0 + r;
-        if (g < G) {
-          cs[r] = __fadd_rn(cs[r], w[g * n + cl]);
-          crossed = crossed || cs[r] >= t[g];
-        }
-      }
-      if (crossed) {
-        best = cv;
-        limit = j;
-        break;
-      }
-    }
-  }
-  return best;
+typedef unsigned long long u64;
+
+// What one launch reads and writes.  Phase p = 0 is phase 1 (arrive), 1 the
+// recovery commit (classic), 2 the fast phase (the winner's val_arr row).
+struct StreamArgs {
+  const int* votes;
+  const float* val;
+  const float* arr;
+  const float* cls;
+  const unsigned char* valid;
+  const float* w[3];
+  const float* t[3];
+  int G[3];
+  int k[3];
+  int S, n, K, M, bins, mg;
+  int vec;  // n % 4 == 0 and the inputs 16-byte aligned: 16-byte loads
+  float log_g, und;
+  int* hist;
+  int* counts;
+  int* tickets;
+  float* sum;
+  float* max;
+  float* psum;
+  float* pmax;
+  int* pcnt;
+};
+
+// Shared-memory layout of a block, in bytes, each region 16-byte aligned:
+// keys   the tile's K + 2 rows (32 trials x n each) as order keys
+// votes  the tile's votes
+// ord    the K + 2 orders of every trial: ord[(r * 32 + trial) * np + j] is
+//        the lane at position j of row r's stable ascending order
+// vm     vote bit masks: bit b of vm[(v * W + q) * 32 + trial] is set when
+//        lane 32 q + b voted v
+// valid  the tile's valid bits
+// nlive, lists   the live rows of each phase of each of the block's systems
+// wts    with res, each system's live rows in groups of four, transposed:
+//        per phase ng[p] float4 thresholds, then ng[p] x n float4 weights
+struct StreamLayout {
+  int gt, W, np, ng[3];
+  size_t keys, votes, ord, vm, valid, nlive, lists, wts, wsys, bytes;
+};
+
+__host__ __device__ inline size_t st_take(size_t& o, size_t bytes) {
+  size_t at = o;
+  o += (bytes + 15) & ~(size_t)15;
+  return at;
 }
 
-__global__ void stream_kernel(
-    const int* __restrict__ votes, const float* __restrict__ val_arr,
-    const float* __restrict__ arrive, const float* __restrict__ classic,
-    const float* __restrict__ w1, const float* __restrict__ t1,
-    const float* __restrict__ w2c, const float* __restrict__ t2c,
-    const float* __restrict__ w2f, const float* __restrict__ t2f,
-    const unsigned char* __restrict__ valid, int S, int n, int K, int G1,
-    int G2c, int G2f, int k1, int k2c, int k2f, float log_g, int bins,
-    float undecided_ms, int* __restrict__ hist, int* __restrict__ counts,
-    float* __restrict__ part_sum, float* __restrict__ part_max) {
-  extern __shared__ float smem[];
-  const int m = blockIdx.y;
-  const int b = blockIdx.x;
-  const int nblk = gridDim.x;
-  const int tid = threadIdx.x;
-  float* sw1 = smem;
-  float* st1 = sw1 + G1 * n;
-  float* sw2c = st1 + G1;
-  float* st2c = sw2c + G2c * n;
-  float* sw2f = st2c + G2c;
-  float* st2f = sw2f + G2f * n;
-  int* shist = (int*)(st2f + G2f);
-  float* rsum = (float*)(shist + bins);
-  float* rmax = rsum + blockDim.x;
-  int* rcnt = (int*)(rmax + blockDim.x);
+// lb > 0: the instance keeps a trial's order in registers, lb bytes; lb = 0:
+// it reads the order from shared memory, whose rows then take an odd number
+// of words so that the 32 trials of a warp fall in distinct banks.
+__host__ __device__ inline StreamLayout stream_layout(int n, int K,
+                                                      const int* G, int mg,
+                                                      int lb, bool res) {
+  StreamLayout L;
+  L.gt = G[0] + G[1] + G[2];
+  L.W = (n + 31) / 32;
+  int words = (n + 3) / 4;
+  L.np = lb ? lb : 4 * (words + !(words & 1));
+  L.wsys = 0;
+  for (int p = 0; p < 3; ++p) {
+    L.ng[p] = (G[p] + 3) / 4;
+    L.wsys += (size_t)L.ng[p] * (n + 1) * 16;
+  }
+  size_t o = 0;
+  L.keys = st_take(o, (size_t)(K + 2) * ST_TILE * n * 4);
+  L.votes = st_take(o, (size_t)ST_TILE * n * 4);
+  L.ord = st_take(o, (size_t)(K + 2) * ST_TILE * L.np);
+  L.vm = st_take(o, (size_t)K * L.W * ST_TILE * 4);
+  L.valid = st_take(o, ST_TILE * 4);
+  L.nlive = st_take(o, (size_t)mg * 3 * 4);
+  L.lists = st_take(o, (size_t)mg * L.gt * 2);
+  L.wts = st_take(o, res ? (size_t)mg * L.wsys : 0);
+  L.bytes = o;
+  return L;
+}
 
-  for (int i = tid; i < G1 * n; i += blockDim.x)
-    sw1[i] = w1[(size_t)m * G1 * n + i];
-  for (int i = tid; i < G1; i += blockDim.x) st1[i] = t1[(size_t)m * G1 + i];
-  for (int i = tid; i < G2c * n; i += blockDim.x)
-    sw2c[i] = w2c[(size_t)m * G2c * n + i];
-  for (int i = tid; i < G2c; i += blockDim.x)
-    st2c[i] = t2c[(size_t)m * G2c + i];
-  for (int i = tid; i < G2f * n; i += blockDim.x)
-    sw2f[i] = w2f[(size_t)m * G2f * n + i];
-  for (int i = tid; i < G2f; i += blockDim.x)
-    st2f[i] = t2f[(size_t)m * G2f + i];
-  for (int i = tid; i < bins; i += blockDim.x) shist[i] = 0;
-  if (tid < 3) rcnt[tid] = 0;
-  __syncthreads();
+// x[p] for a p known only at run time, without indexing an array (which
+// would put it in local memory).
+template <class T>
+__device__ __forceinline__ T pick(int p, T x0, T x1, T x2) {
+  return p == 0 ? x0 : (p == 1 ? x1 : x2);
+}
 
-  const float big = 2.0f * undecided_ms;
-  const int s = b * blockDim.x + tid;
-  bool fast = false, recb = false, undb = false;
-  float lat = 0.0f;
-  if (s < S) {
-    // masked tally against the fast rows: lowest value saturating any row.
-    const int* vr = votes + (size_t)s * n;
-    int best = K;
-    for (int g = 0; g < G2f; ++g) {
-      float sum[MAX_K];
+// A total order on f32 that is torch.sort's: -0 ties +0, NaN after +inf.
+__device__ __forceinline__ unsigned order_key(unsigned u) {
+  if ((u & 0x7fffffffu) > 0x7f800000u) return 0xffffffffu;  // NaN
+  if (u == 0x80000000u) u = 0u;
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+// The value of a key (-0 comes back as +0, which compares equal).
+__device__ __forceinline__ float key_value(unsigned k) {
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
+}
+
+// 4 bytes from global to shared memory, asynchronously.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src));
+}
+
+// One trial's order of one row: the lane at position j.  LB = 16 holds it
+// in registers, LB = 0 reads it from shared memory.
+template <int LB>
+struct Ord;
+
+template <>
+struct Ord<16> {
+  u64 a, b;
+  __device__ __forceinline__ void load(const unsigned char* p) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    a = ((u64)v.y << 32) | v.x;
+    b = ((u64)v.w << 32) | v.z;
+  }
+  __device__ __forceinline__ int at(int j) const {
+    return (int)(((j < 8 ? a : b) >> ((j & 7) * 8)) & 0xffu);
+  }
+};
+
+template <>
+struct Ord<0> {
+  const unsigned char* p;
+  __device__ __forceinline__ void load(const unsigned char* q) { p = q; }
+  __device__ __forceinline__ int at(int j) const { return p[j]; }
+};
+
+// The live rows of one phase of one system, nl of its G, in ng groups of
+// four: resident in shared memory, transposed (st: ng thresholds, sw: ng x n
+// weights, a float4 per lane holding the group's four rows), or read from
+// device memory through the list of live rows (w (G, n), t (G,), list).
+struct Phase {
+  const float4* st;
+  const float4* sw;
+  const float* w;
+  const float* t;
+  const unsigned short* list;
+  int n, nl, ng, G;
+};
+
+// Four rows added together: weight(l) holds their weights of lane l, t their
+// thresholds (+inf past the last live row: those never cross); weight1(l)
+// the first row's weight alone.
+struct GroupS {
+  const float4* w;
+  float4 t;
+  __device__ __forceinline__ float4 weight(int l) const { return w[l]; }
+  __device__ __forceinline__ float weight1(int l) const {
+    return reinterpret_cast<const float*>(w)[4 * l];
+  }
+};
+
+struct GroupG {
+  const float* w0;
+  const float* w1;
+  const float* w2;
+  const float* w3;
+  float4 t;
+  __device__ __forceinline__ float4 weight(int l) const {
+    return make_float4(__ldg(w0 + l), __ldg(w1 + l), __ldg(w2 + l),
+                       __ldg(w3 + l));
+  }
+  __device__ __forceinline__ float weight1(int l) const {
+    return __ldg(w0 + l);
+  }
+};
+
+// Group gi (< ng) of a phase.
+template <bool RES>
+__device__ __forceinline__ auto group(const Phase& ph, int gi) {
+  if constexpr (RES) {
+    return GroupS{ph.sw + gi * ph.n, ph.st[gi]};
+  } else {
+    const int i = 4 * gi, last = ph.nl - 1;
+    const int g0 = ph.list[i], g1 = ph.list[min(i + 1, last)];
+    const int g2 = ph.list[min(i + 2, last)], g3 = ph.list[min(i + 3, last)];
+    return GroupG{ph.w + (size_t)g0 * ph.n, ph.w + (size_t)g1 * ph.n,
+                  ph.w + (size_t)g2 * ph.n, ph.w + (size_t)g3 * ph.n,
+                  make_float4(__ldg(ph.t + g0),
+                              i + 1 <= last ? __ldg(ph.t + g1) : INFINITY,
+                              i + 2 <= last ? __ldg(ph.t + g2) : INFINITY,
+                              i + 3 <= last ? __ldg(ph.t + g3) : INFINITY)};
+  }
+}
+
+// c += w, four rows at once, each with __fadd_rn; true when one crosses.
+__device__ __forceinline__ bool add4(float4& c, const float4& w,
+                                     const float4& t) {
+  c.x = __fadd_rn(c.x, w.x);
+  c.y = __fadd_rn(c.y, w.y);
+  c.z = __fadd_rn(c.z, w.z);
+  c.w = __fadd_rn(c.w, w.w);
+  return (c.x >= t.x) | (c.y >= t.y) | (c.z >= t.z) | (c.w >= t.w);
+}
+
+// Walk positions [0, lim) of the order o with the rows of group gi of a
+// phase, each adding its weights in order with __fadd_rn; on the first
+// position where a row crosses, set lim to it.  The weights of four
+// positions load together before their adds.
+template <int LB, bool RES>
+__device__ __forceinline__ void walk_group(const Ord<LB>& o, const Phase& ph,
+                                           int gi, int& lim, bool& hit) {
+  const auto g = group<RES>(ph, gi);
+  float4 c = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (int j0 = 0; j0 < lim; j0 += 4) {
+    float4 w[4];
 #pragma unroll
-      for (int v = 0; v < MAX_K; ++v) sum[v] = 0.0f;
-      for (int a = 0; a < n; ++a) {
-        int x = vr[a];
-        float wa = sw2f[g * n + a];
+    for (int v = 0; v < 4; ++v) w[v] = g.weight(o.at(min(j0 + v, lim - 1)));
 #pragma unroll
-        for (int v = 0; v < MAX_K; ++v)
-          if (x == v) sum[v] = __fadd_rn(sum[v], wa);
+    for (int v = 0; v < 4; ++v) {
+      if (j0 + v < lim && add4(c, w[v], g.t)) {
+        lim = j0 + v;
+        hit = true;
       }
-      float th = st2f[g];
-#pragma unroll
-      for (int v = 0; v < MAX_K; ++v)
-        if (v < K && v < best && sum[v] >= th) best = v;
     }
-    const bool reached = best < K;
-    const int widx = reached ? best : K - 1;
-    const float* wx = val_arr + ((size_t)s * K + widx) * n;
-    float t_fast = select_sat(wx, n, sw2f, st2f, G2f, k2f, big);
-    float t_det = select_sat(arrive + (size_t)s * n, n, sw1, st1, G1, k1, big);
-    float t_cls =
-        select_sat(classic + (size_t)s * n, n, sw2c, st2c, G2c, k2c, big);
-    float rec = __fadd_rn(t_det, t_cls);
-    bool fast_ok = reached && t_fast < undecided_ms;
-    lat = fast_ok ? t_fast : rec;
-    bool und = lat >= undecided_ms;
-    bool v = valid[s] != 0;
-    fast = fast_ok && v;
-    recb = !fast_ok && !und && v;
-    undb = und && v;
-    if (fast || recb) {
+  }
+}
+
+// The same for a phase with one live row, four positions at a time.
+template <int LB, bool RES>
+__device__ __forceinline__ void walk_row(const Ord<LB>& o, const Phase& ph,
+                                         int& lim, bool& hit) {
+  const auto g = group<RES>(ph, 0);
+  float c = 0.0f;
+  for (int j0 = 0; j0 < lim; j0 += 4) {
+    float w[4];
+#pragma unroll
+    for (int v = 0; v < 4; ++v) w[v] = g.weight1(o.at(min(j0 + v, lim - 1)));
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+      if (j0 + v < lim) {
+        c = __fadd_rn(c, w[v]);
+        if (c >= g.t.x) {
+          lim = j0 + v;
+          hit = true;
+        }
+      }
+    }
+  }
+}
+
+// Earliest instant some live row of a phase crosses its threshold over the
+// k first positions of the order o; keys holds the trial's row.  Rows walk
+// the order four at
+// a time, each group stopping at the earliest crossing found so far:
+// instants never decrease along the order.  Like the plain version's min
+// over rows, rows that do not cross within k count as big, which decides
+// only when the earliest instant lies above big.
+template <int LB, bool RES>
+__device__ __forceinline__ float sat_time(const Ord<LB>& o, const Phase& ph,
+                                          int k, float big,
+                                          const unsigned* keys) {
+  int lim = k;
+  bool hit = false;
+  if (ph.nl == 1)
+    walk_row<LB, RES>(o, ph, lim, hit);
+  else
+    for (int gi = 0; gi < ph.ng; ++gi)
+      walk_group<LB, RES>(o, ph, gi, lim, hit);
+  if (!hit) return big;
+  const int l = o.at(lim);
+  float inst = key_value(keys[l]);
+  if (inst > big) {
+    bool all = ph.nl == ph.G;
+    for (int gi = 0; all && gi < ph.ng; ++gi) {
+      const auto g = group<RES>(ph, gi);
+      float4 c = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      bool x = false, y = 4 * gi + 1 >= ph.nl, z = 4 * gi + 2 >= ph.nl,
+           w = 4 * gi + 3 >= ph.nl;
+      for (int j = 0; j < k; ++j) {
+        add4(c, g.weight(o.at(j)), g.t);
+        x |= c.x >= g.t.x;
+        y |= c.y >= g.t.y;
+        z |= c.z >= g.t.z;
+        w |= c.w >= g.t.w;
+      }
+      all = x && y && z && w;
+    }
+    if (!all) inst = big;
+  }
+  return inst;
+}
+
+// Masked tally of one trial against a phase's live rows: the lowest value
+// whose voters' weights, added in lane order, reach some row's threshold,
+// else K.  vm holds the trial's vote bit masks, W words a value.
+template <bool RES>
+__device__ __forceinline__ int tally(const Phase& ph, const unsigned* vm,
+                                     int W, int K) {
+  if (ph.nl == 1) {  // one live row: scalar sums
+    const auto g = group<RES>(ph, 0);
+    for (int v = 0; v < K; ++v) {
+      float c = 0.0f;
+      for (int q = 0; q < W; ++q) {
+        unsigned b = vm[(v * W + q) * ST_TILE];
+        while (b) {
+          c = __fadd_rn(c, g.weight1(32 * q + __ffs(b) - 1));
+          b &= b - 1u;
+        }
+      }
+      if (c >= g.t.x) return v;
+    }
+    return K;
+  }
+  for (int v = 0; v < K; ++v) {
+    for (int gi = 0; gi < ph.ng; ++gi) {
+      const auto g = group<RES>(ph, gi);
+      float4 c = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      for (int q = 0; q < W; ++q) {
+        unsigned b = vm[(v * W + q) * ST_TILE];
+        while (b) {
+          add4(c, g.weight(32 * q + __ffs(b) - 1), g.t);
+          b &= b - 1u;
+        }
+      }
+      if ((c.x >= g.t.x) | (c.y >= g.t.y) | (c.z >= g.t.z) | (c.w >= g.t.w))
+        return v;
+    }
+  }
+  return K;
+}
+
+// Lanes [I0, I0 + LB / 2) of one row whose keys kk hold (lanes past n the
+// largest key, which no real pair follows): o gets, at position rank, the
+// lane whose (key, lane) has rank pairs before it.
+template <int LB, int I0>
+__device__ __forceinline__ void rank_half(const unsigned (&kk)[LB],
+                                          unsigned char* o, int n) {
+#pragma unroll
+  for (int i = I0; i < I0 + LB / 2; ++i) {
+    int rank = 0;
+#pragma unroll
+    for (int j = 0; j < LB; ++j)
+      if (j != i) rank += j < i ? kk[j] <= kk[i] : kk[j] < kk[i];
+    if (i < n) o[rank] = (unsigned char)i;
+  }
+}
+
+// Order the nr rows of the tile's valid trials.  LB > 0: two threads per
+// (row, trial), each half of the lanes, the row's keys in registers (a
+// warp's threads take the same half); LB = 0: a thread per (row, trial,
+// lane).
+template <int LB>
+__device__ __forceinline__ void rank_rows(const unsigned* keys,
+                                          unsigned char* ord, int np, int n,
+                                          int nr, const int* svalid) {
+  if constexpr (LB > 0) {
+    const int pairs = nr * ST_TILE;
+    for (int e = threadIdx.x; e < 2 * pairs; e += blockDim.x) {
+      const int h = e >= pairs, pair = e - h * pairs;
+      const int rl = pair / ST_TILE, s = pair - rl * ST_TILE;
+      if (!svalid[s] || h * (LB / 2) >= n) continue;
+      const unsigned* x = keys + (rl * ST_TILE + s) * n;
+      unsigned char* o = ord + (rl * ST_TILE + s) * np;
+      unsigned kk[LB];
+#pragma unroll
+      for (int j = 0; j < LB; ++j) kk[j] = j < n ? x[j] : 0xffffffffu;
+      if (h)
+        rank_half<LB, LB / 2>(kk, o, n);
+      else
+        rank_half<LB, 0>(kk, o, n);
+    }
+  } else {
+    for (int e = threadIdx.x; e < nr * ST_TILE * n; e += blockDim.x) {
+      const int pair = e / n, i = e - pair * n;
+      const int rl = pair / ST_TILE, s = pair - rl * ST_TILE;
+      if (!svalid[s]) continue;
+      const unsigned* x = keys + (rl * ST_TILE + s) * n;
+      const unsigned ki = x[i];
+      int rank = 0;
+      for (int j = 0; j < i; ++j) rank += x[j] <= ki;
+      for (int j = i + 1; j < n; ++j) rank += x[j] < ki;
+      ord[(rl * ST_TILE + s) * np + rank] = (unsigned char)i;
+    }
+  }
+}
+
+// Source row r of trial s: the K val_arr rows, then arrive, then classic.
+__device__ __forceinline__ const float* row_src(const StreamArgs& a, int r,
+                                                size_t s) {
+  if (r < a.K) return a.val + (s * a.K + r) * a.n;
+  return (r == a.K ? a.arr : a.cls) + s * a.n;
+}
+
+// Start the asynchronous copies of the K + 2 rows of the tile's cnt trials
+// into keys; with conv, turn this thread's copies into order keys once they
+// have landed.
+__device__ __forceinline__ void stage_rows(const StreamArgs& a, unsigned* keys,
+                                           int s0, int cnt, bool conv) {
+  const int n = a.n, R = a.K + 2;
+  if (a.vec) {
+    const int n4 = n / 4, per = cnt * n4;
+    for (int e = threadIdx.x; e < R * per; e += blockDim.x) {
+      const int r = e / per, rem = e - r * per;
+      const int s = rem / n4, i4 = rem - s * n4;
+      uint4* d = reinterpret_cast<uint4*>(keys + (r * ST_TILE + s) * n) + i4;
+      if (conv) {
+        uint4 v = *d;
+        *d = make_uint4(order_key(v.x), order_key(v.y), order_key(v.z),
+                        order_key(v.w));
+      } else {
+        cp_async16(d, row_src(a, r, s0 + s) + 4 * i4, 16);
+      }
+    }
+  } else {
+    const int per = cnt * n;
+    for (int e = threadIdx.x; e < R * per; e += blockDim.x) {
+      const int r = e / per, rem = e - r * per;
+      const int s = rem / n, i = rem - s * n;
+      unsigned* d = keys + (r * ST_TILE + s) * n + i;
+      if (conv)
+        *d = order_key(*d);
+      else
+        cp_async4(d, row_src(a, r, s0 + s) + i);
+    }
+  }
+}
+
+// Warp `warp` lists the live rows of system m, each phase in row order (a
+// row whose weights are all zero and whose threshold is positive never
+// crosses), a lane per row, 32 rows of all phases at a time; with RES it
+// writes them into the system's resident groups instead.
+template <int LB, bool RES>
+__device__ __forceinline__ void live_rows(const StreamArgs& a,
+                                          const StreamLayout& L,
+                                          unsigned char* smem, int warp,
+                                          int m) {
+  const int n = a.n, lane = threadIdx.x & 31;
+  const int lo1 = a.G[0], lo2 = a.G[0] + a.G[1];
+  unsigned short* lists =
+      reinterpret_cast<unsigned short*>(smem + L.lists) + warp * L.gt;
+  float* res = reinterpret_cast<float*>(smem + L.wts + warp * L.wsys);
+  int cnt[3] = {0, 0, 0};
+  for (int g0 = 0; g0 < L.gt; g0 += 32) {
+    const int ga = g0 + lane;
+    const int p = ga < lo1 ? 0 : (ga < lo2 ? 1 : 2);
+    const int g = ga - pick(p, 0, lo1, lo2);
+    const int G = pick(p, a.G[0], a.G[1], a.G[2]);
+    const float* wr =
+        pick(p, a.w[0], a.w[1], a.w[2]) + ((size_t)m * G + g) * n;
+    const float* tr =
+        pick(p, a.t[0], a.t[1], a.t[2]) + (size_t)m * G + g;
+    float th = 0.0f, wv[LB ? LB : 1];
+    bool live = false;
+    if (ga < L.gt) {
+      th = __ldg(tr);
+      live = !(th > 0.0f);
+      if (LB && a.vec) {  // n % 4 == 0, rows 16-byte aligned
+#pragma unroll
+        for (int i = 0; i < LB; i += 4) {
+          const float4 v = i < n ? __ldg(reinterpret_cast<const float4*>(wr) +
+                                         i / 4)
+                                 : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+          wv[i] = v.x;
+          wv[i + 1] = v.y;
+          wv[i + 2] = v.z;
+          wv[i + 3] = v.w;
+        }
+#pragma unroll
+        for (int i = 0; i < LB; ++i) live |= wv[i] != 0.0f;
+      } else if (LB) {
+#pragma unroll
+        for (int i = 0; i < LB; ++i) {
+          wv[i] = i < n ? __ldg(wr + i) : 0.0f;
+          live |= wv[i] != 0.0f;
+        }
+      } else {
+#pragma unroll 4
+        for (int i = 0; i < n; ++i) live |= __ldg(wr + i) != 0.0f;
+      }
+    }
+    const unsigned b = __ballot_sync(FULL, live);
+    const unsigned in0 = b & __ballot_sync(FULL, ga < L.gt && p == 0);
+    const unsigned in1 = b & __ballot_sync(FULL, ga < L.gt && p == 1);
+    const unsigned in2 = b & __ballot_sync(FULL, ga < L.gt && p == 2);
+    if (live) {  // position pos among phase p's live rows
+      const int pos = pick(p, cnt[0], cnt[1], cnt[2]) +
+                      __popc(pick(p, in0, in1, in2) & ((1u << lane) - 1u));
+      if (!RES) {
+        lists[pick(p, 0, lo1, lo2) + pos] = (unsigned short)g;
+      } else {  // component pos % 4 of group pos / 4
+        float* st = res + pick(p, 0, L.ng[0] * (n + 1),
+                               (L.ng[0] + L.ng[1]) * (n + 1)) * 4;
+        float* d = st + pick(p, L.ng[0], L.ng[1], L.ng[2]) * 4 +
+                   (pos >> 2) * n * 4 + (pos & 3);
+        st[pos] = th;
+        if (LB) {
+#pragma unroll
+          for (int i = 0; i < LB; ++i)
+            if (i < n) d[4 * i] = wv[i];
+        } else {
+          for (int i = 0; i < n; ++i) d[4 * i] = __ldg(wr + i);
+        }
+      }
+    }
+    cnt[0] += __popc(in0);
+    cnt[1] += __popc(in1);
+    cnt[2] += __popc(in2);
+  }
+  if (lane == 0) {
+    int* nlive = reinterpret_cast<int*>(smem + L.nlive) + warp * 3;
+    nlive[0] = cnt[0];
+    nlive[1] = cnt[1];
+    nlive[2] = cnt[2];
+  }
+  if (!RES) return;
+  // the last group's unused rows: zero weights, a threshold never reached.
+#pragma unroll
+  for (int q = 0; q < 3; ++q) {
+    float* st = res + pick(q, 0, L.ng[0] * (n + 1),
+                           (L.ng[0] + L.ng[1]) * (n + 1)) * 4;
+    float* sw = st + pick(q, L.ng[0], L.ng[1], L.ng[2]) * 4;
+    const int nl = cnt[q], end = (nl + 3) & ~3;
+    for (int i = lane; i <= n; i += 32)
+      for (int pos = nl; pos < end; ++pos) {
+        if (i == n)
+          st[pos] = INFINITY;
+        else
+          sw[((pos >> 2) * n + i) * 4 + (pos & 3)] = 0.0f;
+      }
+  }
+}
+
+// Phase p of the system in warp slot w (system m).
+template <bool RES>
+__device__ __forceinline__ Phase phase(const StreamArgs& a,
+                                       const StreamLayout& L,
+                                       const unsigned char* smem, int w, int m,
+                                       int p) {
+  Phase ph;
+  ph.n = a.n;
+  ph.G = pick(p, a.G[0], a.G[1], a.G[2]);
+  ph.st = reinterpret_cast<const float4*>(smem + L.wts + w * L.wsys) +
+          pick(p, 0, L.ng[0] * (ph.n + 1), (L.ng[0] + L.ng[1]) * (ph.n + 1));
+  ph.sw = ph.st + pick(p, L.ng[0], L.ng[1], L.ng[2]);
+  ph.w = pick(p, a.w[0], a.w[1], a.w[2]) + (size_t)m * ph.G * ph.n;
+  ph.t = pick(p, a.t[0], a.t[1], a.t[2]) + (size_t)m * ph.G;
+  ph.list = reinterpret_cast<const unsigned short*>(smem + L.lists) +
+            w * L.gt + pick(p, 0, a.G[0], a.G[0] + a.G[1]);
+  ph.nl = reinterpret_cast<const int*>(smem + L.nlive)[w * 3 + p];
+  ph.ng = (ph.nl + 3) / 4;
+  return ph;
+}
+
+// Grid (blocks per system group, system groups).  A block of
+// 32 * max(mg, ST_MIN_WARPS) threads walks the trial tiles blockIdx.x,
+// blockIdx.x + gridDim.x, ...; warp w tallies system blockIdx.y * mg + w, one
+// trial a lane.  Per tile: stage the votes and rows with 16-byte
+// asynchronous copies (the first tile's copies overlap the listing of the
+// live rows), order every row once, then every warp decides its system's
+// 32 trials.  The counts and the latency sum and max stay in each warp's
+// registers across tiles; the histogram goes to device memory with one
+// atomic per distinct bucket of a warp.  The last block of a group to finish
+// reduces the group's per-block partials in block order.  The launch bounds
+// hold a block of 16 warps to 64 registers a thread, so that two blocks of
+// the main path's 13 warps share an SM.
+template <int LB, bool RES>
+__global__ void __launch_bounds__(ST_TILE * ST_MAX_MG, 2)
+    stream_kernel(const StreamArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int last;
+  const int n = a.n, K = a.K, R = K + 2;
+  const StreamLayout L = stream_layout(n, K, a.G, a.mg, LB, RES);
+  unsigned* keys = reinterpret_cast<unsigned*>(smem + L.keys);
+  int* svotes = reinterpret_cast<int*>(smem + L.votes);
+  unsigned char* ord = smem + L.ord;
+  unsigned* vm = reinterpret_cast<unsigned*>(smem + L.vm);
+  int* svalid = reinterpret_cast<int*>(smem + L.valid);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int m = blockIdx.y * a.mg + warp;
+  const bool owner = warp < a.mg && m < a.M;
+  const float big = 2.0f * a.und;
+
+  float run_sum = 0.0f, run_max = -INFINITY;
+  int cf = 0, cr = 0, cu = 0;
+  const int tiles = (a.S + ST_TILE - 1) / ST_TILE;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int s0 = tile * ST_TILE;
+    const int cnt = min(ST_TILE, a.S - s0);
+    __syncthreads();  // the previous tile is done with shared memory
+    if (a.vec) {
+      for (int e = tid; e < cnt * n / 4; e += blockDim.x)
+        cp_async16(svotes + 4 * e, a.votes + (size_t)s0 * n + 4 * e, 16);
+    } else {
+      for (int e = tid; e < cnt * n; e += blockDim.x)
+        cp_async4(svotes + e, a.votes + (size_t)s0 * n + e);
+    }
+    stage_rows(a, keys, s0, cnt, false);
+    cp_async_commit();
+    if (tid < ST_TILE) svalid[tid] = tid < cnt && a.valid[s0 + tid];
+    if (owner && tile == (int)blockIdx.x)
+      live_rows<LB, RES>(a, L, smem, warp, m);
+    cp_async_wait<0>();
+    stage_rows(a, keys, s0, cnt, true);
+    __syncthreads();
+    for (int e = tid; e < K * L.W * ST_TILE; e += blockDim.x) {
+      const int s = e % ST_TILE, vq = e / ST_TILE;
+      const int v = vq / L.W, q = vq - v * L.W;
+      unsigned b = 0;
+      if (svalid[s]) {
+        const int* vr = svotes + s * n + 32 * q;
+        const int nb = min(32, n - 32 * q);
+        for (int j = 0; j < nb; ++j) b |= (unsigned)(vr[j] == v) << j;
+      }
+      vm[e] = b;
+    }
+    rank_rows<LB>(keys, ord, L.np, n, R, svalid);
+    __syncthreads();
+    if (!owner) continue;
+    // Each warp: its system, one trial a lane.
+    const int s = lane;
+    bool fast = false, recb = false, und = false;
+    float lat = 0.0f;
+    if (svalid[s]) {
+      const Phase ph = phase<RES>(a, L, smem, warp, m, 2);
+      const int best = tally<RES>(ph, vm + s, L.W, K);
+      Ord<LB> o;
+      if (best < K) {
+        o.load(ord + (best * ST_TILE + s) * L.np);
+        lat = sat_time<LB, RES>(o, ph, a.k[2], big,
+                                keys + (best * ST_TILE + s) * n);
+        fast = lat < a.und;
+      }
+      if (!fast) {
+        float t[2];
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+          const int r = K + p;
+          o.load(ord + (r * ST_TILE + s) * L.np);
+          t[p] = sat_time<LB, RES>(o, phase<RES>(a, L, smem, warp, m, p),
+                                   a.k[p], big, keys + (r * ST_TILE + s) * n);
+        }
+        lat = __fadd_rn(t[0], t[1]);
+        und = lat >= a.und;
+        recb = !und;
+      }
+    }
+    const bool dec = fast || recb;
+    const unsigned dm = __ballot_sync(FULL, dec);
+    if (dec) {
       // streaming.bucket_index, the same f32 expression.
       float r = fmaxf(lat, 1e-2f) / 1e-2f;
-      float fi = ceilf(logf(r) / log_g);
-      fi = fminf(fmaxf(fi, 0.0f), (float)(bins - 1));
-      atomicAdd(&shist[(int)fi], 1);
+      float fi = ceilf(logf(r) / a.log_g);
+      fi = fminf(fmaxf(fi, 0.0f), (float)(a.bins - 1));
+      const int bin = (int)fi;
+      const unsigned peers = __match_any_sync(dm, bin);
+      if (lane == __ffs(peers) - 1)
+        atomicAdd(a.hist + (size_t)m * a.bins + bin, __popc(peers));
     }
+    cf += __popc(__ballot_sync(FULL, fast));
+    cr += __popc(__ballot_sync(FULL, recb));
+    cu += __popc(__ballot_sync(FULL, und));
+    float ts = dec ? lat : 0.0f, tm = dec ? lat : -INFINITY;
+#pragma unroll
+    for (int off = 16; off; off >>= 1) {
+      ts = __fadd_rn(ts, __shfl_down_sync(FULL, ts, off));
+      tm = fmaxf(tm, __shfl_down_sync(FULL, tm, off));
+    }
+    run_sum = __fadd_rn(run_sum, ts);
+    run_max = fmaxf(run_max, tm);
   }
-  const bool decided = fast || recb;
-  rsum[tid] = decided ? lat : 0.0f;
-  rmax[tid] = decided ? lat : -INFINITY;
-  unsigned mf = __ballot_sync(0xffffffffu, fast);
-  unsigned mr = __ballot_sync(0xffffffffu, recb);
-  unsigned mu = __ballot_sync(0xffffffffu, undb);
-  if ((tid & 31) == 0) {
-    atomicAdd(&rcnt[0], __popc(mf));
-    atomicAdd(&rcnt[1], __popc(mr));
-    atomicAdd(&rcnt[2], __popc(mu));
+
+  const int nbx = gridDim.x;
+  if (owner && lane == 0) {
+    const size_t pb = (size_t)m * nbx + blockIdx.x;
+    a.psum[pb] = run_sum;
+    a.pmax[pb] = run_max;
+    a.pcnt[3 * pb] = cf;
+    a.pcnt[3 * pb + 1] = cr;
+    a.pcnt[3 * pb + 2] = cu;
+    __threadfence();  // the partials before the ticket
   }
   __syncthreads();
-  for (int off = blockDim.x / 2; off > 0; off >>= 1) {
-    if (tid < off) {
-      rsum[tid] = __fadd_rn(rsum[tid], rsum[tid + off]);
-      rmax[tid] = fmaxf(rmax[tid], rmax[tid + off]);
+  if (tid == 0) last = atomicAdd(a.tickets + blockIdx.y, 1) == nbx - 1;
+  __syncthreads();
+  if (!last) return;
+  if (owner) {
+    // lane l adds the partials of blocks l, l + 32, ... in order, eight
+    // blocks in flight at a time; then a fixed tree over the lanes.
+    float ts = 0.0f, tm = -INFINITY;
+    int c0 = 0, c1 = 0, c2 = 0;
+    for (int b0 = lane; b0 < nbx; b0 += 8 * 32) {
+      float ps[8], pm[8];
+      int pc[8][3];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int b = b0 + 32 * u;
+        const size_t pb = (size_t)m * nbx + b;
+        ps[u] = b < nbx ? __ldcg(a.psum + pb) : 0.0f;
+        pm[u] = b < nbx ? __ldcg(a.pmax + pb) : -INFINITY;
+#pragma unroll
+        for (int f = 0; f < 3; ++f)
+          pc[u][f] = b < nbx ? __ldcg(a.pcnt + 3 * pb + f) : 0;
+      }
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        ts = __fadd_rn(ts, ps[u]);
+        tm = fmaxf(tm, pm[u]);
+        c0 += pc[u][0];
+        c1 += pc[u][1];
+        c2 += pc[u][2];
+      }
     }
-    __syncthreads();
+#pragma unroll
+    for (int off = 16; off; off >>= 1) {
+      ts = __fadd_rn(ts, __shfl_down_sync(FULL, ts, off));
+      tm = fmaxf(tm, __shfl_down_sync(FULL, tm, off));
+      c0 += __shfl_down_sync(FULL, c0, off);
+      c1 += __shfl_down_sync(FULL, c1, off);
+      c2 += __shfl_down_sync(FULL, c2, off);
+    }
+    if (lane == 0) {
+      a.sum[m] = ts;
+      a.max[m] = tm;
+      a.counts[m] = c0;
+      a.counts[a.M + m] = c1;
+      a.counts[2 * a.M + m] = c2;
+    }
   }
-  if (tid == 0) {
-    part_sum[(size_t)m * nblk + b] = rsum[0];
-    part_max[(size_t)m * nblk + b] = rmax[0];
-    atomicAdd(&counts[m * 3 + 0], rcnt[0]);
-    atomicAdd(&counts[m * 3 + 1], rcnt[1]);
-    atomicAdd(&counts[m * 3 + 2], rcnt[2]);
+  if (tid == 0) a.tickets[blockIdx.y] = 0;
+}
+
+template <int LB, bool RES>
+static int stream_plan_for(int n, int K, int M, const int* G, int* out) {
+  const int cap = M < ST_MAX_MG ? M : ST_MAX_MG;
+  for (int mg = cap; mg >= 1; --mg) {
+    const StreamLayout L = stream_layout(n, K, G, mg, LB, RES);
+    if (L.bytes > ST_MAX_SMEM) continue;
+    cudaError_t e = cudaFuncSetAttribute(
+        stream_kernel<LB, RES>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        ST_MAX_SMEM);
+    const int threads = ST_TILE * (mg > ST_MIN_WARPS ? mg : ST_MIN_WARPS);
+    int per_sm = 0, dev = 0, sms = 0;
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, stream_kernel<LB, RES>, threads, L.bytes);
+    if (e == cudaSuccess) e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+    out[0] = mg;
+    out[1] = threads;
+    out[2] = (int)L.bytes;
+    out[3] = (per_sm > 0 ? per_sm : 1) * sms;
+    out[4] = RES;
+    return 0;
   }
-  for (int i = tid; i < bins; i += blockDim.x) {
-    int c = shist[i];
-    if (c) atomicAdd(&hist[(size_t)m * bins + i], c);
-  }
+  return -1;
+}
+
+// Masks resident in shared memory where they fit, else read from device
+// memory.
+template <int LB>
+static int stream_plan(int n, int K, int M, const int* G, int* out) {
+  const int err = stream_plan_for<LB, true>(n, K, M, G, out);
+  return err == -1 ? stream_plan_for<LB, false>(n, K, M, G, out) : err;
+}
+
+template <int LB, bool RES>
+static void stream_launch(const StreamArgs& a, dim3 grid, int threads,
+                          int smem, cudaStream_t st) {
+  stream_kernel<LB, RES><<<grid, threads, smem, st>>>(a);
 }
 
 // ---------------------------------------------------------------------------
@@ -375,11 +995,15 @@ int qt_masked_tally(const void* votes, const void* w, const void* t, int S,
   return (int)cudaGetLastError();
 }
 
-int qt_stream_block() { return ST_BS; }
-
-size_t qt_stream_smem(int n, int G1, int G2c, int G2f, int bins) {
-  return sizeof(float) * ((size_t)(G1 + G2c + G2f) * (n + 1) + bins +
-                          2 * ST_BS + 3);
+// The launch plan of stream_tally_decide_hist for a shape: out = {systems a
+// block, threads a block, dynamic shared memory, blocks the card holds at
+// once, masks resident in shared memory}.  Returns -1 when a tile and one
+// system's lists of live rows do not fit in shared memory (at n = 128 and
+// K = 8, more than about 2300 quorum rows), else a CUDA error code.
+int qt_stream_plan(int n, int K, int M, int G1, int G2c, int G2f, int* out) {
+  const int G[3] = {G1, G2c, G2f};
+  if (n <= 16) return stream_plan<16>(n, K, M, G, out);
+  return stream_plan<0>(n, K, M, G, out);
 }
 
 int qt_stream_tally_decide_hist(
@@ -387,23 +1011,59 @@ int qt_stream_tally_decide_hist(
     const void* classic, const void* w1, const void* t1, const void* w2c,
     const void* t2c, const void* w2f, const void* t2f, const void* valid,
     int S, int n, int K, int M, int G1, int G2c, int G2f, int k1, int k2c,
-    int k2f, float log_g, int bins, float undecided_ms, void* hist,
-    void* counts, void* part_sum, void* part_max, void* stream) {
-  size_t smem = qt_stream_smem(n, G1, G2c, G2f, bins);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        stream_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  dim3 grid((S + ST_BS - 1) / ST_BS, M);
-  stream_kernel<<<grid, ST_BS, smem, (cudaStream_t)stream>>>(
-      (const int*)votes, (const float*)val_arr, (const float*)arrive,
-      (const float*)classic, (const float*)w1, (const float*)t1,
-      (const float*)w2c, (const float*)t2c, (const float*)w2f,
-      (const float*)t2f, (const unsigned char*)valid, S, n, K, G1, G2c, G2f,
-      k1, k2c, k2f, log_g, bins, undecided_ms, (int*)hist, (int*)counts,
-      (float*)part_sum, (float*)part_max);
+    int k2f, float log_g, int bins, float undecided_ms, int mg,
+    int threads, int smem, int nbx, int res, void* hist, void* counts,
+    void* tickets, void* sum, void* max, void* psum, void* pmax,
+    void* pcnt, void* stream) {
+  StreamArgs a;
+  a.votes = (const int*)votes;
+  a.val = (const float*)val_arr;
+  a.arr = (const float*)arrive;
+  a.cls = (const float*)classic;
+  a.valid = (const unsigned char*)valid;
+  a.w[0] = (const float*)w1;
+  a.w[1] = (const float*)w2c;
+  a.w[2] = (const float*)w2f;
+  a.t[0] = (const float*)t1;
+  a.t[1] = (const float*)t2c;
+  a.t[2] = (const float*)t2f;
+  a.G[0] = G1;
+  a.G[1] = G2c;
+  a.G[2] = G2f;
+  a.k[0] = k1;
+  a.k[1] = k2c;
+  a.k[2] = k2f;
+  a.S = S;
+  a.n = n;
+  a.K = K;
+  a.M = M;
+  a.bins = bins;
+  a.mg = mg;
+  a.vec = n % 4 == 0 && ((uintptr_t)votes | (uintptr_t)val_arr |
+                         (uintptr_t)arrive | (uintptr_t)classic |
+                         (uintptr_t)w1 | (uintptr_t)w2c | (uintptr_t)w2f) %
+                                16 ==
+                            0;
+  a.log_g = log_g;
+  a.und = undecided_ms;
+  a.hist = (int*)hist;
+  a.counts = (int*)counts;
+  a.tickets = (int*)tickets;
+  a.sum = (float*)sum;
+  a.max = (float*)max;
+  a.psum = (float*)psum;
+  a.pmax = (float*)pmax;
+  a.pcnt = (int*)pcnt;
+  const dim3 grid(nbx, (M + mg - 1) / mg);
+  cudaStream_t st = (cudaStream_t)stream;
+  // the one fill: the histogram and, after it, a ticket per system group.
+  const cudaError_t e = cudaMemsetAsync(
+      hist, 0, sizeof(int) * ((size_t)M * bins + grid.y), st);
+  if (e != cudaSuccess) return (int)e;
+  void (*launch)(const StreamArgs&, dim3, int, int, cudaStream_t) =
+      n <= 16 ? (res ? stream_launch<16, true> : stream_launch<16, false>)
+              : (res ? stream_launch<0, true> : stream_launch<0, false>);
+  launch(a, grid, threads, smem, st);
   return (int)cudaGetLastError();
 }
 

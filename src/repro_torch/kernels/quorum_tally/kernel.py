@@ -14,6 +14,7 @@ returned a CUDA error, and adds one to ``LAUNCHES[name]`` when it launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import threading
 from pathlib import Path
@@ -27,13 +28,13 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "quorum_tally.cu"
 
 MAX_N = 128          # acceptors a trial may have (MAX_N in the source)
 MAX_K = 8            # values a race may have (MAX_K in the source)
-MAX_SMEM = 232_448   # shared memory one block may use on Hopper
 
 LAUNCHES: Dict[str, int] = {"tally_votes": 0, "tally_decide": 0,
                             "masked_tally": 0, "stream_tally_decide_hist": 0}
 
 _lib = None
 _lib_lock = threading.Lock()
+_STREAM_PLANS: Dict[tuple, tuple] = {}
 
 
 def reset_launches() -> None:
@@ -60,12 +61,10 @@ def _load():
             lib.qt_tally_decide.restype = I
             lib.qt_masked_tally.argtypes = [P, P, P, I, I, I, I, P, P]
             lib.qt_masked_tally.restype = I
-            lib.qt_stream_block.argtypes = []
-            lib.qt_stream_block.restype = I
-            lib.qt_stream_smem.argtypes = [I, I, I, I, I]
-            lib.qt_stream_smem.restype = ctypes.c_size_t
+            lib.qt_stream_plan.argtypes = [I] * 6 + [ctypes.POINTER(I)]
+            lib.qt_stream_plan.restype = I
             lib.qt_stream_tally_decide_hist.argtypes = (
-                [P] * 11 + [I] * 10 + [F, I, F] + [P] * 5)
+                [P] * 11 + [I] * 10 + [F, I, F] + [I] * 5 + [P] * 9)
             lib.qt_stream_tally_decide_hist.restype = I
             _lib = lib
     return _lib
@@ -186,6 +185,30 @@ def masked_tally(votes: torch.Tensor, weights: torch.Tensor,
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _log_gamma(precision: float) -> float:
+    from repro_torch.montecarlo.streaming import sketch_gamma
+    return math.log(sketch_gamma(precision))
+
+
+def _stream_plan(lib, dev, n: int, K: int, M: int, G: tuple) -> tuple:
+    """(systems a block, threads, shared memory, blocks the card holds at
+    once, masks resident in shared memory) for a shape, from
+    ``qt_stream_plan`` once per device and shape."""
+    key = (dev.index, n, K, M, G)
+    plan = _STREAM_PLANS.get(key)
+    if plan is None:
+        out = (ctypes.c_int * 5)()
+        with torch.cuda.device(dev):
+            err = lib.qt_stream_plan(n, K, M, *G, out)
+        if err == -1:
+            raise ValueError(f"quorum rows {G} of n={n} acceptors do not fit "
+                             f"in the shared memory of a block")
+        _raise_on(err, "stream_tally_decide_hist plan")
+        plan = _STREAM_PLANS[key] = tuple(out)
+    return plan
+
+
 def stream_tally_decide_hist(votes: torch.Tensor, val_arr: torch.Tensor,
                              arrive: torch.Tensor, classic: torch.Tensor,
                              w1: torch.Tensor, t1: torch.Tensor,
@@ -195,10 +218,11 @@ def stream_tally_decide_hist(votes: torch.Tensor, val_arr: torch.Tensor,
                              k_sat: tuple, precision: float, bins: int,
                              undecided_ms: float):
     """Fused masked tally + selection + decide + sketch over one raw chunk
-    (shapes and semantics of ``ref.stream_tally_decide_hist``).  Counts and
-    histogram are exact; ``sum_ms`` reduces per-block partials in a fixed
-    order, so it is reproducible run to run."""
-    from repro_torch.montecarlo.streaming import sketch_gamma
+    (shapes and semantics of ``ref.stream_tally_decide_hist``) in one
+    launch, after one fill of the histogram.  The outputs are views of one
+    buffer; counts and histogram are exact, and ``sum_ms`` reduces per-block
+    partials in a fixed order, so it is the same bit for bit from call to
+    call."""
     if votes.dim() != 2 or w1.dim() != 3:
         raise ValueError(f"votes (S, n) and masks (M, G, n) expected, got "
                          f"{tuple(votes.shape)} / {tuple(w1.shape)}")
@@ -210,47 +234,61 @@ def stream_tally_decide_hist(votes: torch.Tensor, val_arr: torch.Tensor,
     _check_sizes(n, K)
     dev = votes.device
     f32 = torch.float32
-    _check(votes, "votes", torch.int32, (S, n), dev)
-    _check(val_arr, "val_arr", f32, (S, K, n), dev)
-    _check(arrive, "arrive", f32, (S, n), dev)
-    _check(classic, "classic", f32, (S, n), dev)
-    _check(w1, "w1", f32, (M, G1, n), dev)
-    _check(t1, "t1", f32, (M, G1), dev)
-    _check(w2c, "w2c", f32, (M, G2c, n), dev)
-    _check(t2c, "t2c", f32, (M, G2c), dev)
-    _check(w2f, "w2f", f32, (M, G2f, n), dev)
-    _check(t2f, "t2f", f32, (M, G2f), dev)
-    _check(valid, "valid", torch.bool, (S,), dev)
+    for t, name, dtype, shape in (
+            (votes, "votes", torch.int32, (S, n)),
+            (val_arr, "val_arr", f32, (S, K, n)),
+            (arrive, "arrive", f32, (S, n)),
+            (classic, "classic", f32, (S, n)), (w1, "w1", f32, (M, G1, n)),
+            (t1, "t1", f32, (M, G1)), (w2c, "w2c", f32, (M, G2c, n)),
+            (t2c, "t2c", f32, (M, G2c)), (w2f, "w2f", f32, (M, G2f, n)),
+            (t2f, "t2f", f32, (M, G2f)), (valid, "valid", torch.bool, (S,))):
+        if (t.dtype != dtype or t.shape != shape or t.device != dev
+                or not t.is_contiguous()):
+            _check(t, name, dtype, shape, dev)
     ks = tuple(int(k) for k in k_sat)
     if len(ks) != 3 or not all(1 <= k <= n for k in ks):
         raise ValueError(f"k_sat {k_sat} out of range for n={n}")
     if not 1 <= M <= 65535:
         raise ValueError(f"stream kernel takes 1 <= M <= 65535 systems, "
                          f"got {M}")
+    if max(G1, G2c, G2f) > 65535:
+        raise ValueError(f"stream kernel takes at most 65535 quorum rows a "
+                         f"phase, got {(G1, G2c, G2f)}")
     lib = _load()
-    smem = lib.qt_stream_smem(n, G1, G2c, G2f, bins)
-    if smem > MAX_SMEM:
-        raise ValueError(f"system masks need {smem} bytes of shared memory, "
-                         f"more than the {MAX_SMEM} a block may use")
-    nblk = -(-S // lib.qt_stream_block())
-    hist = torch.zeros((M, bins), dtype=torch.int32, device=dev)
-    counts = torch.zeros((M, 3), dtype=torch.int32, device=dev)
-    part_sum = torch.zeros((M, max(nblk, 1)), dtype=f32, device=dev)
-    part_max = torch.full((M, max(nblk, 1)), -math.inf, dtype=f32, device=dev)
+    mg, threads, smem, blocks, res = _stream_plan(lib, dev, n, K, M,
+                                                  (G1, G2c, G2f))
+    groups = -(-M // mg)
+    nbx = max(1, min(-(-S // 32), blocks // groups))
+    # one buffer: hist (M, bins) and a ticket per system group (zeroed by
+    # the C entry point);
+    # n_fast, n_recovery, n_undecided (M,) each; f32 sum_ms, max_ms and the
+    # per-block partial sums and maxima; the per-block partial counts.
+    nz = M * bins + groups
+    nf = 2 * M + 2 * M * nbx
+    buf = torch.empty(nz + 3 * M + nf + 3 * M * nbx, dtype=torch.int32,
+                      device=dev)
+    zero, n_fast, n_rec, n_und, fl, _ = buf.split(
+        [nz, M, M, M, nf, 3 * M * nbx])
+    hist = zero[:M * bins].view(M, bins)
+    sum_ms, max_ms, _ = fl.view(f32).split([M, M, 2 * M * nbx])
     if S:
-        log_g = math.log(sketch_gamma(precision))
+        p = buf.data_ptr()
         with torch.cuda.device(dev):
             err = lib.qt_stream_tally_decide_hist(
                 votes.data_ptr(), val_arr.data_ptr(), arrive.data_ptr(),
                 classic.data_ptr(), w1.data_ptr(), t1.data_ptr(),
                 w2c.data_ptr(), t2c.data_ptr(), w2f.data_ptr(),
                 t2f.data_ptr(), valid.data_ptr(), S, n, K, M, G1, G2c, G2f,
-                ks[0], ks[1], ks[2], log_g, bins, float(undecided_ms),
-                hist.data_ptr(), counts.data_ptr(), part_sum.data_ptr(),
-                part_max.data_ptr(), _stream(dev))
+                ks[0], ks[1], ks[2], _log_gamma(precision), bins,
+                float(undecided_ms), mg, threads, smem, nbx, res, p,
+                p + 4 * nz, p + 4 * M * bins, p + 4 * (nz + 3 * M),
+                p + 4 * (nz + 4 * M), p + 4 * (nz + 5 * M),
+                p + 4 * (nz + 5 * M + M * nbx), p + 4 * (nz + 3 * M + nf),
+                _stream(dev))
         _raise_on(err, "stream_tally_decide_hist")
         LAUNCHES["stream_tally_decide_hist"] += 1
-    return hist, {"n_fast": counts[:, 0], "n_recovery": counts[:, 1],
-                  "n_undecided": counts[:, 2],
-                  "sum_ms": part_sum.sum(dim=1),
-                  "max_ms": part_max.amax(dim=1)}
+    else:
+        buf[:nz + 4 * M].zero_()
+        max_ms.fill_(-math.inf)
+    return hist, {"n_fast": n_fast, "n_recovery": n_rec,
+                  "n_undecided": n_und, "sum_ms": sum_ms, "max_ms": max_ms}

@@ -42,9 +42,14 @@ from repro_torch.montecarlo import streaming
 BINS = streaming.sketch_bins(0.01)
 
 
-def stream_test_inputs(seed, S, n, M, G, K, dev):
+def stream_test_inputs(seed, S, n, M, G, K, dev, quarters=False, pad=False,
+                       inf=False):
     """The stream kernel's test inputs: integral weights, quantized arrival
-    times (ties), ~10% lost 2b lanes, trailing padding trials."""
+    times (ties), ~10% lost 2b lanes, trailing padding trials.  ``quarters``:
+    weights and thresholds in quarters instead, sums exact in f32 in any
+    order; ``pad``: each phase's last row a padding row (zero weights,
+    threshold 2^30) as ``build_mask_table`` pads; ``inf``: ~20% of the
+    arrive and classic lanes +inf."""
     r = np.random.default_rng(seed)
     votes = r.integers(-1, K, (S, n)).astype(np.int32)
     arrive = np.floor(np.exp(r.standard_normal((S, n))) * 8.0) / 4.0
@@ -55,8 +60,19 @@ def stream_test_inputs(seed, S, n, M, G, K, dev):
     val_arr = np.where(lost, 1e9, val_arr)
     masks = []
     for _ in range(3):
-        masks.append(r.integers(0, 3, (M, G, n)).astype(np.float32))
-        masks.append(r.integers(1, n + 2, (M, G)).astype(np.float32))
+        if quarters:
+            w = r.integers(0, 9, (M, G, n)) / 4.0
+            t = r.integers(1, 4 * n + 8, (M, G)) / 4.0
+        else:
+            w = r.integers(0, 3, (M, G, n))
+            t = r.integers(1, n + 2, (M, G))
+        w, t = w.astype(np.float32), t.astype(np.float32)
+        if pad:
+            w[:, -1], t[:, -1] = 0.0, 2.0 ** 30
+        masks += [w, t]
+    if inf:
+        arrive[r.random((S, n)) < 0.2] = np.inf
+        classic[r.random((S, n)) < 0.2] = np.inf
     valid = np.arange(S) < S - S // 7
     f = lambda x: torch.as_tensor(np.asarray(x, np.float32)).to(dev)
     return ([torch.as_tensor(votes).to(dev), f(val_arr), f(arrive),
@@ -111,24 +127,54 @@ def test_masked_tally_kernel(cuda, S, n, V, G):
                        ref.masked_tally(votes, w, t, V))
 
 
-@pytest.mark.parametrize("S,n,M,G,K,k_sat", [
-    (300, 11, 2, 3, 2, (4, 5, 6)),
-    (1025, 9, 1, 6, 3, (9, 9, 9)),
-    (513, 7, 3, 1, 2, (2, 3, 2)),
-    (700, 11, 4, 2, 2, (11, 1, 7)),
-    (8192, 12, 13, 12, 2, (12, 4, 8)),
-])
-def test_stream_kernel(cuda, S, n, M, G, K, k_sat):
-    args = stream_test_inputs(S * 13 + M, S, n, M, G, K, cuda)
-    kw = dict(n_values=K, k_sat=k_sat, precision=0.01, bins=BINS,
-              undecided_ms=5e8)
-    h_k, s_k = kernel.stream_tally_decide_hist(*args, **kw)
-    h_r, s_r = ref.stream_tally_decide_hist(*args, **kw)
+# (S, n, M, G, K, k_sat, stream_test_inputs options): the mixed n=12 shape,
+# then the edges of the kernel's design -- more rows than a warp's 32, K = 8,
+# n past the register-resident orders (16, 32) up to MAX_N, more systems than
+# a block's 16, quarter weights, k_sat below n, +inf lanes, padding rows.
+STREAM_CASES = [
+    (300, 11, 2, 3, 2, (4, 5, 6), {}),
+    (1025, 9, 1, 6, 3, (9, 9, 9), {}),
+    (513, 7, 3, 1, 2, (2, 3, 2), {}),
+    (700, 11, 4, 2, 2, (11, 1, 7), {}),
+    (8192, 12, 13, 12, 2, (12, 4, 8), {}),
+    (1000, 12, 5, 39, 2, (12, 12, 12), dict(pad=True)),
+    (600, 9, 3, 4, 8, (9, 9, 9), {}),
+    (500, 17, 3, 5, 3, (17, 9, 12), {}),
+    (400, 33, 2, 4, 2, (33, 20, 25), {}),
+    (300, 128, 2, 3, 2, (128, 64, 100), {}),
+    (200, 128, 1, 2, 8, (128, 128, 128), {}),
+    (2000, 11, 300, 3, 2, (11, 6, 8), dict(pad=True)),
+    (1500, 12, 13, 12, 2, (12, 12, 12), dict(quarters=True, pad=True)),
+    (1025, 12, 4, 6, 2, (5, 3, 4), {}),
+    (1000, 12, 4, 5, 2, (12, 12, 12), dict(inf=True, pad=True)),
+]
+
+
+def _stream_case_id(i, case):
+    S, n, M, G, K, _, opts = case
+    return "-".join([str(S), str(n), str(M), str(G), str(K), f"k_sat{i}",
+                     *sorted(opts)])
+
+
+def assert_stream_equal(got, want):
+    h_k, s_k = got
+    h_r, s_r = want
     assert torch.equal(h_k, h_r)
     for f in ("n_fast", "n_recovery", "n_undecided", "max_ms"):
         assert torch.equal(s_k[f], s_r[f]), f
     torch.testing.assert_close(s_k["sum_ms"], s_r["sum_ms"], rtol=1e-5,
                                atol=0.0)
+
+
+@pytest.mark.parametrize("S,n,M,G,K,k_sat,opts", STREAM_CASES,
+                         ids=[_stream_case_id(i, c)
+                              for i, c in enumerate(STREAM_CASES)])
+def test_stream_kernel(cuda, S, n, M, G, K, k_sat, opts):
+    args = stream_test_inputs(S * 13 + M, S, n, M, G, K, cuda, **opts)
+    kw = dict(n_values=K, k_sat=k_sat, precision=0.01, bins=BINS,
+              undecided_ms=5e8)
+    assert_stream_equal(kernel.stream_tally_decide_hist(*args, **kw),
+                        ref.stream_tally_decide_hist(*args, **kw))
 
 
 def test_stream_kernel_all_invalid_block(cuda):
@@ -139,6 +185,34 @@ def test_stream_kernel_all_invalid_block(cuda):
         undecided_ms=5e8)
     assert int(h.sum()) == 0 and int(s["n_fast"].sum()) == 0
     assert bool(torch.isneginf(s["max_ms"]).all())
+
+
+@pytest.mark.parametrize("S,n,M,G,K", [(8192, 12, 13, 12, 2),
+                                       (2000, 11, 300, 3, 2),
+                                       (300, 128, 2, 3, 8)])
+def test_stream_kernel_repeats_bit_for_bit(cuda, S, n, M, G, K):
+    """Two calls on the same inputs give the same bits, sum_ms included:
+    the per-block partials are reduced in block order."""
+    args = stream_test_inputs(S + n, S, n, M, G, K, cuda, quarters=True)
+    kw = dict(n_values=K, k_sat=(n, n, n), precision=0.01, bins=BINS,
+              undecided_ms=5e8)
+    h_a, s_a = kernel.stream_tally_decide_hist(*args, **kw)
+    h_b, s_b = kernel.stream_tally_decide_hist(*args, **kw)
+    assert torch.equal(h_a, h_b)
+    for f in s_a:
+        assert torch.equal(s_a[f].view(torch.int32),
+                           s_b[f].view(torch.int32)), f
+
+
+def test_stream_kernel_one_launch_per_call(cuda):
+    args = stream_test_inputs(5, 8192, 12, 13, 12, 2, cuda)
+    kw = dict(n_values=2, k_sat=(12, 4, 8), precision=0.01, bins=BINS,
+              undecided_ms=5e8)
+    kernel.stream_tally_decide_hist(*args, **kw)
+    ops.reset_launches()
+    ops.stream_tally_decide_hist(*args, **kw)
+    assert ops.LAUNCHES == {"tally_votes": 0, "tally_decide": 0,
+                            "masked_tally": 0, "stream_tally_decide_hist": 1}
 
 
 def test_ops_launch_on_cuda_and_count(cuda):

@@ -77,10 +77,13 @@ def t(x, dtype=None):
     return torch.as_tensor(np.asarray(x, dtype))
 
 
-def stream_inputs(seed: int, S: int, n: int, M: int, G: int, K: int):
+def stream_inputs(seed: int, S: int, n: int, M: int, G: int, K: int,
+                  quarters: bool = False):
     """tests/test_kernels.py's stream inputs made with numpy: integral
     weights, arrival times quantized to force ties, ~10% lost 2b lanes,
-    trailing padding trials."""
+    trailing padding trials.  ``quarters``: weights and thresholds in
+    quarters instead (non-integral, yet every partial sum exact in f32, so
+    any order of addition gives the same crossing)."""
     r = np.random.default_rng(seed)
     votes = r.integers(-1, K, (S, n)).astype(np.int32)
     arrive = (np.floor(np.exp(r.standard_normal((S, n))) * 8.0) / 4.0
@@ -94,8 +97,14 @@ def stream_inputs(seed: int, S: int, n: int, M: int, G: int, K: int):
     val_arr = np.where(lost, np.float32(1e9), val_arr)
     masks = []
     for _ in range(3):
-        masks.append(r.integers(0, 3, (M, G, n)).astype(np.float32))
-        masks.append(r.integers(1, n + 2, (M, G)).astype(np.float32))
+        if quarters:
+            masks.append((r.integers(0, 9, (M, G, n)) / 4.0
+                          ).astype(np.float32))
+            masks.append((r.integers(1, 4 * n + 8, (M, G)) / 4.0
+                          ).astype(np.float32))
+        else:
+            masks.append(r.integers(0, 3, (M, G, n)).astype(np.float32))
+            masks.append(r.integers(1, n + 2, (M, G)).astype(np.float32))
     valid = np.arange(S) < S - S // 7
     return [votes, val_arr, arrive, classic, *masks, valid]
 
@@ -210,19 +219,36 @@ def test_masked_tally_lowest_value_wins_ties():
 # stream_tally_decide_hist
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("S,n,M,G,K,k_sat", [
-    (300, 11, 2, 3, 2, (4, 5, 6)),
-    (1025, 9, 1, 6, 3, (9, 9, 9)),
-    (513, 7, 3, 1, 2, (2, 3, 2)),
-    (700, 11, 4, 2, 2, (11, 1, 7)),
-])
-def test_stream_tally_decide_hist_matches_jax(S, n, M, G, K, k_sat):
-    args = stream_inputs(S * 13 + M, S, n, M, G, K)
+# (S, n, M, G, K, k_sat, quarters); the last three are the edges the CUDA
+# kernel is held to on the card (G = 12 rows, K = 8 values, non-integral
+# weights), held here also to JAX's Pallas kernel in interpret mode.
+STREAM_CASES = [
+    (300, 11, 2, 3, 2, (4, 5, 6), False),
+    (1025, 9, 1, 6, 3, (9, 9, 9), False),
+    (513, 7, 3, 1, 2, (2, 3, 2), False),
+    (700, 11, 4, 2, 2, (11, 1, 7), False),
+    (260, 12, 3, 12, 2, (12, 6, 9), False),
+    (200, 9, 2, 4, 8, (9, 7, 9), False),
+    (300, 11, 3, 5, 3, (11, 8, 10), True),
+]
+
+
+@pytest.mark.parametrize(
+    "S,n,M,G,K,k_sat,quarters", STREAM_CASES,
+    ids=[f"{c[0]}-{c[1]}-{c[2]}-{c[3]}-{c[4]}-k_sat{i}"
+         + ("-quarters" if c[6] else "") for i, c in enumerate(STREAM_CASES)])
+def test_stream_tally_decide_hist_matches_jax(S, n, M, G, K, k_sat, quarters):
+    args = stream_inputs(S * 13 + M, S, n, M, G, K, quarters)
     kw = dict(n_values=K, k_sat=k_sat, precision=0.01, bins=BINS,
               undecided_ms=UND)
     port = _port_stream(args, **kw)
-    _assert_stream_equal(port, _jax_stream(args, **kw), args, kw,
-                         f"stream {(S, n, M, G, K, k_sat)}")
+    what = f"stream {(S, n, M, G, K, k_sat, quarters)}"
+    _assert_stream_equal(port, _jax_stream(args, **kw), args, kw, what)
+    if G == 12 or K == 8 or quarters:
+        jax_out = jax_kernel.stream_tally_decide_hist(
+            *[jnp.asarray(a) for a in args], interpret=True, **kw)
+        _assert_stream_equal(port, jax_out, args, kw,
+                             what + " vs interpret kernel")
     h, s = port
     valid = int(args[-1].sum())
     np.testing.assert_array_equal(
