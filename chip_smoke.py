@@ -13,11 +13,12 @@ Phases, one JSON line each:
               in ``cuobjdump -sass`` of the built libraries: nonzero for
               the bf16 instances of flash attention and the SSD scan
   3. kernels  each quorum-tally kernel against its plain PyTorch version on
-              the card, at the main paths' shapes and the kernel tests'
-              shapes: integer outputs equal, sum_ms to 1e-5 relative, max_ms
-              equal; median CUDA-event times of one call of kernel and plain
-              version, and the kernel's device time per call from
-              torch.profiler
+              the card, at the main paths' shapes, the kernel tests' shapes
+              and shapes of any K and n: integer outputs equal, sum_ms to
+              1e-5 relative, max_ms equal; median CUDA-event times of one
+              call of kernel and plain version, the kernel's device time per
+              call from torch.profiler, and a torch fill's device time at
+              the sweep chunk's size (the least a launch takes here)
   4. masked materializing race   engine.race on the mixed n=12 table at
               8192 samples (the masked_tally path), checked bit-identical
               to the cardinality lowering on the table's cardinality rows
@@ -62,8 +63,10 @@ Phases, one JSON line each:
   model_kernels   flash attention and RMSNorm against their plain versions:
               JAX's kernel-test shapes and the zamba2 serving path's own
               inputs in bf16 and as f32 (flash 2e-5 / 2e-2, RMSNorm 1e-5 /
-              5e-2, see close()); event, device, plain and library times
-              (scaled_dot_product_attention, rms_norm) and bounds there
+              5e-2, see close()): prefill's and a decode step's (4 rows,
+              with the strides decode hands them); event, device, plain and
+              library times (scaled_dot_product_attention, rms_norm) and
+              bounds there
   the kernels line: all seven kernels' launches on their main paths, error,
               times, bounds
 
@@ -130,6 +133,12 @@ ATTN_CASES = [
 RMSNORM_CASES = [((4, 64, 256), torch.float32),
                  ((2, 100, 384), torch.bfloat16),
                  ((8, 300), torch.float32), ((1, 7, 130), torch.bfloat16)]
+# The quorum kernels at any K and n, as the reference takes them: K past one
+# pass of 8 values, n past masked_tally's staged chunk of 128 lanes and
+# past 256 (the stream kernel's byte-wide orders); (S, n, K).
+ANY_KN_CASES = [(300, 11, 9), (300, 12, 12), (257, 11, 33), (500, 129, 2),
+                (300, 130, 2), (200, 257, 3), (200, 300, 2), (100, 300, 9),
+                (16383, 11, 2), (1000, 12, 17)]
 # JAX's SSD kernel-test tolerances (tests/test_kernels.py:288): f32 differs
 # from the plain versions by summation order only; with bf16 xw the output
 # is rounded to bf16.  y is held to its dtype's, the f32 state to f32's,
@@ -156,6 +165,10 @@ TENSOR_CORE_SYMBOLS = ("flash_tc_kernel", "ssd_tc_states", "ssd_tc_out")
 # 128; attention with its softmax weights cast to bf16 before P.V, as the
 # JAX oracle does, and kept in f32, as the kernel does).
 SERVE_F32_TOL = 1e-3
+# The norms whose inputs model_kernel_phase takes from the zamba2 serving
+# path (capture_inputs): prefill's 4096 rows and a decode step's 4.
+NORM_KEYS = ("rmsnorm", "gated_rmsnorm", "rmsnorm decode",
+             "gated_rmsnorm decode")
 SERVE_BF16_FLOOR_FACTOR = 2.0
 SERVE_FLOOR_CHUNK = 128
 SWEEP_RACE_CHUNKS = -(-10_000_000 // 16_384)
@@ -440,7 +453,9 @@ def capture_inputs(fn, d_inner: int) -> dict:
     """Run ``fn`` with spies on the model's kernel ops; return the first
     arguments each was handed: "ssd", "flash_attention", "rmsnorm" (the
     first norm, d_model wide) and "gated_rmsnorm" (the first d_inner wide
-    one, Mamba2's gated norm)."""
+    one, Mamba2's gated norm), and of each norm the last call with
+    SERVE_BATCH rows (the last decode step's), "rmsnorm decode" and
+    "gated_rmsnorm decode"."""
     got = {}
     mods = model_kernels()
     saved = {k: getattr(m, a) for k, (m, a) in mods.items()}
@@ -452,7 +467,11 @@ def capture_inputs(fn, d_inner: int) -> dict:
             key = name
             if name == "rmsnorm" and args[0].shape[-1] == d_inner:
                 key = "gated_rmsnorm"
-            got.setdefault(key, (args, kw))
+            if name == "rmsnorm" and \
+                    args[0].numel() == SERVE_BATCH * args[0].shape[-1]:
+                got[key + " decode"] = (args, kw)    # the last step's
+            else:
+                got.setdefault(key, (args, kw))
             return real(*args, **kw)
         return call
 
@@ -677,20 +696,34 @@ def model_kernel_phase(dev, captured, cfg) -> dict:
         qq, kk, vv = (x.to(dt) for x in (q, k, v))
         flash_check(f"zamba2 serving {dt}", qq, kk, vv, causal, window)
     norms = {}
-    for key in ("rmsnorm", "gated_rmsnorm"):
+    for key in NORM_KEYS:
         (x, s, *rest), _ = captured[key]
         eps = rest[0] if rest else 1e-6
         s = s.detach()
-        norms[key] = (x, s, eps)
+        if x.dtype != bf16:
+            fail(f"serving {key} input: {x.dtype}")
+        # the path's own tensor, and as f32 with the same strides
+        xs = {bf16: x, f32: torch.empty_strided(
+            x.shape, x.stride(), dtype=f32, device=x.device).copy_(x)}
+        norms[key] = (xs, s, eps)
         for dt in (bf16, f32):
-            check("rmsnorm", f"zamba2 serving {key} {tuple(x.shape)} {dt}",
-                  rn_kernel.rmsnorm(x.to(dt), s, eps),
-                  rn_ref.rmsnorm(x.to(dt), s, eps), rn_tol[dt])
+            check("rmsnorm", f"zamba2 serving {key} {tuple(x.shape)} "
+                  f"strides {x.stride()} {dt}",
+                  rn_kernel.rmsnorm(xs[dt], s, eps),
+                  rn_ref.rmsnorm(xs[dt], s, eps), rn_tol[dt])
 
-    # times at the serving inputs; device time from the profiler
-    def stats(symbol, kf, pf, lf, nbytes, ops, ops_rate):
+    # times at the serving inputs; device time from the profiler, and for
+    # RMSNorm also after a write of 64 MB between calls (L2 is 50 MB: the
+    # 4096-row inputs are then read from device memory, not L2)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+
+    def stats(symbol, kf, pf, lf, nbytes, ops, ops_rate, flushed=False):
         kms, pms, lms = cuda_ms(kf), cuda_ms(pf, reps=10), cuda_ms(lf)
         dev_us, dev_n, _ = kernel_device_us(kf, symbol)
+        extra = {}
+        if flushed:
+            extra["device_us_l2_flushed"] = kernel_device_us(
+                lambda: (flush.fill_(1), kf()), symbol)[0]
         b_ms = nbytes / HBM_BYTES_PER_S * 1e3
         o_ms = ops / ops_rate * 1e3
         return dict(ms=kms, plain_ms=pms, library_ms=lms, device_us=dev_us,
@@ -700,7 +733,7 @@ def model_kernel_phase(dev, captured, cfg) -> dict:
                     bound_ms=max(b_ms, o_ms),
                     bound_by="bytes" if b_ms >= o_ms else "operations",
                     bytes=nbytes, operations=ops, bytes_ms=b_ms,
-                    operations_ms=o_ms)
+                    operations_ms=o_ms, **extra)
 
     nbytes, ops = attention_cost(q, k, causal, window)
     out = {"flash_attention": dict(
@@ -716,16 +749,19 @@ def model_kernel_phase(dev, captured, cfg) -> dict:
                     q, k, v, is_causal=causal,
                     enable_gqa=q.shape[1] != k.shape[1]),
                 nbytes, ops, BF16_TC_OPS_PER_S))}
-    for key in ("rmsnorm", "gated_rmsnorm"):
-        x, s, eps = norms[key]
-        D = x.shape[-1]
-        out[key] = dict(shape=list(x.shape), **stats(
-            "rmsnorm_kernel",
-            lambda: rn_kernel.rmsnorm(x, s, eps),
-            lambda: rn_ref.rmsnorm(x, s, eps),
-            lambda: F.rms_norm(x, (D,), s, eps),
-            2 * x.numel() * x.element_size() + 4 * D, 3 * x.numel(),
-            FP32_OPS_PER_S))
+    for key in NORM_KEYS:
+        for dt in ((bf16,) if "decode" not in key else (bf16, f32)):
+            x, s, eps = norms[key][0][dt], norms[key][1], norms[key][2]
+            D = x.shape[-1]
+            name = key if dt == bf16 else f"{key} f32"
+            out[name] = dict(shape=list(x.shape), strides=list(x.stride()),
+                             dtype=str(dt), **stats(
+                "rmsnorm_kernel",
+                lambda: rn_kernel.rmsnorm(x, s, eps),
+                lambda: rn_ref.rmsnorm(x, s, eps),
+                lambda: F.rms_norm(x, (D,), s, eps),
+                2 * x.numel() * x.element_size() + 4 * D, 3 * x.numel(),
+                FP32_OPS_PER_S, flushed="decode" not in key))
     out["rmsnorm"]["errors"] = errs["rmsnorm"]
     if window is not None:
         fail("the zamba2 shared block is global: no window expected")
@@ -907,9 +943,10 @@ def serve_profile(res: dict) -> None:
     prof_pre = device_profile(lambda: serve.generate(model, prompt, 0), top=8)
     prof_all = device_profile(
         lambda: serve.generate(model, prompt, n_tokens), top=8)
-    by_kernel = {k: sum(v for name, v in prof_pre["by_kernel_s"].items()
-                        if any(sym in name for sym in syms)) * 1e3
-                 for k, syms in KERNEL_SYMBOLS.items()}
+    def by_kernel(prof):
+        return {k: sum(v for name, v in prof["by_kernel_s"].items()
+                       if any(sym in name for sym in syms)) * 1e3
+                for k, syms in KERNEL_SYMBOLS.items()}
     med_pre = statistics.median(prefill_ms)
     med_all = statistics.median(p * 1e-3 + d
                                 for p, d in zip(prefill_ms, decode_s))
@@ -918,8 +955,10 @@ def serve_profile(res: dict) -> None:
          decode_ms_per_step=[d * 1e3 / n_tokens for d in decode_s],
          prefill_busy_ms=prof_pre["device_busy_s"] * 1e3,
          prefill_idle_share=1.0 - prof_pre["device_busy_s"] * 1e3 / med_pre,
-         prefill_kernel_device_ms=by_kernel, prefill_top_ms=prof_pre["top"],
+         prefill_kernel_device_ms=by_kernel(prof_pre),
+         prefill_top_ms=prof_pre["top"],
          serve_busy_ms=prof_all["device_busy_s"] * 1e3,
+         serve_kernel_device_ms=by_kernel(prof_all),
          serve_idle_share=1.0 - prof_all["device_busy_s"] / med_all,
          serve_top_ms=prof_all["top"])
 
@@ -1044,6 +1083,20 @@ def main() -> None:
                             ).to(dev)
         same(kernel.masked_tally(v, w, t, V), ref.masked_tally(v, w, t, V),
              f"masked_tally {(S, n, V, G)}")
+    # any K and any n; masked_tally's weights in quarters (sums exact in f32
+    # in any order), 40 rows
+    for S, n, V in ANY_KN_CASES:
+        r = np.random.default_rng(S + n + V)
+        v = torch.as_tensor(r.integers(-1, V, (S, n)).astype(np.int32)).to(dev)
+        for a, b in zip(kernel.tally_decide(v, V, n // 3),
+                        ref.tally_decide(v, V, n // 3)):
+            same(a, b, f"tally_decide {(S, n, V)}")
+        w = torch.as_tensor((r.integers(0, 9, (40, n)) / 4.0).astype(
+            np.float32)).to(dev)
+        t = torch.as_tensor((r.integers(1, 4 * n // V + 8, (40,)) / 4.0
+                             ).astype(np.float32)).to(dev)
+        same(kernel.masked_tally(v, w, t, V), ref.masked_tally(v, w, t, V),
+             f"masked_tally {(S, n, V, 40)}")
 
     k_sat12 = engine.saturation_depths(table12)
     bins = streaming.sketch_bins(0.01)
@@ -1066,7 +1119,7 @@ def main() -> None:
         check_stream(*args12[rec], f"stream n=12 {rec}")
     # the kernel tests' shapes, then the edges of the design: more rows than
     # a warp's 32, K = 8, n past the register-resident orders (16, 32) up to
-    # MAX_N, more systems than a block's 16, quarter weights, k_sat below n,
+    # 128, more systems than a block's 16, quarter weights, k_sat below n,
     # +inf lanes, padding rows.
     for S, n, M, G, K, ks, opts in (
             (300, 11, 2, 3, 2, (4, 5, 6), {}),
@@ -1083,7 +1136,21 @@ def main() -> None:
             (1500, 12, 13, 12, 2, (12, 12, 12), dict(quarters=True,
                                                      pad=True)),
             (1025, 12, 4, 6, 2, (5, 3, 4), {}),
-            (1000, 12, 4, 5, 2, (12, 12, 12), dict(inf=True, pad=True))):
+            (1000, 12, 4, 5, 2, (12, 12, 12), dict(inf=True, pad=True)),
+            # any K and any n: more than 8 values, orders wider than a byte
+            # (n > 256), and more quorum rows than a block's shared memory
+            # held at n = 128, K = 8 (about 2360); from n = 257 on, and for
+            # the last two, the tile and the lists are staged in device
+            # memory.
+            (300, 11, 3, 4, 9, (11, 9, 10), {}),
+            (300, 12, 2, 5, 12, (12, 12, 12), dict(pad=True)),
+            (200, 11, 2, 3, 33, (11, 11, 11), {}),
+            (300, 129, 2, 4, 2, (129, 70, 100), {}),
+            (300, 130, 3, 3, 2, (130, 130, 130), dict(quarters=True)),
+            (200, 257, 2, 3, 2, (257, 200, 257), {}),
+            (150, 300, 2, 3, 3, (300, 300, 300), dict(pad=True)),
+            (96, 128, 1, 900, 8, (128, 128, 128), {}),
+            (40, 600, 1, 2, 70, (600, 300, 600), {})):
         a = stream_test_inputs(S * 13 + M, S, n, M, G, K, dev, **opts)
         check_stream(a, dict(n_values=K, k_sat=ks, precision=0.01,
                              bins=bins, undecided_ms=5e8),
@@ -1166,8 +1233,13 @@ def main() -> None:
                         bound_ms=max(b_ms, o_ms),
                         bound_by="bytes" if b_ms >= o_ms else "operations",
                         bytes=bytes_[k], operations=ops_[k])
-    emit("kernels", ok=True, **{k: {kk: vv for kk, vv in v.items()}
-                                for k, v in stats.items()})
+    # the least device time of a launch on this card, for scale: torch's
+    # fill of a tensor of the sweep chunk's 16384 ints (64 KB written)
+    fill = torch.empty(S11, dtype=torch.int32, device=dev)
+    floor_us = kernel_device_us(lambda: fill.fill_(1), "FillFunctor",
+                                reps=20)[0]
+    emit("kernels", ok=True, launch_floor_us=floor_us,
+         **{k: {kk: vv for kk, vv in v.items()} for k, v in stats.items()})
 
     # ---- 4. masked materializing race (masked_tally) ----------------------
     ops.reset_launches()

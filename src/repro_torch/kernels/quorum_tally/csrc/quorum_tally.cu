@@ -8,34 +8,55 @@
 // point launches on the stream it is given, allocates nothing and returns
 // cudaGetLastError().
 //
+// Registers a thread (ptxas -v, sm_90a, CUDA 12.8): tally_votes_kernel 26,
+// tally_decide_kernel 34, masked_tally_kernel 58, no spills; every
+// stream_kernel instance 64 (its launch bounds), none spilling where the
+// masks are resident (RES), 126-166 bytes stored to the stack where they
+// are read from device memory.
+//
 // tally_votes              replaces src/repro/kernels/quorum_tally/kernel.py
 //                          :tally_votes (_tally_kernel).
 //   Bound: device memory.  It reads S*n*4 bytes of votes and writes S*K*4
 //   bytes of counts; the work is n*K integer compares a trial.
-//   Design: tally_decide's counting loop (count_row below) without the
-//   decide outputs: one thread per trial, 8 counters in registers, one pass
-//   over the row for each 8 values, so any K and any n.  Votes outside
-//   [0, K), such as the -1 of "no vote" (the TPU kernel's padding), are
-//   counted for no value.
+//   Design: tally_decide's counting (count_row below) without the decide
+//   outputs: one thread per trial, 8 counters in registers, one pass over
+//   the row for each 8 values, so any K and any n.
+//   Votes outside [0, K), such as the -1 of "no vote" (the TPU kernel's
+//   padding), are counted for no value, here and in tally_decide.
 //
 // tally_decide             replaces src/repro/kernels/quorum_tally/kernel.py
 //                          :tally_decide (_tally_decide_kernel).
 //   Bound: device memory.  It reads S*n*4 bytes of votes and writes
-//   S*(K+2)*4 + S bytes; the work is n*K integer compares a trial.
-//   Design: one thread per trial, K <= 8 counters held in registers (the
-//   value loop is unrolled to 8, so no counter is indexed dynamically); a
-//   strict '>' keeps the first maximum, as the TPU kernel's running argmax.
+//   S*(K+2)*4 + S bytes; the work is n*K integer compares a trial.  At the
+//   sweep's 16384 x 11, K = 2 that is 1 MB, 0.30 us: a launch's fixed cost
+//   is most of what the card can save.
+//   Design: one thread per trial, 8 counters in registers, one pass over
+//   the row per 8 values, so any K and any n; the thread reads its row
+//   straight from device memory (a warp's 32 rows share cache lines, so
+//   after the first miss its loads hit L1).  Blocks of 64 threads, so the
+//   sweep's chunk of 16384 trials spreads over the card's 132 SMs in 256
+//   blocks (it had 64 of 256).  The winner is carried across passes with a
+//   strict '>', so the first maximum wins, as the TPU kernel's running
+//   argmax.  Staging the block's rows in shared memory with 16-byte
+//   asynchronous copies was slower at the sweep's shape: it adds a barrier
+//   and a round trip through shared memory to a kernel bound by latency.
 //
 // masked_tally             replaces kernel.py:masked_tally
 //                          (_masked_tally_kernel).
 //   Bound: device memory at the main path's shapes (S*n*4 in, S*G*4 out);
 //   the adds, S*G*n of them, are far below the f32 rate.
 //   Design: a block owns a tile of 32 trials x 32 quorum rows; the tile's
-//   votes, weights and thresholds are staged in shared memory, then one
-//   thread handles each (trial, row) pair.  Each value's weight is summed
-//   with plain f32 adds in acceptor order (no tensor cores, no TF32), and
-//   the lowest value id that reaches the threshold wins, as the TPU kernel's
-//   descending value loop does.  Grid.y walks the rows, so any G works.
+//   votes and weights are staged in shared memory with asynchronous copies,
+//   128 lanes at a time (rows 129 words apart, so a warp's 32 rows fall in
+//   distinct banks), then each thread sums its (trial, row) pairs.  Each
+//   value's weight is summed with plain f32 adds in acceptor order (no
+//   tensor cores, no TF32), 8 values a pass, and the lowest value id that
+//   reaches the threshold wins, as the TPU kernel's descending value loop
+//   does.  Where n <= 128 and K <= 8 (every shape of the main path) the
+//   rows are staged once and each pair takes one pass; else each of a
+//   thread's four pairs walks the passes, and within a pass the chunks of
+//   128 lanes, and a pass decides only the pairs no lower pass decided.
+//   Grid.y walks the rows, so any G, any n and any K work.
 //
 // stream_tally_decide_hist replaces kernel.py:stream_tally_decide_hist
 //                          (_stream_kernel, _select_sat).
@@ -61,7 +82,11 @@
 //   order with __fadd_rn until one of its rows crosses, stopping at the
 //   earliest crossing found so far, and a phase with one live row walks it
 //   alone.  For n <= 16 an instance keeps a trial's order in registers;
-//   above, up to MAX_N, it reads it from shared memory.  A block covers up to
+//   above it reads it from shared memory, a byte a lane up to n = 256 and
+//   two bytes above.  Where a tile of 32 trials and the block's lists of
+//   live rows do not fit in shared memory (large n, K or G), the plan
+//   takes fewer systems a block, and then stages the tile and the lists in
+//   a scratch of device memory instead.  A block covers up to
 //   16 systems; counts and the latency sum and max stay in registers, the
 //   histogram takes one int32 atomic per distinct bucket of a warp (exact in
 //   any order), and the last block of a group, found with a fence and an
@@ -73,25 +98,26 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "sm90_mma.cuh"
 
-#define MAX_K 8
-#define MAX_N 128
+#define PASS_K 8            // values counted in one pass over a row
 
 // ---------------------------------------------------------------------------
 // tally_votes and tally_decide
 // ---------------------------------------------------------------------------
 
-// c[v] = number of the n votes of `row` equal to base + v, for v < MAX_K
-// (the callers use the first min(K - base, MAX_K)).
+// c[v] = number of the n votes of `row` equal to base + v, for v < PASS_K
+// (the callers use the first min(K - base, PASS_K)).
 __device__ __forceinline__ void count_row(const int* __restrict__ row, int n,
-                                          int base, int (&c)[MAX_K]) {
+                                          int base, int (&c)[PASS_K]) {
 #pragma unroll
-  for (int v = 0; v < MAX_K; ++v) c[v] = 0;
+  for (int v = 0; v < PASS_K; ++v) c[v] = 0;
   for (int a = 0; a < n; ++a) {
     int x = row[a];
 #pragma unroll
-    for (int v = 0; v < MAX_K; ++v) c[v] += (x == base + v);
+    for (int v = 0; v < PASS_K; ++v) c[v] += (x == base + v);
   }
 }
 
@@ -99,37 +125,43 @@ __global__ void tally_votes_kernel(const int* __restrict__ votes, int S,
                                    int n, int K, int* __restrict__ counts) {
   int s = blockIdx.x * blockDim.x + threadIdx.x;
   if (s >= S) return;
-  int c[MAX_K];
-  for (int base = 0; base < K; base += MAX_K) {
+  int c[PASS_K];
+  for (int base = 0; base < K; base += PASS_K) {
     count_row(votes + (size_t)s * n, n, base, c);
 #pragma unroll
-    for (int v = 0; v < MAX_K; ++v) {
+    for (int v = 0; v < PASS_K; ++v) {
       if (base + v < K) counts[(size_t)s * K + base + v] = c[v];
     }
   }
 }
 
-__global__ void tally_decide_kernel(const int* __restrict__ votes, int S,
-                                    int n, int K, int q,
-                                    int* __restrict__ counts,
-                                    int* __restrict__ winner,
-                                    int* __restrict__ max_count,
-                                    unsigned char* __restrict__ reached) {
-  int s = blockIdx.x * blockDim.x + threadIdx.x;
+#define TD_THREADS 64       // trials a block: S = 16384 gives 256 blocks
+
+// A thread owns a trial and reads its row straight from device memory: the
+// rows of a warp's 32 trials share cache lines, so after the first miss its
+// loads hit L1.  PASS_K counters in registers a pass, one pass over the row
+// per PASS_K values; the winner is carried across passes with a strict '>',
+// so the first maximum wins.
+__global__ void __launch_bounds__(TD_THREADS) tally_decide_kernel(
+    const int* __restrict__ votes, int S, int n, int K, int q,
+    int* __restrict__ counts, int* __restrict__ winner,
+    int* __restrict__ max_count, unsigned char* __restrict__ reached) {
+  const int s = blockIdx.x * TD_THREADS + threadIdx.x;
   if (s >= S) return;
-  int c[MAX_K];
-  count_row(votes + (size_t)s * n, n, 0, c);
-  int best = c[0], w = 0;
+  int best = 0, w = 0;
+  int c[PASS_K];
+  for (int base = 0; base < K; base += PASS_K) {
+    count_row(votes + (size_t)s * n, n, base, c);
 #pragma unroll
-  for (int v = 1; v < MAX_K; ++v) {
-    if (v < K && c[v] > best) {
-      best = c[v];
-      w = v;
+    for (int v = 0; v < PASS_K; ++v) {
+      if (base + v < K) {
+        if (base + v == 0 || c[v] > best) {
+          best = c[v];
+          w = base + v;
+        }
+        counts[(size_t)s * K + base + v] = c[v];
+      }
     }
-  }
-#pragma unroll
-  for (int v = 0; v < MAX_K; ++v) {
-    if (v < K) counts[(size_t)s * K + v] = c[v];
   }
   winner[s] = w;
   max_count[s] = best;
@@ -140,47 +172,117 @@ __global__ void tally_decide_kernel(const int* __restrict__ votes, int S,
 // masked_tally
 // ---------------------------------------------------------------------------
 
-#define MT_TS 32
-#define MT_GT 32
+// 4 bytes from global to shared memory, asynchronously.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src));
+}
 
-__global__ void masked_tally_kernel(const int* __restrict__ votes,
-                                    const float* __restrict__ w,
-                                    const float* __restrict__ t, int S,
-                                    int n, int G, int K,
-                                    int* __restrict__ out) {
-  __shared__ int sv[MT_TS * MAX_N];
-  __shared__ float sw[MT_GT * MAX_N];
+#define MT_TS 32            // trials a block
+#define MT_GT 32            // quorum rows a block
+#define MT_LC 128           // lanes staged at a time
+#define MT_LD (MT_LC + 1)   // staged row stride: an odd number of words
+#define MT_THREADS 256
+#define MT_PAIRS (MT_TS * MT_GT / MT_THREADS)  // (trial, row) pairs a thread
+
+// Stage lanes [a0, a0 + lc) of the block's ts vote rows and gt weight rows,
+// every asynchronous copy in flight at once.
+__device__ __forceinline__ void mt_stage(int* sv, float* sw,
+                                         const int* __restrict__ votes,
+                                         const float* __restrict__ w, int n,
+                                         int s0, int ts, int g0, int gt,
+                                         int a0, int lc) {
+  for (int i = threadIdx.x; i < ts * lc; i += MT_THREADS) {
+    const int r = i / lc, j = i - r * lc;
+    cp_async4(sv + r * MT_LD + j, votes + (size_t)(s0 + r) * n + a0 + j);
+  }
+  for (int i = threadIdx.x; i < gt * lc; i += MT_THREADS) {
+    const int r = i / lc, j = i - r * lc;
+    cp_async4(sw + r * MT_LD + j, w + (size_t)(g0 + r) * n + a0 + j);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+}
+
+// sum[v] += the weights of the lc staged lanes that voted base + v, in lane
+// order.
+__device__ __forceinline__ void mt_sum(const int* vr, const float* wr, int lc,
+                                       int base, float (&sum)[PASS_K]) {
+  for (int a = 0; a < lc; ++a) {
+    const int x = vr[a] - base;
+    const float wa = wr[a];
+#pragma unroll
+    for (int v = 0; v < PASS_K; ++v)
+      if (x == v) sum[v] = __fadd_rn(sum[v], wa);
+  }
+}
+
+// The lowest value base + v < K whose sum reaches th, else res.
+__device__ __forceinline__ int mt_lowest(const float (&sum)[PASS_K],
+                                         int base, int K, float th,
+                                         int res) {
+#pragma unroll
+  for (int v = PASS_K - 1; v >= 0; --v)
+    if (base + v < K && sum[v] >= th) res = base + v;
+  return res;
+}
+
+__global__ void __launch_bounds__(MT_THREADS) masked_tally_kernel(
+    const int* __restrict__ votes, const float* __restrict__ w,
+    const float* __restrict__ t, int S, int n, int G, int K,
+    int* __restrict__ out) {
+  __shared__ int sv[MT_TS * MT_LD];
+  __shared__ float sw[MT_GT * MT_LD];
   __shared__ float st[MT_GT];
-  int s0 = blockIdx.x * MT_TS;
-  int g0 = blockIdx.y * MT_GT;
-  int ts = min(MT_TS, S - s0);
-  int gt = min(MT_GT, G - g0);
-  for (int i = threadIdx.x; i < ts * n; i += blockDim.x)
-    sv[i] = votes[(size_t)s0 * n + i];
-  for (int i = threadIdx.x; i < gt * n; i += blockDim.x)
-    sw[i] = w[(size_t)g0 * n + i];
-  for (int i = threadIdx.x; i < gt; i += blockDim.x) st[i] = t[g0 + i];
-  __syncthreads();
-  for (int p = threadIdx.x; p < ts * gt; p += blockDim.x) {
-    int ls = p / gt, lg = p - ls * gt;
-    const int* vr = sv + ls * n;
-    const float* wr = sw + lg * n;
-    float sum[MAX_K];
+  const int tid = threadIdx.x;
+  const int s0 = blockIdx.x * MT_TS;
+  const int g0 = blockIdx.y * MT_GT;
+  const int ts = min(MT_TS, S - s0);
+  const int gt = min(MT_GT, G - g0);
+  if (tid < gt) st[tid] = t[g0 + tid];
+  if (n <= MT_LC && K <= PASS_K) {
+    // The main path's shapes: the rows staged once, each pair in one pass.
+    mt_stage(sv, sw, votes, w, n, s0, ts, g0, gt, 0, n);
+    __syncthreads();
+    for (int p = tid; p < ts * gt; p += MT_THREADS) {
+      const int ls = p / gt, lg = p - ls * gt;
+      float sum[PASS_K];
 #pragma unroll
-    for (int v = 0; v < MAX_K; ++v) sum[v] = 0.0f;
-    for (int a = 0; a < n; ++a) {
-      int x = vr[a];
-      float wa = wr[a];
-#pragma unroll
-      for (int v = 0; v < MAX_K; ++v)
-        if (x == v) sum[v] = __fadd_rn(sum[v], wa);
+      for (int v = 0; v < PASS_K; ++v) sum[v] = 0.0f;
+      mt_sum(sv + ls * MT_LD, sw + lg * MT_LD, n, 0, sum);
+      out[(size_t)(s0 + ls) * G + g0 + lg] = mt_lowest(sum, 0, K, st[lg], -1);
     }
-    float th = st[lg];
-    int res = -1;
+    return;
+  }
+  const bool whole = n <= MT_LC;  // the rows stay staged throughout
+  // The thread's pairs one at a time, each over the passes of PASS_K values
+  // and, within a pass, the staged chunks of lanes (staged once when the
+  // rows are whole).
 #pragma unroll
-    for (int v = MAX_K - 1; v >= 0; --v)
-      if (v < K && sum[v] >= th) res = v;
-    out[(size_t)(s0 + ls) * G + g0 + lg] = res;
+  for (int k = 0; k < MT_PAIRS; ++k) {
+    const int p = tid + k * MT_THREADS;
+    const bool mine = p < ts * gt;
+    const int ls = mine ? p / gt : 0, lg = mine ? p - ls * gt : 0;
+    int res = -1;
+    for (int base = 0; base < K; base += PASS_K) {
+      float sum[PASS_K];
+#pragma unroll
+      for (int v = 0; v < PASS_K; ++v) sum[v] = 0.0f;
+      for (int a0 = 0; a0 < n; a0 += MT_LC) {
+        const int lc = min(MT_LC, n - a0);
+        if (!whole || (k == 0 && base == 0)) {
+          __syncthreads();  // the previous chunk is summed
+          mt_stage(sv, sw, votes, w, n, s0, ts, g0, gt, a0, lc);
+          __syncthreads();
+        }
+        if (mine && res < 0)
+          mt_sum(sv + ls * MT_LD, sw + lg * MT_LD, lc, base, sum);
+      }
+      // a pass decides only the pairs no earlier (lower) pass decided
+      if (mine && res < 0) res = mt_lowest(sum, base, K, st[lg], -1);
+    }
+    if (mine) out[(size_t)(s0 + ls) * G + g0 + lg] = res;
   }
 }
 
@@ -192,6 +294,7 @@ __global__ void masked_tally_kernel(const int* __restrict__ votes,
 #define ST_MAX_MG 16        // systems a block: one warp each
 #define ST_MIN_WARPS 4      // warps a block has at least, for the staging
 #define ST_MAX_SMEM (232448 - 1024)   // dynamic shared memory a block may use
+#define ST_MAX_SCRATCH (1 << 30)      // device-memory staging a block may use
 #define FULL 0xffffffffu
 
 typedef unsigned long long u64;
@@ -209,7 +312,9 @@ struct StreamArgs {
   int G[3];
   int k[3];
   int S, n, K, M, bins, mg;
-  int vec;  // n % 4 == 0 and the inputs 16-byte aligned: 16-byte loads
+  int vec;    // n % 4 == 0 and the inputs 16-byte aligned: 16-byte loads
+  unsigned char* scratch;  // the tiles staged in device memory, big bytes
+                           // a block; null: in shared memory
   float log_g, und;
   int* hist;
   int* counts;
@@ -221,21 +326,31 @@ struct StreamArgs {
   int* pcnt;
 };
 
-// Shared-memory layout of a block, in bytes, each region 16-byte aligned:
-// keys   the tile's K + 2 rows (32 trials x n each) as order keys
+// Shared-memory layout of a block, in bytes, each region 16-byte aligned
+// (with glob, the first five regions lie instead in the block's big bytes
+// of device memory):
+// keys   the tile's K + 2 rows (ST_TILE trials x n each) as order keys
 // votes  the tile's votes
-// ord    the K + 2 orders of every trial: ord[(r * 32 + trial) * np + j] is
-//        the lane at position j of row r's stable ascending order
-// vm     vote bit masks: bit b of vm[(v * W + q) * 32 + trial] is set when
-//        lane 32 q + b voted v
+// ord    the K + 2 orders of every trial: ord[(r * ST_TILE + trial) * np +
+//        j] is the lane at position j of row r's stable ascending order, a
+//        byte a lane up to n = 256, two bytes above
+// vm     vote bit masks: bit b of vm[(v * W + q) * ST_TILE + trial] is set
+//        when lane 32 q + b voted v
+// lists  the live rows of each phase of each of the block's systems
 // valid  the tile's valid bits
-// nlive, lists   the live rows of each phase of each of the block's systems
+// nlive  the count of each list
 // wts    with res, each system's live rows in groups of four, transposed:
 //        per phase ng[p] float4 thresholds, then ng[p] x n float4 weights
 struct StreamLayout {
   int gt, W, np, ng[3];
-  size_t keys, votes, ord, vm, valid, nlive, lists, wts, wsys, bytes;
+  size_t keys, votes, ord, vm, valid, nlive, lists, wts, wsys, bytes, big;
 };
+
+// The lane type of an order: LB > 0 keeps it in registers (bytes), LB = 0
+// in shared memory as bytes (n <= 256), LB < 0 as two-byte lanes.
+template <int LB>
+using lane_t = typename std::conditional<(LB < 0), unsigned short,
+                                         unsigned char>::type;
 
 __host__ __device__ inline size_t st_take(size_t& o, size_t bytes) {
   size_t at = o;
@@ -243,30 +358,36 @@ __host__ __device__ inline size_t st_take(size_t& o, size_t bytes) {
   return at;
 }
 
-// lb > 0: the instance keeps a trial's order in registers, lb bytes; lb = 0:
-// it reads the order from shared memory, whose rows then take an odd number
-// of words so that the 32 trials of a warp fall in distinct banks.
+// lb > 0: the instance keeps a trial's order in registers, lb bytes; lb <= 0:
+// it reads the order from shared memory (lane_t<lb> a lane), whose rows then
+// take an odd number of words so that the trials of a warp fall in distinct
+// banks.  glob: the tile in device memory.
 __host__ __device__ inline StreamLayout stream_layout(int n, int K,
                                                       const int* G, int mg,
-                                                      int lb, bool res) {
+                                                      int lb, bool res,
+                                                      bool glob) {
+  const int T = ST_TILE;
   StreamLayout L;
   L.gt = G[0] + G[1] + G[2];
   L.W = (n + 31) / 32;
-  int words = (n + 3) / 4;
-  L.np = lb ? lb : 4 * (words + !(words & 1));
+  const int esz = lb < 0 ? 2 : 1;
+  const int words = (n * esz + 3) / 4;
+  L.np = lb > 0 ? lb : 4 * (words + !(words & 1)) / esz;
   L.wsys = 0;
   for (int p = 0; p < 3; ++p) {
     L.ng[p] = (G[p] + 3) / 4;
     L.wsys += (size_t)L.ng[p] * (n + 1) * 16;
   }
   size_t o = 0;
-  L.keys = st_take(o, (size_t)(K + 2) * ST_TILE * n * 4);
-  L.votes = st_take(o, (size_t)ST_TILE * n * 4);
-  L.ord = st_take(o, (size_t)(K + 2) * ST_TILE * L.np);
-  L.vm = st_take(o, (size_t)K * L.W * ST_TILE * 4);
-  L.valid = st_take(o, ST_TILE * 4);
-  L.nlive = st_take(o, (size_t)mg * 3 * 4);
+  L.keys = st_take(o, (size_t)(K + 2) * T * n * 4);
+  L.votes = st_take(o, (size_t)T * n * 4);
+  L.ord = st_take(o, (size_t)(K + 2) * T * L.np * esz);
+  L.vm = st_take(o, (size_t)K * L.W * T * 4);
   L.lists = st_take(o, (size_t)mg * L.gt * 2);
+  L.big = glob ? o : 0;
+  if (glob) o = 0;
+  L.valid = st_take(o, T * 4);
+  L.nlive = st_take(o, (size_t)mg * 3 * 4);
   L.wts = st_take(o, res ? (size_t)mg * L.wsys : 0);
   L.bytes = o;
   return L;
@@ -291,17 +412,14 @@ __device__ __forceinline__ float key_value(unsigned k) {
   return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
 }
 
-// 4 bytes from global to shared memory, asynchronously.
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src));
-}
-
 // One trial's order of one row: the lane at position j.  LB = 16 holds it
-// in registers, LB = 0 reads it from shared memory.
+// in registers, LB <= 0 reads it from shared memory.
 template <int LB>
-struct Ord;
+struct Ord {
+  const lane_t<LB>* p;
+  __device__ __forceinline__ void load(const lane_t<LB>* q) { p = q; }
+  __device__ __forceinline__ int at(int j) const { return p[j]; }
+};
 
 template <>
 struct Ord<16> {
@@ -314,13 +432,6 @@ struct Ord<16> {
   __device__ __forceinline__ int at(int j) const {
     return (int)(((j < 8 ? a : b) >> ((j & 7) * 8)) & 0xffu);
   }
-};
-
-template <>
-struct Ord<0> {
-  const unsigned char* p;
-  __device__ __forceinline__ void load(const unsigned char* q) { p = q; }
-  __device__ __forceinline__ int at(int j) const { return p[j]; }
 };
 
 // The live rows of one phase of one system, nl of its G, in ng groups of
@@ -370,8 +481,10 @@ __device__ __forceinline__ auto group(const Phase& ph, int gi) {
     return GroupS{ph.sw + gi * ph.n, ph.st[gi]};
   } else {
     const int i = 4 * gi, last = ph.nl - 1;
-    const int g0 = ph.list[i], g1 = ph.list[min(i + 1, last)];
-    const int g2 = ph.list[min(i + 2, last)], g3 = ph.list[min(i + 3, last)];
+    const int i1 = min(i + 1, last), i2 = min(i + 2, last),
+              i3 = min(i + 3, last);
+    const unsigned short* l = ph.list;
+    const int g0 = l[i], g1 = l[i1], g2 = l[i2], g3 = l[i3];
     return GroupG{ph.w + (size_t)g0 * ph.n, ph.w + (size_t)g1 * ph.n,
                   ph.w + (size_t)g2 * ph.n, ph.w + (size_t)g3 * ph.n,
                   make_float4(__ldg(ph.t + g0),
@@ -481,7 +594,8 @@ __device__ __forceinline__ float sat_time(const Ord<LB>& o, const Phase& ph,
 
 // Masked tally of one trial against a phase's live rows: the lowest value
 // whose voters' weights, added in lane order, reach some row's threshold,
-// else K.  vm holds the trial's vote bit masks, W words a value.
+// else K.  vm holds the trial's vote bit masks, W words a value, ST_TILE
+// apart.
 template <bool RES>
 __device__ __forceinline__ int tally(const Phase& ph, const unsigned* vm,
                                      int W, int K) {
@@ -534,22 +648,23 @@ __device__ __forceinline__ void rank_half(const unsigned (&kk)[LB],
   }
 }
 
-// Order the nr rows of the tile's valid trials.  LB > 0: two threads per
-// (row, trial), each half of the lanes, the row's keys in registers (a
-// warp's threads take the same half); LB = 0: a thread per (row, trial,
-// lane).
+// Order the nr rows of the tile's valid trials.  LB > 0: two
+// threads per (row, trial), each half of the lanes, the row's keys in
+// registers (a warp's threads take the same half); LB <= 0: a thread per
+// (row, trial, lane).
 template <int LB>
 __device__ __forceinline__ void rank_rows(const unsigned* keys,
-                                          unsigned char* ord, int np, int n,
+                                          lane_t<LB>* ord, int np, int n,
                                           int nr, const int* svalid) {
+  constexpr int T = ST_TILE;
   if constexpr (LB > 0) {
-    const int pairs = nr * ST_TILE;
+    const int pairs = nr * T;
     for (int e = threadIdx.x; e < 2 * pairs; e += blockDim.x) {
       const int h = e >= pairs, pair = e - h * pairs;
-      const int rl = pair / ST_TILE, s = pair - rl * ST_TILE;
+      const int rl = pair / T, s = pair - rl * T;
       if (!svalid[s] || h * (LB / 2) >= n) continue;
-      const unsigned* x = keys + (rl * ST_TILE + s) * n;
-      unsigned char* o = ord + (rl * ST_TILE + s) * np;
+      const unsigned* x = keys + (size_t)(rl * T + s) * n;
+      unsigned char* o = ord + (rl * T + s) * np;
       unsigned kk[LB];
 #pragma unroll
       for (int j = 0; j < LB; ++j) kk[j] = j < n ? x[j] : 0xffffffffu;
@@ -559,16 +674,16 @@ __device__ __forceinline__ void rank_rows(const unsigned* keys,
         rank_half<LB, 0>(kk, o, n);
     }
   } else {
-    for (int e = threadIdx.x; e < nr * ST_TILE * n; e += blockDim.x) {
+    for (int e = threadIdx.x; e < nr * T * n; e += blockDim.x) {
       const int pair = e / n, i = e - pair * n;
-      const int rl = pair / ST_TILE, s = pair - rl * ST_TILE;
+      const int rl = pair / T, s = pair - rl * T;
       if (!svalid[s]) continue;
-      const unsigned* x = keys + (rl * ST_TILE + s) * n;
+      const unsigned* x = keys + (size_t)(rl * T + s) * n;
       const unsigned ki = x[i];
       int rank = 0;
       for (int j = 0; j < i; ++j) rank += x[j] <= ki;
       for (int j = i + 1; j < n; ++j) rank += x[j] < ki;
-      ord[(rl * ST_TILE + s) * np + rank] = (unsigned char)i;
+      ord[(size_t)(rl * T + s) * np + rank] = (lane_t<LB>)i;
     }
   }
 }
@@ -581,23 +696,29 @@ __device__ __forceinline__ const float* row_src(const StreamArgs& a, int r,
 }
 
 // Start the asynchronous copies of the K + 2 rows of the tile's cnt trials
-// into keys; with conv, turn this thread's copies into order keys once they
+// into keys (ST_TILE rows apart; with glob, plain copies into device
+// memory); with conv, turn this thread's copies into order keys once they
 // have landed.
 __device__ __forceinline__ void stage_rows(const StreamArgs& a, unsigned* keys,
-                                           int s0, int cnt, bool conv) {
-  const int n = a.n, R = a.K + 2;
+                                           int s0, int cnt, bool glob,
+                                           bool conv) {
+  const int n = a.n, R = a.K + 2, T = ST_TILE;
   if (a.vec) {
     const int n4 = n / 4, per = cnt * n4;
     for (int e = threadIdx.x; e < R * per; e += blockDim.x) {
       const int r = e / per, rem = e - r * per;
       const int s = rem / n4, i4 = rem - s * n4;
-      uint4* d = reinterpret_cast<uint4*>(keys + (r * ST_TILE + s) * n) + i4;
+      uint4* d =
+          reinterpret_cast<uint4*>(keys + (size_t)(r * T + s) * n) + i4;
+      const float* src = row_src(a, r, s0 + s) + 4 * i4;
       if (conv) {
         uint4 v = *d;
         *d = make_uint4(order_key(v.x), order_key(v.y), order_key(v.z),
                         order_key(v.w));
+      } else if (glob) {
+        *d = __ldg(reinterpret_cast<const uint4*>(src));
       } else {
-        cp_async16(d, row_src(a, r, s0 + s) + 4 * i4, 16);
+        cp_async16(d, src, 16);
       }
     }
   } else {
@@ -605,11 +726,14 @@ __device__ __forceinline__ void stage_rows(const StreamArgs& a, unsigned* keys,
     for (int e = threadIdx.x; e < R * per; e += blockDim.x) {
       const int r = e / per, rem = e - r * per;
       const int s = rem / n, i = rem - s * n;
-      unsigned* d = keys + (r * ST_TILE + s) * n + i;
+      unsigned* d = keys + (size_t)(r * T + s) * n + i;
+      const float* src = row_src(a, r, s0 + s) + i;
       if (conv)
         *d = order_key(*d);
+      else if (glob)
+        *d = __float_as_uint(__ldg(src));
       else
-        cp_async4(d, row_src(a, r, s0 + s) + i);
+        cp_async4(d, src);
     }
   }
 }
@@ -617,16 +741,18 @@ __device__ __forceinline__ void stage_rows(const StreamArgs& a, unsigned* keys,
 // Warp `warp` lists the live rows of system m, each phase in row order (a
 // row whose weights are all zero and whose threshold is positive never
 // crosses), a lane per row, 32 rows of all phases at a time; with RES it
-// writes them into the system's resident groups instead.
+// writes them into the system's resident groups instead.  The lists lie at
+// tb (shared memory, or the block's device memory with glob).
 template <int LB, bool RES>
 __device__ __forceinline__ void live_rows(const StreamArgs& a,
                                           const StreamLayout& L,
-                                          unsigned char* smem, int warp,
+                                          unsigned char* smem,
+                                          unsigned char* tb, int warp,
                                           int m) {
   const int n = a.n, lane = threadIdx.x & 31;
   const int lo1 = a.G[0], lo2 = a.G[0] + a.G[1];
   unsigned short* lists =
-      reinterpret_cast<unsigned short*>(smem + L.lists) + warp * L.gt;
+      reinterpret_cast<unsigned short*>(tb + L.lists) + warp * L.gt;
   float* res = reinterpret_cast<float*>(smem + L.wts + warp * L.wsys);
   int cnt[3] = {0, 0, 0};
   for (int g0 = 0; g0 < L.gt; g0 += 32) {
@@ -638,14 +764,15 @@ __device__ __forceinline__ void live_rows(const StreamArgs& a,
         pick(p, a.w[0], a.w[1], a.w[2]) + ((size_t)m * G + g) * n;
     const float* tr =
         pick(p, a.t[0], a.t[1], a.t[2]) + (size_t)m * G + g;
-    float th = 0.0f, wv[LB ? LB : 1];
+    constexpr int LW = LB > 0 ? LB : 4;  // weights held in registers
+    float th = 0.0f, wv[LW];
     bool live = false;
     if (ga < L.gt) {
       th = __ldg(tr);
       live = !(th > 0.0f);
-      if (LB && a.vec) {  // n % 4 == 0, rows 16-byte aligned
+      if (LB > 0 && a.vec) {  // n % 4 == 0, rows 16-byte aligned
 #pragma unroll
-        for (int i = 0; i < LB; i += 4) {
+        for (int i = 0; i < LW; i += 4) {
           const float4 v = i < n ? __ldg(reinterpret_cast<const float4*>(wr) +
                                          i / 4)
                                  : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
@@ -655,10 +782,10 @@ __device__ __forceinline__ void live_rows(const StreamArgs& a,
           wv[i + 3] = v.w;
         }
 #pragma unroll
-        for (int i = 0; i < LB; ++i) live |= wv[i] != 0.0f;
-      } else if (LB) {
+        for (int i = 0; i < LW; ++i) live |= wv[i] != 0.0f;
+      } else if (LB > 0) {
 #pragma unroll
-        for (int i = 0; i < LB; ++i) {
+        for (int i = 0; i < LW; ++i) {
           wv[i] = i < n ? __ldg(wr + i) : 0.0f;
           live |= wv[i] != 0.0f;
         }
@@ -682,9 +809,9 @@ __device__ __forceinline__ void live_rows(const StreamArgs& a,
         float* d = st + pick(p, L.ng[0], L.ng[1], L.ng[2]) * 4 +
                    (pos >> 2) * n * 4 + (pos & 3);
         st[pos] = th;
-        if (LB) {
+        if (LB > 0) {
 #pragma unroll
-          for (int i = 0; i < LB; ++i)
+          for (int i = 0; i < LW; ++i)
             if (i < n) d[4 * i] = wv[i];
         } else {
           for (int i = 0; i < n; ++i) d[4 * i] = __ldg(wr + i);
@@ -719,11 +846,12 @@ __device__ __forceinline__ void live_rows(const StreamArgs& a,
   }
 }
 
-// Phase p of the system in warp slot w (system m).
+// Phase p of the system in warp slot w (system m); its list lies at tb.
 template <bool RES>
 __device__ __forceinline__ Phase phase(const StreamArgs& a,
                                        const StreamLayout& L,
-                                       const unsigned char* smem, int w, int m,
+                                       const unsigned char* smem,
+                                       const unsigned char* tb, int w, int m,
                                        int p) {
   Phase ph;
   ph.n = a.n;
@@ -733,7 +861,7 @@ __device__ __forceinline__ Phase phase(const StreamArgs& a,
   ph.sw = ph.st + pick(p, L.ng[0], L.ng[1], L.ng[2]);
   ph.w = pick(p, a.w[0], a.w[1], a.w[2]) + (size_t)m * ph.G * ph.n;
   ph.t = pick(p, a.t[0], a.t[1], a.t[2]) + (size_t)m * ph.G;
-  ph.list = reinterpret_cast<const unsigned short*>(smem + L.lists) +
+  ph.list = reinterpret_cast<const unsigned short*>(tb + L.lists) +
             w * L.gt + pick(p, 0, a.G[0], a.G[0] + a.G[1]);
   ph.nl = reinterpret_cast<const int*>(smem + L.nlive)[w * 3 + p];
   ph.ng = (ph.nl + 3) / 4;
@@ -741,14 +869,17 @@ __device__ __forceinline__ Phase phase(const StreamArgs& a,
 }
 
 // Grid (blocks per system group, system groups).  A block of
-// 32 * max(mg, ST_MIN_WARPS) threads walks the trial tiles blockIdx.x,
-// blockIdx.x + gridDim.x, ...; warp w tallies system blockIdx.y * mg + w, one
-// trial a lane.  Per tile: stage the votes and rows with 16-byte
-// asynchronous copies (the first tile's copies overlap the listing of the
-// live rows), order every row once, then every warp decides its system's
-// 32 trials.  The counts and the latency sum and max stay in each warp's
-// registers across tiles; the histogram goes to device memory with one
-// atomic per distinct bucket of a warp.  The last block of a group to finish
+// 32 * max(mg, ST_MIN_WARPS) threads walks the tiles of 32 trials
+// blockIdx.x, blockIdx.x + gridDim.x, ...; warp w tallies system
+// blockIdx.y * mg + w, one trial a lane.  Per tile: stage the votes and
+// rows with 16-byte asynchronous copies (the first tile's copies overlap
+// the listing of the live rows), order every row once, then every warp
+// decides its system's trials.  Where the tile and the lists do not fit in
+// shared memory (a.scratch), they lie in the block's part of a
+// device-memory scratch, staged with plain copies.  The counts and the
+// latency sum and max stay in each warp's registers across tiles; the
+// histogram goes to device memory with one atomic per distinct bucket of a
+// warp.  The last block of a group to finish
 // reduces the group's per-block partials in block order.  The launch bounds
 // hold a block of 16 warps to 64 registers a thread, so that two blocks of
 // the main path's 13 warps share an SM.
@@ -757,12 +888,18 @@ __global__ void __launch_bounds__(ST_TILE * ST_MAX_MG, 2)
     stream_kernel(const StreamArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int last;
-  const int n = a.n, K = a.K, R = K + 2;
-  const StreamLayout L = stream_layout(n, K, a.G, a.mg, LB, RES);
-  unsigned* keys = reinterpret_cast<unsigned*>(smem + L.keys);
-  int* svotes = reinterpret_cast<int*>(smem + L.votes);
-  unsigned char* ord = smem + L.ord;
-  unsigned* vm = reinterpret_cast<unsigned*>(smem + L.vm);
+  const int n = a.n, K = a.K, R = K + 2, T = ST_TILE;
+  const bool glob = !RES && a.scratch;
+  const StreamLayout L = stream_layout(n, K, a.G, a.mg, LB, RES, glob);
+  // the tile's rows, orders, votes and masks: in shared memory, or in this
+  // block's part of the device-memory scratch
+  unsigned char* tb =
+      glob ? a.scratch + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * L.big
+           : smem;
+  unsigned* keys = reinterpret_cast<unsigned*>(tb + L.keys);
+  int* svotes = reinterpret_cast<int*>(tb + L.votes);
+  lane_t<LB>* ord = reinterpret_cast<lane_t<LB>*>(tb + L.ord);
+  unsigned* vm = reinterpret_cast<unsigned*>(tb + L.vm);
   int* svalid = reinterpret_cast<int*>(smem + L.valid);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int m = blockIdx.y * a.mg + warp;
@@ -771,28 +908,31 @@ __global__ void __launch_bounds__(ST_TILE * ST_MAX_MG, 2)
 
   float run_sum = 0.0f, run_max = -INFINITY;
   int cf = 0, cr = 0, cu = 0;
-  const int tiles = (a.S + ST_TILE - 1) / ST_TILE;
+  const int tiles = (a.S + T - 1) / T;
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const int s0 = tile * ST_TILE;
-    const int cnt = min(ST_TILE, a.S - s0);
+    const int s0 = tile * T;
+    const int cnt = min(T, a.S - s0);
     __syncthreads();  // the previous tile is done with shared memory
-    if (a.vec) {
+    if (glob) {
+      for (int e = tid; e < cnt * n; e += blockDim.x)
+        svotes[e] = __ldg(a.votes + (size_t)s0 * n + e);
+    } else if (a.vec) {
       for (int e = tid; e < cnt * n / 4; e += blockDim.x)
         cp_async16(svotes + 4 * e, a.votes + (size_t)s0 * n + 4 * e, 16);
     } else {
       for (int e = tid; e < cnt * n; e += blockDim.x)
         cp_async4(svotes + e, a.votes + (size_t)s0 * n + e);
     }
-    stage_rows(a, keys, s0, cnt, false);
+    stage_rows(a, keys, s0, cnt, glob, false);
     cp_async_commit();
-    if (tid < ST_TILE) svalid[tid] = tid < cnt && a.valid[s0 + tid];
+    if (tid < T) svalid[tid] = tid < cnt && a.valid[s0 + tid];
     if (owner && tile == (int)blockIdx.x)
-      live_rows<LB, RES>(a, L, smem, warp, m);
+      live_rows<LB, RES>(a, L, smem, tb, warp, m);
     cp_async_wait<0>();
-    stage_rows(a, keys, s0, cnt, true);
+    stage_rows(a, keys, s0, cnt, glob, true);
     __syncthreads();
-    for (int e = tid; e < K * L.W * ST_TILE; e += blockDim.x) {
-      const int s = e % ST_TILE, vq = e / ST_TILE;
+    for (int e = tid; e < K * L.W * T; e += blockDim.x) {
+      const int s = e % T, vq = e / T;
       const int v = vq / L.W, q = vq - v * L.W;
       unsigned b = 0;
       if (svalid[s]) {
@@ -810,13 +950,13 @@ __global__ void __launch_bounds__(ST_TILE * ST_MAX_MG, 2)
     bool fast = false, recb = false, und = false;
     float lat = 0.0f;
     if (svalid[s]) {
-      const Phase ph = phase<RES>(a, L, smem, warp, m, 2);
+      const Phase ph = phase<RES>(a, L, smem, tb, warp, m, 2);
       const int best = tally<RES>(ph, vm + s, L.W, K);
       Ord<LB> o;
       if (best < K) {
-        o.load(ord + (best * ST_TILE + s) * L.np);
+        o.load(ord + (size_t)(best * T + s) * L.np);
         lat = sat_time<LB, RES>(o, ph, a.k[2], big,
-                                keys + (best * ST_TILE + s) * n);
+                                keys + (size_t)(best * T + s) * n);
         fast = lat < a.und;
       }
       if (!fast) {
@@ -824,9 +964,10 @@ __global__ void __launch_bounds__(ST_TILE * ST_MAX_MG, 2)
 #pragma unroll
         for (int p = 0; p < 2; ++p) {
           const int r = K + p;
-          o.load(ord + (r * ST_TILE + s) * L.np);
-          t[p] = sat_time<LB, RES>(o, phase<RES>(a, L, smem, warp, m, p),
-                                   a.k[p], big, keys + (r * ST_TILE + s) * n);
+          o.load(ord + (size_t)(r * T + s) * L.np);
+          t[p] = sat_time<LB, RES>(o, phase<RES>(a, L, smem, tb, warp, m, p),
+                                   a.k[p], big,
+                                   keys + (size_t)(r * T + s) * n);
         }
         lat = __fadd_rn(t[0], t[1]);
         und = lat >= a.und;
@@ -919,11 +1060,12 @@ __global__ void __launch_bounds__(ST_TILE * ST_MAX_MG, 2)
 }
 
 template <int LB, bool RES>
-static int stream_plan_for(int n, int K, int M, const int* G, int* out) {
+static int stream_plan_for(int n, int K, int M, const int* G, bool glob,
+                           int* out) {
   const int cap = M < ST_MAX_MG ? M : ST_MAX_MG;
   for (int mg = cap; mg >= 1; --mg) {
-    const StreamLayout L = stream_layout(n, K, G, mg, LB, RES);
-    if (L.bytes > ST_MAX_SMEM) continue;
+    const StreamLayout L = stream_layout(n, K, G, mg, LB, RES, glob);
+    if (L.bytes > ST_MAX_SMEM || L.big > ST_MAX_SCRATCH) continue;
     cudaError_t e = cudaFuncSetAttribute(
         stream_kernel<LB, RES>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         ST_MAX_SMEM);
@@ -941,17 +1083,23 @@ static int stream_plan_for(int n, int K, int M, const int* G, int* out) {
     out[2] = (int)L.bytes;
     out[3] = (per_sm > 0 ? per_sm : 1) * sms;
     out[4] = RES;
+    out[5] = (int)L.big;
     return 0;
   }
   return -1;
 }
 
-// Masks resident in shared memory where they fit, else read from device
-// memory.
+// The first plan whose layout fits: masks resident in shared memory, else
+// read from device memory through lists of live rows in shared memory,
+// else the tile and the lists staged in device memory (shared memory then
+// holds only the valid bits and the list counts), up to ST_MAX_SCRATCH a
+// block: (K + 2) n of about 6.7 M for the tile of 32 trials.
 template <int LB>
 static int stream_plan(int n, int K, int M, const int* G, int* out) {
-  const int err = stream_plan_for<LB, true>(n, K, M, G, out);
-  return err == -1 ? stream_plan_for<LB, false>(n, K, M, G, out) : err;
+  int err = stream_plan_for<LB, true>(n, K, M, G, false, out);
+  if (err == -1) err = stream_plan_for<LB, false>(n, K, M, G, false, out);
+  if (err == -1) err = stream_plan_for<LB, false>(n, K, M, G, true, out);
+  return err;
 }
 
 template <int LB, bool RES>
@@ -978,9 +1126,8 @@ int qt_tally_votes(const void* votes, int S, int n, int K, void* counts,
 int qt_tally_decide(const void* votes, int S, int n, int K, int q,
                     void* counts, void* winner, void* max_count,
                     void* reached, void* stream) {
-  const int threads = 256;
-  const int blocks = (S + threads - 1) / threads;
-  tally_decide_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+  const int blocks = (S + TD_THREADS - 1) / TD_THREADS;
+  tally_decide_kernel<<<blocks, TD_THREADS, 0, (cudaStream_t)stream>>>(
       (const int*)votes, S, n, K, q, (int*)counts, (int*)winner,
       (int*)max_count, (unsigned char*)reached);
   return (int)cudaGetLastError();
@@ -989,7 +1136,7 @@ int qt_tally_decide(const void* votes, int S, int n, int K, int q,
 int qt_masked_tally(const void* votes, const void* w, const void* t, int S,
                     int n, int G, int K, void* out, void* stream) {
   dim3 grid((S + MT_TS - 1) / MT_TS, (G + MT_GT - 1) / MT_GT);
-  masked_tally_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
+  masked_tally_kernel<<<grid, MT_THREADS, 0, (cudaStream_t)stream>>>(
       (const int*)votes, (const float*)w, (const float*)t, S, n, G, K,
       (int*)out);
   return (int)cudaGetLastError();
@@ -997,13 +1144,14 @@ int qt_masked_tally(const void* votes, const void* w, const void* t, int S,
 
 // The launch plan of stream_tally_decide_hist for a shape: out = {systems a
 // block, threads a block, dynamic shared memory, blocks the card holds at
-// once, masks resident in shared memory}.  Returns -1 when a tile and one
-// system's lists of live rows do not fit in shared memory (at n = 128 and
-// K = 8, more than about 2300 quorum rows), else a CUDA error code.
+// once, masks resident in shared memory, bytes of device memory a block
+// stages its tile in (0: shared memory)}.  Returns -1 when the tile does
+// not fit in ST_MAX_SCRATCH, else a CUDA error code.
 int qt_stream_plan(int n, int K, int M, int G1, int G2c, int G2f, int* out) {
   const int G[3] = {G1, G2c, G2f};
   if (n <= 16) return stream_plan<16>(n, K, M, G, out);
-  return stream_plan<0>(n, K, M, G, out);
+  if (n <= 256) return stream_plan<0>(n, K, M, G, out);
+  return stream_plan<-1>(n, K, M, G, out);
 }
 
 int qt_stream_tally_decide_hist(
@@ -1012,7 +1160,7 @@ int qt_stream_tally_decide_hist(
     const void* t2c, const void* w2f, const void* t2f, const void* valid,
     int S, int n, int K, int M, int G1, int G2c, int G2f, int k1, int k2c,
     int k2f, float log_g, int bins, float undecided_ms, int mg,
-    int threads, int smem, int nbx, int res, void* hist, void* counts,
+    int threads, int smem, int nbx, int res, void* scratch, void* hist, void* counts,
     void* tickets, void* sum, void* max, void* psum, void* pmax,
     void* pcnt, void* stream) {
   StreamArgs a;
@@ -1039,6 +1187,7 @@ int qt_stream_tally_decide_hist(
   a.M = M;
   a.bins = bins;
   a.mg = mg;
+  a.scratch = (unsigned char*)scratch;
   a.vec = n % 4 == 0 && ((uintptr_t)votes | (uintptr_t)val_arr |
                          (uintptr_t)arrive | (uintptr_t)classic |
                          (uintptr_t)w1 | (uintptr_t)w2c | (uintptr_t)w2f) %
@@ -1061,8 +1210,9 @@ int qt_stream_tally_decide_hist(
       hist, 0, sizeof(int) * ((size_t)M * bins + grid.y), st);
   if (e != cudaSuccess) return (int)e;
   void (*launch)(const StreamArgs&, dim3, int, int, cudaStream_t) =
-      n <= 16 ? (res ? stream_launch<16, true> : stream_launch<16, false>)
-              : (res ? stream_launch<0, true> : stream_launch<0, false>);
+      n <= 16    ? (res ? stream_launch<16, true> : stream_launch<16, false>)
+      : n <= 256 ? (res ? stream_launch<0, true> : stream_launch<0, false>)
+                 : (res ? stream_launch<-1, true> : stream_launch<-1, false>);
   launch(a, grid, threads, smem, st);
   return (int)cudaGetLastError();
 }

@@ -24,10 +24,14 @@ import torch
 
 from repro_torch.kernels import _build
 
+from . import ref
+
 SOURCE = Path(__file__).resolve().parent / "csrc" / "quorum_tally.cu"
 
-MAX_N = 128          # acceptors a trial may have (MAX_N in the source)
-MAX_K = 8            # values a race may have (MAX_K in the source)
+# Device memory the stream kernel's blocks stage their tiles in together,
+# where a tile of 32 trials does not fit in a block's shared memory (fewer
+# blocks a system group then, but at least one).
+MAX_SCRATCH_BYTES = 2 ** 30
 
 LAUNCHES: Dict[str, int] = {"tally_votes": 0, "tally_decide": 0,
                             "masked_tally": 0, "stream_tally_decide_hist": 0}
@@ -64,7 +68,7 @@ def _load():
             lib.qt_stream_plan.argtypes = [I] * 6 + [ctypes.POINTER(I)]
             lib.qt_stream_plan.restype = I
             lib.qt_stream_tally_decide_hist.argtypes = (
-                [P] * 11 + [I] * 10 + [F, I, F] + [I] * 5 + [P] * 9)
+                [P] * 11 + [I] * 10 + [F, I, F] + [I] * 5 + [P] * 10)
             lib.qt_stream_tally_decide_hist.restype = I
             _lib = lib
     return _lib
@@ -89,11 +93,11 @@ def _require_cuda(t: torch.Tensor) -> None:
 
 
 def _check_sizes(n: int, n_values: int) -> None:
-    if not 1 <= n <= MAX_N:
-        raise ValueError(f"the quorum-tally kernels take 1 <= n <= {MAX_N} "
-                         f"acceptors, got n={n}")
-    if not 1 <= n_values <= MAX_K:
-        raise ValueError(f"the quorum-tally kernels take 1 <= K <= {MAX_K} "
+    if n < 1:
+        raise ValueError(f"the quorum-tally kernels take n >= 1 acceptors, "
+                         f"got n={n}")
+    if not 1 <= n_values < 2 ** 30:
+        raise ValueError(f"the quorum-tally kernels take 1 <= K < 2^30 "
                          f"values, got K={n_values}")
 
 
@@ -132,7 +136,7 @@ def tally_votes(votes: torch.Tensor, n_values: int) -> torch.Tensor:
 def tally_decide(votes: torch.Tensor, n_values: int, q) -> tuple:
     """(S, n) int32 votes (< 0 = no vote), int threshold q ->
     (counts (S, K) int32, winner (S,) int32, max_count (S,) int32,
-    reached (S,) bool)."""
+    reached (S,) bool), for any n and K."""
     if votes.dim() != 2:
         raise ValueError(f"votes must be (S, n), got {tuple(votes.shape)}")
     S, n = votes.shape
@@ -159,7 +163,7 @@ def tally_decide(votes: torch.Tensor, n_values: int, q) -> tuple:
 def masked_tally(votes: torch.Tensor, weights: torch.Tensor,
                  thresholds: torch.Tensor, n_values: int) -> torch.Tensor:
     """(S, n) int32 votes x (G, n) f32 weights, (G,) f32 thresholds ->
-    (S, G) int32 lowest satisfying value id, else -1."""
+    (S, G) int32 lowest satisfying value id, else -1, for any n, G and K."""
     if votes.dim() != 2 or weights.dim() != 2:
         raise ValueError(f"votes (S, n) and weights (G, n) expected, got "
                          f"{tuple(votes.shape)} / {tuple(weights.shape)}")
@@ -193,17 +197,19 @@ def _log_gamma(precision: float) -> float:
 
 def _stream_plan(lib, dev, n: int, K: int, M: int, G: tuple) -> tuple:
     """(systems a block, threads, shared memory, blocks the card holds at
-    once, masks resident in shared memory) for a shape, from
-    ``qt_stream_plan`` once per device and shape."""
+    once, masks resident in shared memory, device-memory bytes a block
+    stages its tile in) for a shape, from ``qt_stream_plan`` once per
+    device and shape."""
     key = (dev.index, n, K, M, G)
     plan = _STREAM_PLANS.get(key)
     if plan is None:
-        out = (ctypes.c_int * 5)()
+        out = (ctypes.c_int * 6)()
         with torch.cuda.device(dev):
             err = lib.qt_stream_plan(n, K, M, *G, out)
         if err == -1:
-            raise ValueError(f"quorum rows {G} of n={n} acceptors do not fit "
-                             f"in the shared memory of a block")
+            raise ValueError(f"32 trials' K={K} rows of n={n} acceptors "
+                             f"exceed the 1 GiB of device memory a block "
+                             f"may stage them in")
         _raise_on(err, "stream_tally_decide_hist plan")
         plan = _STREAM_PLANS[key] = tuple(out)
     return plan
@@ -245,9 +251,8 @@ def stream_tally_decide_hist(votes: torch.Tensor, val_arr: torch.Tensor,
         if (t.dtype != dtype or t.shape != shape or t.device != dev
                 or not t.is_contiguous()):
             _check(t, name, dtype, shape, dev)
+    ref.check_stream(S, n, k_sat)
     ks = tuple(int(k) for k in k_sat)
-    if len(ks) != 3 or not all(1 <= k <= n for k in ks):
-        raise ValueError(f"k_sat {k_sat} out of range for n={n}")
     if not 1 <= M <= 65535:
         raise ValueError(f"stream kernel takes 1 <= M <= 65535 systems, "
                          f"got {M}")
@@ -255,10 +260,15 @@ def stream_tally_decide_hist(votes: torch.Tensor, val_arr: torch.Tensor,
         raise ValueError(f"stream kernel takes at most 65535 quorum rows a "
                          f"phase, got {(G1, G2c, G2f)}")
     lib = _load()
-    mg, threads, smem, blocks, res = _stream_plan(lib, dev, n, K, M,
-                                                  (G1, G2c, G2f))
+    mg, threads, smem, blocks, res, big = _stream_plan(lib, dev, n, K, M,
+                                                       (G1, G2c, G2f))
     groups = -(-M // mg)
     nbx = max(1, min(-(-S // 32), blocks // groups))
+    scratch = None
+    if big:  # the tiles staged in device memory: at most 1 GiB of it
+        nbx = max(1, min(nbx, MAX_SCRATCH_BYTES // (groups * big)))
+        scratch = torch.empty(groups * nbx * big, dtype=torch.uint8,
+                              device=dev)
     # one buffer: hist (M, bins) and a ticket per system group (zeroed by
     # the C entry point);
     # n_fast, n_recovery, n_undecided (M,) each; f32 sum_ms, max_ms and the
@@ -280,7 +290,8 @@ def stream_tally_decide_hist(votes: torch.Tensor, val_arr: torch.Tensor,
                 w2c.data_ptr(), t2c.data_ptr(), w2f.data_ptr(),
                 t2f.data_ptr(), valid.data_ptr(), S, n, K, M, G1, G2c, G2f,
                 ks[0], ks[1], ks[2], _log_gamma(precision), bins,
-                float(undecided_ms), mg, threads, smem, nbx, res, p,
+                float(undecided_ms), mg, threads, smem, nbx, res,
+                None if scratch is None else scratch.data_ptr(), p,
                 p + 4 * nz, p + 4 * M * bins, p + 4 * (nz + 3 * M),
                 p + 4 * (nz + 4 * M), p + 4 * (nz + 5 * M),
                 p + 4 * (nz + 5 * M + M * nbx), p + 4 * (nz + 3 * M + nf),

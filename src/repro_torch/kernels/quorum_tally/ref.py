@@ -84,6 +84,17 @@ def _prefix_sat(x: torch.Tensor, w: torch.Tensor, t: torch.Tensor, k: int,
     return torch.where(reached, tt, torch.full_like(tt, big)).amin(dim=1)
 
 
+def check_stream(S: int, n: int, k_sat: tuple) -> None:
+    """What the stream kernels refuse, as JAX's does, with ``ValueError``: a
+    chunk of 2^24 trials or more (f32 counts would no longer be exact) and a
+    ``k_sat`` component outside [1, n]."""
+    if S >= 2 ** 24:
+        raise ValueError(f"chunk of {S} trials overflows exact f32 counts; "
+                         f"stream smaller chunks")
+    if len(k_sat) != 3 or not all(1 <= int(k) <= n for k in k_sat):
+        raise ValueError(f"k_sat {k_sat} out of range for n={n}")
+
+
 def stream_decide(votes: torch.Tensor, val_arr: torch.Tensor,
                   arrive: torch.Tensor, classic: torch.Tensor,
                   w1: torch.Tensor, t1: torch.Tensor,
@@ -133,8 +144,10 @@ def stream_tally_decide_hist(votes: torch.Tensor, val_arr: torch.Tensor,
     (k1, k2c, k2f) selection depths.  Returns ``(hist, stats)``: hist
     (M, bins) int32 over decided valid trials, stats ``n_fast`` /
     ``n_recovery`` / ``n_undecided`` (M,) int32, ``sum_ms`` (M,) f32 and
-    ``max_ms`` (M,) f32 (-inf when nothing decided)."""
+    ``max_ms`` (M,) f32 (-inf when nothing decided).  Refuses what the
+    kernels refuse (``check_stream``)."""
     from repro_torch.montecarlo.streaming import bucket_index
+    check_stream(*votes.shape, k_sat)
     d = stream_decide(votes, val_arr, arrive, classic, w1, t1, w2c, t2c, w2f,
                       t2f, valid, n_values=n_values, k_sat=k_sat,
                       undecided_ms=undecided_ms)

@@ -60,22 +60,29 @@ def _load():
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
             eps: float = 1e-6) -> torch.Tensor:
     """x (..., D) f32/bf16, rows contiguous along D and evenly strided;
-    scale (D,) f32 contiguous -> (..., D) contiguous, in x's dtype."""
+    scale (D,) f32 contiguous -> (..., D) contiguous, in x's dtype.
+
+    Decode calls this with a few rows, where the kernel takes about two
+    microseconds: the checks and the launch are kept to plain attribute
+    reads, and the device is switched only when x is not on the current
+    one."""
     refuse_grad("RMSNorm", x, scale)
-    if not x.is_cuda:
+    dev = x.device
+    if dev.type != "cuda":
         raise ValueError(f"the RMSNorm kernel takes CUDA tensors, got one on "
-                         f"{x.device}; ops.py routes CPU tensors to ref.py")
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"x has dtype {x.dtype}, expected float32 or "
-                         f"bfloat16")
-    if x.dim() < 1 or x.shape[-1] < 1:
+                         f"{dev}; ops.py routes CPU tensors to ref.py")
+    dt = x.dtype
+    if dt != torch.float32 and dt != torch.bfloat16:
+        raise ValueError(f"x has dtype {dt}, expected float32 or bfloat16")
+    shape = x.shape
+    if not shape or shape[-1] < 1:
         raise ValueError(f"x must have a last axis of D >= 1, got shape "
-                         f"{tuple(x.shape)}")
-    D = x.shape[-1]
-    if scale.device != x.device or scale.dtype != torch.float32 \
-            or tuple(scale.shape) != (D,) or not scale.is_contiguous():
+                         f"{tuple(shape)}")
+    D = shape[-1]
+    if scale.device != dev or scale.dtype != torch.float32 \
+            or scale.shape != (D,) or not scale.is_contiguous():
         raise ValueError(f"scale must be a contiguous float32 ({D},) tensor "
-                         f"on {x.device}, got {scale.dtype} "
+                         f"on {dev}, got {scale.dtype} "
                          f"{tuple(scale.shape)} on {scale.device}")
     rows = x.reshape(-1, D)            # a view wherever the rows allow one
     if rows.stride(-1) != 1:
@@ -85,15 +92,18 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
     if R >= 2 ** 31:
         raise ValueError(f"the RMSNorm kernel takes fewer than 2^31 rows, "
                          f"got {R}")
-    y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    y = torch.empty(shape, dtype=dt, device=dev)
     if R == 0:
         return y
-    lib = _load()
-    with torch.cuda.device(x.device):
-        err = lib.rmsnorm_forward(
-            int(x.dtype == torch.bfloat16), rows.data_ptr(), rows.stride(0),
+    lib = _lib if _lib is not None else _load()
+    args = (int(dt == torch.bfloat16), rows.data_ptr(), rows.stride(0),
             scale.data_ptr(), y.data_ptr(), R, D, float(eps),
-            ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
+            torch.cuda.current_stream(dev).cuda_stream)
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        err = lib.rmsnorm_forward(*args)
+    else:
+        with torch.cuda.device(dev):
+            err = lib.rmsnorm_forward(*args)
     if err != 0:
         raise RuntimeError(f"rmsnorm launch failed with CUDA error {err}")
     LAUNCHES["rmsnorm"] += 1

@@ -112,6 +112,52 @@ def test_tally_decide_kernel(cuda, S, n, q, V):
         assert torch.equal(a, b)
 
 
+# Beyond the old 8-value, 128-acceptor kernels: K past one pass of 8 values,
+# n past masked_tally's staged chunk of 128 lanes (and past 256, the
+# byte-wide orders of the stream kernel), trial counts that are no multiple
+# of a block's 64 (or 32) trials, and ties, which a run of many values
+# makes common.
+ANY_KN_CASES = [(300, 11, 9), (300, 12, 12), (257, 11, 33), (500, 129, 2),
+                (300, 130, 2), (200, 257, 3), (200, 300, 2), (100, 300, 9),
+                (16383, 11, 2), (1000, 12, 17)]
+
+
+@pytest.mark.parametrize("S,n,V", ANY_KN_CASES)
+def test_tally_decide_kernel_any_k_and_n(cuda, S, n, V):
+    r = np.random.default_rng(S + n + V)
+    votes = torch.as_tensor(r.integers(-1, V, (S, n)).astype(np.int32),
+                            device=cuda)
+    for a, b in zip(kernel.tally_decide(votes, V, n // 3),
+                    ref.tally_decide(votes, V, n // 3)):
+        assert torch.equal(a, b)
+
+
+def test_tally_decide_kernel_unaligned_rows(cuda):
+    """Votes that do not start on 16 bytes."""
+    r = np.random.default_rng(3)
+    base = torch.as_tensor(r.integers(-1, 3, (1000 * 11 + 1,)).astype(
+        np.int32), device=cuda)
+    votes = base[1:].view(1000, 11)
+    for a, b in zip(kernel.tally_decide(votes, 3, 5),
+                    ref.tally_decide(votes, 3, 5)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("S,n,V", ANY_KN_CASES)
+def test_masked_tally_kernel_any_k_and_n(cuda, S, n, V):
+    """Weights in quarters: every sum exact in f32, in any order."""
+    r = np.random.default_rng(S * 3 + n + V)
+    G = 40
+    votes = torch.as_tensor(r.integers(-1, V, (S, n)).astype(np.int32),
+                            device=cuda)
+    w = torch.as_tensor((r.integers(0, 9, (G, n)) / 4.0).astype(np.float32),
+                        device=cuda)
+    t = torch.as_tensor((r.integers(1, 4 * n // V + 8, (G,)) / 4.0).astype(
+        np.float32), device=cuda)
+    assert torch.equal(kernel.masked_tally(votes, w, t, V),
+                       ref.masked_tally(votes, w, t, V))
+
+
 @pytest.mark.parametrize("G", [1, 4, 12, 70])
 @pytest.mark.parametrize("S,n,V", [(257, 9, 2), (1100, 11, 3), (100, 6, 4),
                                    (8192, 12, 2)])
@@ -129,7 +175,7 @@ def test_masked_tally_kernel(cuda, S, n, V, G):
 
 # (S, n, M, G, K, k_sat, stream_test_inputs options): the mixed n=12 shape,
 # then the edges of the kernel's design -- more rows than a warp's 32, K = 8,
-# n past the register-resident orders (16, 32) up to MAX_N, more systems than
+# n past the register-resident orders (16, 32) up to 128, more systems than
 # a block's 16, quarter weights, k_sat below n, +inf lanes, padding rows.
 STREAM_CASES = [
     (300, 11, 2, 3, 2, (4, 5, 6), {}),
@@ -147,6 +193,19 @@ STREAM_CASES = [
     (1500, 12, 13, 12, 2, (12, 12, 12), dict(quarters=True, pad=True)),
     (1025, 12, 4, 6, 2, (5, 3, 4), {}),
     (1000, 12, 4, 5, 2, (12, 12, 12), dict(inf=True, pad=True)),
+    # any K and any n: more than 8 values, orders wider than a byte (n >
+    # 256), and more quorum rows than a block's shared memory held at n =
+    # 128, K = 8 (about 2360); from n = 257 on, and for the last two, the
+    # tile and the lists are staged in device memory.
+    (300, 11, 3, 4, 9, (11, 9, 10), {}),
+    (300, 12, 2, 5, 12, (12, 12, 12), dict(pad=True)),
+    (200, 11, 2, 3, 33, (11, 11, 11), {}),
+    (300, 129, 2, 4, 2, (129, 70, 100), {}),
+    (300, 130, 3, 3, 2, (130, 130, 130), dict(quarters=True)),
+    (200, 257, 2, 3, 2, (257, 200, 257), {}),
+    (150, 300, 2, 3, 3, (300, 300, 300), dict(pad=True)),
+    (96, 128, 1, 900, 8, (128, 128, 128), {}),
+    (40, 600, 1, 2, 70, (600, 300, 600), {}),
 ]
 
 
@@ -226,15 +285,56 @@ def test_ops_launch_on_cuda_and_count(cuda):
                             "masked_tally": 1, "stream_tally_decide_hist": 0}
 
 
+@pytest.mark.parametrize("S,n,M,G,K,tier", [
+    (300, 12, 2, 5, 2, "resident"), (200, 128, 1, 2, 8, "lists"),
+    (200, 300, 3, 3, 9, "staged"), (64, 12, 2, 3, 120, "staged")])
+def test_stream_kernel_plan_tiers(cuda, S, n, M, G, K, tier):
+    """Each tier of the launch plan, reached by a shape that needs it: the
+    live rows resident in shared memory; lists of live rows in shared
+    memory, the rows read from device memory; the tile and the lists
+    staged in device memory, where they exceed a block's shared memory
+    (orders two bytes a lane at n = 300, in registers at n = 12)."""
+    args = stream_test_inputs(S + n + K, S, n, M, G, K, cuda, pad=True)
+    kw = dict(n_values=K, k_sat=(n, n // 2 + 1, n), precision=0.01,
+              bins=BINS, undecided_ms=5e8)
+    plan = kernel._stream_plan(kernel._load(), args[0].device, n, K, M,
+                               (G, G, G))
+    res, big = plan[4], plan[5]
+    assert {"resident": (1, False), "lists": (0, False),
+            "staged": (0, True)}[tier] == (res, big > 0)
+    assert_stream_equal(kernel.stream_tally_decide_hist(*args, **kw),
+                        ref.stream_tally_decide_hist(*args, **kw))
+
+
+def test_stream_kernel_refuses_what_the_reference_refuses(cuda):
+    args = stream_test_inputs(4, 64, 5, 2, 3, 2, cuda)
+    kw = dict(n_values=2, precision=0.01, bins=BINS, undecided_ms=5e8)
+    for ks in ((6, 6, 6), (0, 0, 0)):
+        with pytest.raises(ValueError, match="k_sat"):
+            kernel.stream_tally_decide_hist(*args, k_sat=ks, **kw)
+
+
+@pytest.mark.parametrize("S,n,V", [(64, 5, 9), (64, 129, 2)])
+def test_wrappers_take_what_the_reference_takes(cuda, S, n, V):
+    """K = 9 values and n = 129 acceptors, which the kernels refused before
+    they took any K and n, agree with the plain versions."""
+    votes = torch.as_tensor(np.random.default_rng(S + n).integers(
+        -1, V, (S, n)).astype(np.int32), device=cuda)
+    for a, b in zip(kernel.tally_decide(votes, V, 3),
+                    ref.tally_decide(votes, V, 3)):
+        assert torch.equal(a, b)
+    w, t = torch.ones((2, n), device=cuda), torch.tensor([3.0, 9.0],
+                                                         device=cuda)
+    assert torch.equal(kernel.masked_tally(votes, w, t, V),
+                       ref.masked_tally(votes, w, t, V))
+
+
 def test_wrappers_raise_on_bad_input(cuda):
     votes = torch.zeros((8, 5), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="dtype"):
         kernel.tally_decide(votes.long(), 2, 3)
-    with pytest.raises(ValueError, match="K <= 8"):
-        kernel.tally_decide(votes, 9, 3)
-    with pytest.raises(ValueError, match="n <= 128"):
-        kernel.tally_decide(torch.zeros((8, 129), dtype=torch.int32,
-                                        device=cuda), 2, 3)
+    with pytest.raises(ValueError, match="1 <= K"):
+        kernel.tally_decide(votes, 0, 3)
     with pytest.raises(ValueError, match="1 <= K"):
         kernel.tally_votes(votes, 0)
     with pytest.raises(ValueError, match="dtype"):
@@ -529,7 +629,14 @@ def test_flash_wrapper_raises_on_bad_input(cuda):
 RN_CASES = [((4, 64, 256), torch.float32), ((2, 100, 384), torch.bfloat16),
             ((8, 300), torch.float32), ((1, 7, 130), torch.bfloat16),
             ((4096, 2560), torch.bfloat16), ((4096, 5120), torch.bfloat16),
-            ((3, 5, 2560), torch.float32)]
+            ((3, 5, 2560), torch.float32),
+            # each instance's edges: a block a row (few rows), groups of
+            # rows (many), rows longer than a block holds in registers (two
+            # passes), unaligned rows (one value a slot)
+            ((129, 2560), torch.bfloat16), ((300, 5120), torch.float32),
+            ((200, 1100), torch.bfloat16), ((3, 70000), torch.bfloat16),
+            ((300, 40000), torch.float32), ((3, 9001), torch.float32),
+            ((500, 1030), torch.bfloat16)]
 
 
 def rn_inputs(seed, shape, dtype, dev):
@@ -549,6 +656,25 @@ def test_rmsnorm_kernel(cuda, shape, dtype):
     tol = 1e-5 if dtype == torch.float32 else 5e-2
     assert (y.float() - want).abs().max() < tol * max(
         1.0, float(want.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [2560, 5120])
+@pytest.mark.parametrize("R", [1, 2, 4, 5])
+def test_rmsnorm_kernel_decode_rows(cuda, R, d, dtype):
+    """Decode's few rows, strided as decode hands them (the last position of
+    each of R sequences of 3), against the plain version; and the same
+    bits as the rows made contiguous."""
+    x, s = rn_inputs(R * d, (R, 3, d), dtype, cuda)
+    rows = x[:, -1]
+    y = rn_kernel.rmsnorm(rows, s)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and y.shape == (R, d) and y.is_contiguous()
+    want = rn_ref.rmsnorm(rows, s).float()
+    tol = 1e-5 if dtype == torch.float32 else 5e-2
+    assert (y.float() - want).abs().max() < tol * max(
+        1.0, float(want.abs().max()))
+    assert torch.equal(y, rn_kernel.rmsnorm(rows.contiguous(), s))
 
 
 def test_rmsnorm_kernel_strided_rows(cuda):

@@ -311,6 +311,80 @@ def test_plain_versions_match_jax_interpret_kernels():
 
 
 # ---------------------------------------------------------------------------
+# Any K and any n: JAX's kernels pad n to 128 lanes and take any K; the
+# port's plain versions (and its CUDA kernels, on the card) take the same.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n,K", [(11, 9), (130, 2), (12, 12)])
+def test_tally_decide_any_k_and_n_matches_jax_interpret(n, K):
+    votes = np.random.default_rng(n * 100 + K).integers(
+        -1, K, (96, n)).astype(np.int32)
+    q = n // 3
+    got = ref.tally_decide(t(votes), K, q)
+    want = jax_kernel.tally_decide(jnp.asarray(votes), K, jnp.int32(q),
+                                   interpret=True)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("n,K", [(11, 9), (130, 2), (12, 12)])
+def test_masked_tally_any_k_and_n_matches_jax_interpret(n, K):
+    """Weights in quarters (exact sums in any order), thresholds reachable
+    by one value's voters, and a padding row."""
+    r = np.random.default_rng(n * 10 + K)
+    votes = r.integers(-1, K, (64, n)).astype(np.int32)
+    w = (r.integers(0, 9, (6, n)) / 4.0).astype(np.float32)
+    th = (r.integers(1, 4 * n // K + 8, (6,)) / 4.0).astype(np.float32)
+    w[-1], th[-1] = 0.0, 2.0 ** 30
+    got = ref.masked_tally(t(votes), t(w), t(th), K)
+    want = jax_kernel.masked_tally(jnp.asarray(votes), jnp.asarray(w),
+                                   jnp.asarray(th), K, interpret=True)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert bool((got[:, -1] == -1).all()) and bool((got[:, :-1] >= 0).any())
+
+
+def test_stream_any_k_matches_jax_interpret():
+    """K = 9 values, past one pass of 8."""
+    args = stream_inputs(9, 128, 11, 2, 3, 9)
+    kw = dict(n_values=9, k_sat=(11, 9, 10), precision=0.01, bins=BINS,
+              undecided_ms=UND)
+    jax_out = jax_kernel.stream_tally_decide_hist(
+        *[jnp.asarray(a) for a in args], interpret=True, **kw)
+    _assert_stream_equal(_port_stream(args, **kw), jax_out, args, kw,
+                         "stream K=9 vs interpret kernel")
+
+
+@pytest.mark.parametrize("k_sat", [(6, 6, 6), (0, 0, 0)])
+def test_stream_refuses_k_sat_out_of_range_on_cpu(k_sat):
+    """As JAX's kernel does: a k_sat component outside [1, n] is refused
+    with ValueError (before, the plain version clamped 6 to n = 5 and
+    raised IndexError for 0)."""
+    args = [t(a) for a in stream_inputs(0, 64, 5, 2, 3, 2)]
+    kw = dict(n_values=2, k_sat=k_sat, precision=0.01, bins=BINS,
+              undecided_ms=UND)
+    with pytest.raises(ValueError, match="k_sat"):
+        ops.stream_tally_decide_hist(*args, **kw)
+    with pytest.raises(ValueError, match="k_sat"):
+        jax_kernel.stream_tally_decide_hist(
+            *[jnp.asarray(a.numpy()) for a in args], interpret=True, **kw)
+
+
+def test_stream_refuses_chunks_of_2_24_trials_on_cpu():
+    """A chunk of 2^24 trials would overflow exact f32 counts (JAX refuses
+    it too); stride-0 views keep the inputs small."""
+    S, n, K = 2 ** 24, 3, 2
+    z = lambda *shape: torch.zeros((1,) * len(shape)).expand(*shape)
+    w = torch.ones((1, 1, n))
+    with pytest.raises(ValueError, match="overflows"):
+        ops.stream_tally_decide_hist(
+            torch.zeros((1, 1), dtype=torch.int32).expand(S, n),
+            z(S, K, n), z(S, n), z(S, n), w, torch.ones((1, 1)), w,
+            torch.ones((1, 1)), w, torch.ones((1, 1)),
+            torch.ones((1,), dtype=torch.bool).expand(S), n_values=K,
+            k_sat=(n, n, n), precision=0.01, bins=BINS, undecided_ms=UND)
+
+
+# ---------------------------------------------------------------------------
 # Dispatch: the tensor's device decides, nothing falls back.
 # ---------------------------------------------------------------------------
 
