@@ -14,21 +14,26 @@ Phases, one JSON line each:
               the bf16 instances of flash attention and the SSD scan
   3. kernels  each quorum-tally kernel against its plain PyTorch version on
               the card, at the main paths' shapes, the kernel tests' shapes
-              and shapes of any K and n: integer outputs equal, sum_ms to
-              1e-5 relative, max_ms equal; median CUDA-event times of one
-              call of kernel and plain version, the kernel's device time per
-              call from torch.profiler, and a torch fill's device time at
-              the sweep chunk's size (the least a launch takes here)
+              and shapes of any K and n: integer outputs equal, sums to
+              1e-5 relative, maxima equal, race_card_hist's and the stream
+              kernel's sums the same bits over two calls; median
+              CUDA-event times of one call of kernel and plain version, the
+              kernel's device time per call from torch.profiler (launch and
+              fill), and a torch fill's device time at the sweep chunk's
+              size (the least a launch takes here)
   4. masked materializing race   engine.race on the mixed n=12 table at
               8192 samples (the masked_tally path), checked bit-identical
               to the cardinality lowering on the table's cardinality rows
+              (the tally_decide path: its launch on the kernels line, on
+              the 8192 x 12 votes phase 3 checks and times it at)
   5. mixed batch   the 13-system n=12 batch through score_systems at 2*10^6
               trials, chunk 8192 (the fused stream kernel's path)
   6. sweep    the 271-system n=11 sweep at 10^7 trials per pass, chunk
-              16384, with the sweep's own checks (the tally_decide path)
+              16384, with the sweep's own checks (the race_card_hist path:
+              one launch and one fill a race chunk)
   profile     40 chunks of each pass of both settings, timed, then traced
-              with torch.profiler: the card's busy and idle share and the
-              busiest operations
+              with torch.profiler: the card's busy and idle share, device
+              launches per chunk and the busiest operations
   quorum_reached   ops.quorum_reached on the n=11 race's 16384 x 11 votes
               (the tally_votes path), equal to the plain version and to
               tally_decide's reached bits
@@ -67,8 +72,8 @@ Phases, one JSON line each:
               with the strides decode hands them); event, device, plain and
               library times (scaled_dot_product_attention, rms_norm) and
               bounds there
-  the kernels line: all seven kernels' launches on their main paths, error,
-              times, bounds
+  the kernels line: all eight kernels' launches on their main paths,
+              error, times, bounds
 
 Launch counts are zeroed just before each main-path phase and read just
 after it; launches made to compare a kernel with its plain version do not
@@ -109,12 +114,14 @@ REPLACES = {
     "masked_tally": "src/repro/kernels/quorum_tally/kernel.py:138",
     "stream_tally_decide_hist":
         "src/repro/kernels/quorum_tally/kernel.py:321",
+    "race_card_hist": "src/repro/kernels/quorum_tally/kernel.py:439 and the "
+                      "XLA reductions of src/repro/montecarlo/streaming.py:394",
     "ssd": "src/repro/kernels/ssd_scan/kernel.py:66",
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:92",
     "rmsnorm": "src/repro/kernels/rmsnorm/kernel.py:32",
 }
 QUORUM_KERNELS = ("tally_votes", "tally_decide", "masked_tally",
-                  "stream_tally_decide_hist")
+                  "stream_tally_decide_hist", "race_card_hist")
 # Serving traffic: 4 requests of 1024 prompt tokens (four 256-token chunks,
 # three carried-state hand-offs a Mamba2 layer), then 32 greedy decode
 # steps.
@@ -173,6 +180,27 @@ SERVE_BF16_FLOOR_FACTOR = 2.0
 SERVE_FLOOR_CHUNK = 128
 SWEEP_RACE_CHUNKS = -(-10_000_000 // 16_384)
 MIXED_RACE_CHUNKS = -(-2_000_000 // 8_192)
+# race_card_hist at the sweep chunk's shape (the n=11 sweep's 271-system
+# table, coordinated, and its --relaxed 396-system table, uncoordinated),
+# the sweep's ragged last chunk (5760 of 16384 trials valid), k_sat below
+# n, n = 33 (rows past the register-held 16 lanes), and K = 9 at n = 130,
+# n = 300: (name, trials, n, K, the table or the q maxima of 40 random
+# systems, recovery, valid trials).
+RACE_CARD_CASES = [
+    ("sweep", 16384, 11, 2, "sweep", "coordinated", 16384),
+    ("relaxed", 16384, 11, 2, "relaxed", "uncoordinated", 16384),
+    ("sweep ragged", 16384, 11, 2, "sweep", "uncoordinated", 5760),
+    ("k_sat below n", 3000, 12, 3, (9, 7, 8), "coordinated", 2999),
+    ("n=33", 1000, 33, 3, (33, 20, 25), "coordinated", 900),
+    ("K=9 n=130", 500, 130, 9, (130, 100, 40), "uncoordinated", 433),
+    ("n=300", 200, 300, 2, (300, 250, 60), "coordinated", 171),
+]
+
+
+def only(**launches) -> dict:
+    """The quorum kernels' launch counts a path expects: those named, 0
+    for the others."""
+    return {k: launches.get(k, 0) for k in QUORUM_KERNELS}
 
 
 def emit(phase: str, **kw) -> None:
@@ -329,6 +357,38 @@ def stream_test_inputs(seed, S, n, M, G, K, dev, quarters=False, pad=False,
     return ([torch.as_tensor(votes).to(dev), f(val_arr), f(arrive),
              f(classic)] + [f(m) for m in masks]
             + [torch.as_tensor(valid).to(dev)])
+
+
+def race_card_inputs(case, dev):
+    """The race chunk's raw draws (``engine._draw_race``) and the table's
+    recovery pairs for a RACE_CARD_CASES entry: (args, kwargs)."""
+    from repro_torch.frontier import cardinality_family, relaxed_family
+    from repro_torch.montecarlo import engine, rng, streaming
+    _, S, n, K, tab, rec, nvalid = case
+    if isinstance(tab, str):
+        fam = cardinality_family(11) + (relaxed_family(11)
+                                        if tab == "relaxed" else [])
+        table = engine.build_mask_table([m.masks() for m in fam],
+                                        device=dev)
+        ks = engine.saturation_depths(table)
+    else:
+        r = np.random.default_rng(n + K)
+        q = np.stack([r.integers(1, m + 1, 40) for m in tab], axis=1)
+        q[0] = tab
+        table = {"q": torch.as_tensor(q.astype(np.int32), device=dev)}
+        ks = tab
+    if rec == "uncoordinated":
+        ks = (ks[0], ks[2], ks[2])
+    offsets = torch.tensor([0.0, 0.2] + [0.3] * (K - 2), device=dev)
+    raw = engine._draw_race(rng.generator(rng.root(S + n), dev), offsets,
+                            streaming.default_delay(), n=n, k_proposers=K,
+                            samples=S, recovery=rec)
+    valid = torch.arange(S, device=dev) < nvalid
+    return ([raw["votes"], raw["arrive"], raw["classic"], valid,
+             streaming._card_layout(table, rec)[0]],
+            dict(n_values=K, k_sat=ks, precision=0.01,
+                 bins=streaming.sketch_bins(0.01),
+                 undecided_ms=float(engine.UNDECIDED_MS)))
 
 
 def ssd_cost(B, S, nh, hd, ds, chunk, x_bytes, bc_bytes, init: bool):
@@ -1045,6 +1105,15 @@ def main() -> None:
     want = ref.tally_decide(v11, 2, 7)
     for a, b, f in zip(got, want, ("counts", "winner", "max", "reached")):
         same(a, b, f"tally_decide (16384, 11) {f}")
+    # tally_decide's main path: phase 4's cardinality lowering of
+    # engine.race, whose chunk is these draws (8192 x 12, K = 2)
+    v4 = engine._draw_race(rng.generator(rng.root(4), dev), offsets,
+                           streaming.default_delay(), n=12, k_proposers=2,
+                           samples=8192)["votes"]
+    for a, b, f in zip(kernel.tally_decide(v4, 2, 0),
+                       ref.tally_decide(v4, 2, 0),
+                       ("counts", "winner", "max", "reached")):
+        same(a, b, f"tally_decide (8192, 12) {f}")
     same(kernel.tally_votes(v11, 2), ref.tally_votes(v11, 2),
          "tally_votes (16384, 11)")
     for S, n, V in ((100, 11, 2), (1024, 11, 3), (3000, 7, 2), (5000, 32, 5),
@@ -1111,7 +1180,7 @@ def main() -> None:
         ph = "p2c" if rec == "coordinated" else "p2f"
         ks = k_sat12 if rec == "coordinated" else (k_sat12[0], k_sat12[2],
                                                    k_sat12[2])
-        args12[rec] = ([raw["votes"], raw["val_arr"], raw["arrive"],
+        args12[rec] = ([raw["votes"], engine._val_arr(raw, 2), raw["arrive"],
                         raw["classic"], table12["p1_w"], table12["p1_t"],
                         table12[ph + "_w"], table12[ph + "_t"],
                         table12["p2f_w"], table12["p2f_t"], valid12],
@@ -1173,60 +1242,103 @@ def main() -> None:
     if int(h.sum()) or int(s["n_fast"].sum()) \
             or not bool(torch.isneginf(s["max_ms"]).all()):
         fail("stream kernel: an all-invalid block contributed")
+    # race_card_hist at every shape of RACE_CARD_CASES: integers and maxima
+    # equal, sums within 1e-5 of each cell and the same bits over two calls
+    card_args = {}
+    for case in RACE_CARD_CASES:
+        a, kw = card_args[case[0]] = race_card_inputs(case, dev)
+        got = kernel.race_card_hist(*a, **kw)
+        again = kernel.race_card_hist(*a, **kw)
+        for f, x, y, z in zip(("FH", "Fsum", "Fmax", "cnt", "RH", "Rsum",
+                               "Rmax"), got, ref.race_card_hist(*a, **kw),
+                              again):
+            what = f"race_card_hist {case[0]} {f}"
+            if f in ("Fsum", "Rsum"):
+                num = (x - y).abs()
+                if bool((num > 1e-5 * y.abs()).any()):
+                    fail(f"{what} off by more than 1e-5 relative")
+                st = stats["race_card_hist"]
+                st["max_abs_err"] = max(st["max_abs_err"], float(num.max()))
+            else:
+                same(x, y, what)
+            same(x.view(torch.int32), z.view(torch.int32), what + " repeated")
+        if int(got[3].sum()) != case[-1]:
+            fail(f"race_card_hist {case[0]}: {int(got[3].sum())} trials "
+                 f"counted, {case[-1]} valid")
     torch.cuda.synchronize()
 
     args_c, kw_c = args12["coordinated"]
     timed = {
         "tally_votes": (lambda: kernel.tally_votes(v11, 2),
                         lambda: ref.tally_votes(v11, 2)),
-        "tally_decide": (lambda: kernel.tally_decide(v11, 2, 0),
-                         lambda: ref.tally_decide(v11, 2, 0)),
+        "tally_decide": (lambda: kernel.tally_decide(v4, 2, 0),
+                         lambda: ref.tally_decide(v4, 2, 0)),
         "masked_tally": (
             lambda: kernel.masked_tally(raw12["votes"], w_flat, t_flat, 2),
             lambda: ref.masked_tally(raw12["votes"], w_flat, t_flat, 2)),
         "stream_tally_decide_hist": (
             lambda: kernel.stream_tally_decide_hist(*args_c, **kw_c),
             lambda: ref.stream_tally_decide_hist(*args_c, **kw_c)),
+        "race_card_hist": (
+            lambda: kernel.race_card_hist(*card_args["sweep"][0],
+                                          **card_args["sweep"][1]),
+            lambda: ref.race_card_hist(*card_args["sweep"][0],
+                                       **card_args["sweep"][1])),
     }
-    S11, S12 = v11.shape[0], raw12["votes"].shape[0]
+    S11, S12, S4 = v11.shape[0], raw12["votes"].shape[0], v4.shape[0]
+    p11 = card_args["sweep"][0][4].shape[0]
+    k2f11 = card_args["sweep"][1]["k_sat"][2]
+    slots11 = k2f11 + 1
     G1, G2c = table12["p1_w"].shape[1], table12["p2c_w"].shape[1]
     mask_bytes = 4 * M12 * 12 * (G1 + G2c + G2f) + 4 * M12 * (G1 + G2c + G2f)
     bytes_ = {
         "tally_votes": S11 * 11 * 4 + S11 * 2 * 4,
-        "tally_decide": S11 * 11 * 4 + S11 * 2 * 4 + S11 * 4 * 2 + S11,
+        "tally_decide": S4 * 12 * 4 + S4 * 2 * 4 + S4 * 4 * 2 + S4,
         "masked_tally": (S12 * 12 * 4 + M12 * G2f * 13 * 4
                          + S12 * M12 * G2f * 4),
         "stream_tally_decide_hist": (S12 * 12 * 4 * (1 + 2 + 2) + S12
                                      + mask_bytes + M12 * (bins + 5) * 4),
+        # votes, arrive, classic and valid read once, the pairs; FH, RH,
+        # the slot counts and the four (k2f or P) x V f32 outputs written
+        "race_card_hist": (S11 * (11 * 12 + 1) + 8 * p11
+                           + 4 * (k2f11 * slots11 * bins
+                                  + p11 * slots11 * (bins + 1) + slots11
+                                  + 2 * (k2f11 + p11) * slots11)),
     }
     # operations: one compare or add per (trial, acceptor, value) of the
     # tallies.  The fused kernel: per (system, trial) the masked tally
     # against the fast rows (G2f*n*K adds) and each phase's weight
     # contraction (G1*k1 + G2c*k2c + G2f*k2f adds); per trial one ordering
     # of its K + 2 rows (n*ceil(log2 n) compares a row, a comparison
-    # sort's least).
+    # sort's least).  race_card_hist: per trial the tally (n*K compares),
+    # the order of its three rows (3*n*ceil(log2 n)), per pair an add, a
+    # compare and a bucket, per fast column a bucket.
     k1, k2c, k2f = kw_c["k_sat"]
     ops_ = {
         "tally_votes": S11 * 11 * 2,
-        "tally_decide": S11 * 11 * 2,
+        "tally_decide": S4 * 12 * 2,
         "masked_tally": S12 * M12 * G2f * 12 * 2,
         "stream_tally_decide_hist": (
             M12 * S12 * (G2f * 12 * 2 + G1 * k1 + G2c * k2c + G2f * k2f)
             + S12 * (2 + 2) * 12 * math.ceil(math.log2(12))),
+        "race_card_hist": S11 * (11 * 2 + 3 * 11 * math.ceil(math.log2(11))
+                                 + 3 * p11 + k2f11),
     }
     symbol = {"tally_votes": "tally_votes_kernel",
               "tally_decide": "tally_decide_kernel",
               "masked_tally": "masked_tally_kernel",
-              "stream_tally_decide_hist": "stream_kernel"}
+              "stream_tally_decide_hist": "stream_kernel",
+              "race_card_hist": ("race_card_kernel", "Memset")}
     for k, (kf, pf) in timed.items():
         kms, pms = cuda_ms(kf), cuda_ms(pf)
         ops.reset_launches()
         kf()
         per_call = ops.LAUNCHES[k]
-        dev_us, dev_n, _ = kernel_device_us(kf, symbol[k], reps=20)
+        dev_us, dev_n, per_symbol = kernel_device_us(kf, symbol[k], reps=20)
         b_ms = bytes_[k] / HBM_BYTES_PER_S * 1e3
         o_ms = ops_[k] / FP32_OPS_PER_S * 1e3
         stats[k].update(ms=kms, plain_ms=pms, device_us=dev_us,
+                        device_us_by_launch=per_symbol,
                         launches_per_call=per_call,
                         back_to_back_us=back_to_back_us(kf),
                         device_launches_recorded=dev_n,
@@ -1247,8 +1359,7 @@ def main() -> None:
                       samples=8192)
     torch.cuda.synchronize()
     launches4 = dict(ops.LAUNCHES)
-    if launches4 != {"tally_votes": 0, "tally_decide": 0, "masked_tally": 1,
-                     "stream_tally_decide_hist": 0}:
+    if launches4 != only(masked_tally=1):
         fail(f"masked race launches {launches4}")
     lat = out["latency_ms"]
     if tuple(lat.shape) != (M12, 8192):
@@ -1258,11 +1369,29 @@ def main() -> None:
         fail("masked race: decided latencies not finite")
     card = build_mask_table([m.masks(12) for m in mixed_members()[:3]],
                             device=dev)
-    out_q = engine.race(rng.root(4), card, [0.0, 0.2], n=12, k_proposers=2,
-                        samples=8192)
+    seen, tally_decide = [], kernel.tally_decide
+
+    def spy(votes, *args):          # the votes the path hands the kernel
+        seen.append(votes.clone())
+        return tally_decide(votes, *args)
+
+    kernel.tally_decide = spy
+    try:
+        ops.reset_launches()
+        out_q = engine.race(rng.root(4), card, [0.0, 0.2], n=12,
+                            k_proposers=2, samples=8192)
+        torch.cuda.synchronize()
+        launches4c = dict(ops.LAUNCHES)
+    finally:
+        kernel.tally_decide = tally_decide
+    if launches4c != only(tally_decide=1):
+        fail(f"cardinality race launches {launches4c}")
+    if len(seen) != 1 or not torch.equal(seen[0], v4):
+        fail("the cardinality race's votes are not those phase 3 checked")
     for f in out_q:
         same(out[f][:3], out_q[f], f"masked vs cardinality lowering {f}")
     emit("masked_race", ok=True, launches=launches4,
+         cardinality_launches=launches4c,
          fast_rate=out["reached_fast"].float().mean(1).tolist())
 
     # ---- 5. mixed n=12 batch (stream_tally_decide_hist) --------------------
@@ -1271,8 +1400,7 @@ def main() -> None:
     fr = score_systems(members, n=12, trials=2_000_000, chunk=8192, seed=0)
     torch.cuda.synchronize()
     launches5 = dict(ops.LAUNCHES)
-    if launches5 != {"tally_votes": 0, "tally_decide": 0, "masked_tally": 0,
-                     "stream_tally_decide_hist": MIXED_RACE_CHUNKS}:
+    if launches5 != only(stream_tally_decide_hist=MIXED_RACE_CHUNKS):
         fail(f"mixed batch launches {launches5}")
     race, fast = fr.streams["race"], fr.streams["fast"]
     for s in (race, fast):
@@ -1300,13 +1428,12 @@ def main() -> None:
          fast_trials_per_sec=2_000_000 / fr.wall_s["fast"],
          frontier=list(fr.frontier_labels))
 
-    # ---- 6. the n=11 sweep (tally_decide) ----------------------------------
+    # ---- 6. the n=11 sweep (race_card_hist) --------------------------------
     ops.reset_launches()
     sw = run_sweep(quick=False, device=dev)
     torch.cuda.synchronize()
     launches6 = dict(ops.LAUNCHES)
-    if launches6 != {"tally_votes": 0, "tally_decide": SWEEP_RACE_CHUNKS,
-                     "masked_tally": 0, "stream_tally_decide_hist": 0}:
+    if launches6 != only(race_card_hist=SWEEP_RACE_CHUNKS):
         fail(f"sweep launches {launches6}")
     res = sw["result"]
     with open(os.path.join(ROOT, "BENCH_baseline.json")) as fh:
@@ -1347,6 +1474,8 @@ def main() -> None:
                 chunks=40, wall_s=wall,
                 device_busy_s=prof["device_busy_s"],
                 idle_share=1.0 - prof["device_busy_s"] / wall,
+                device_launches_per_chunk=sum(
+                    prof["by_kernel_n"].values()) / 40,
                 profiled_wall_s=prof["wall_s"], top_ms=prof["top"])
     emit("profile", **windows)
 
@@ -1355,8 +1484,7 @@ def main() -> None:
     reached = ops.quorum_reached(v11, 2, 7)
     torch.cuda.synchronize()
     launches_qr = dict(ops.LAUNCHES)
-    if launches_qr != {"tally_votes": 1, "tally_decide": 0,
-                       "masked_tally": 0, "stream_tally_decide_hist": 0}:
+    if launches_qr != only(tally_votes=1):
         fail(f"quorum_reached launches {launches_qr}")
     same(reached, ref.quorum_reached(v11, 2, 7), "quorum_reached")
     same(reached, want[3], "quorum_reached vs tally_decide's reached")
@@ -1384,10 +1512,11 @@ def main() -> None:
 
     # ---- the kernels line ---------------------------------------------------
     launches = {"tally_votes": launches_qr["tally_votes"],
-                "tally_decide": launches6["tally_decide"],
+                "tally_decide": launches4c["tally_decide"],
                 "masked_tally": launches4["masked_tally"],
                 "stream_tally_decide_hist":
                     launches5["stream_tally_decide_hist"],
+                "race_card_hist": launches6["race_card_hist"],
                 **zamba["launches"]}
     model_stats = {
         "ssd": dict(ssd_zamba, max_abs_err=ssd_err, library_ms=None),

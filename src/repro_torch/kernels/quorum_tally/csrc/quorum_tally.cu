@@ -9,10 +9,10 @@
 // cudaGetLastError().
 //
 // Registers a thread (ptxas -v, sm_90a, CUDA 12.8): tally_votes_kernel 26,
-// tally_decide_kernel 34, masked_tally_kernel 58, no spills; every
+// tally_decide_kernel 28, masked_tally_kernel 58, no spills; every
 // stream_kernel instance 64 (its launch bounds), none spilling where the
 // masks are resident (RES), 126-166 bytes stored to the stack where they
-// are read from device memory.
+// are read from device memory; race_card_kernel<false> 64, no spills.
 //
 // tally_votes              replaces src/repro/kernels/quorum_tally/kernel.py
 //                          :tally_votes (_tally_kernel).
@@ -93,6 +93,38 @@
 //   atomic ticket, reduces the per-block partials in block order, so sum_ms
 //   is the same bit for bit from call to call.  A call is one fill (the
 //   histogram and the tickets, cudaMemsetAsync) and one launch.
+//
+// race_card_hist           replaces kernel.py:tally_decide
+//                          (_tally_decide_kernel) on the cardinality race
+//                          chunk, with the XLA reductions around it in
+//                          src/repro/montecarlo/streaming.py:394
+//                          (_race_card_update).
+//   Bound: by bytes a chunk's votes, arrive and classic are read once and
+//   FH and RH written once: 6.0 MB at the sweep's 16384 x 11, P = 66, 1.8
+//   us.  In practice by the L2's atomics: a trial makes up to k2f + P
+//   histogram increments, 1.23 M a sweep chunk into 12.9 K distinct cells
+//   of FH and RH (about 95 a cell), then by the instructions of the f32
+//   bucket expression a (trial, column) and the latency of the cross-block
+//   reduction.
+//   Design: the chunk's tally, first-max decide (first_max, shared with
+//   tally_decide_kernel), order statistics and fcap-slot reductions in one
+//   launch, without a sort.  A
+//   block stages a tile of 64 trials (votes, order keys of arrive and
+//   classic), ranks each row by (key, lane) -- for n <= 16 a thread a row
+//   in registers, else a thread a lane -- keeping the k2f / k1 / kr first,
+//   then walks (trial, column) pairs twice.  For the histograms a warp
+//   takes a column and 32 trials, a trial a lane, and the lanes whose
+//   increments fall in the same cell are merged (__match_any_sync): one
+//   int32 atomic in device memory a distinct cell of the warp, exact in
+//   any order (0.79 of the increments remain at the sweep chunk).  For the
+//   sums and maxima a thread takes a column, the tile's trials split over
+//   groups of column threads, each (group, slot, column) cell one thread's
+//   running sum and max, so every sum has one order.  Block partials, then groups of blocks, are reduced by the last
+//   block of each, found with a fence and an atomic ticket, in block order:
+//   sums the same bit for bit from call to call, maxima exact (order keys).
+//   Where the tile, prefixes and cells do not fit in shared memory (large n
+//   or k_sat), a block works in its region of device memory instead.  A
+//   call is one fill (FH, RH, slot counts, tickets) and one launch.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -135,13 +167,27 @@ __global__ void tally_votes_kernel(const int* __restrict__ votes, int S,
   }
 }
 
+// Fold one pass's counts c (values base .. base + PASS_K - 1, those below K
+// real) into the running first maximum (best, w): a strict '>' carried
+// across passes, so the first maximum wins, as the TPU kernel's running
+// argmax.  tally_decide_kernel and race_card_kernel decide with it.
+__device__ __forceinline__ void first_max(const int (&c)[PASS_K], int base,
+                                          int K, int& best, int& w) {
+#pragma unroll
+  for (int v = 0; v < PASS_K; ++v) {
+    if (base + v < K && (base + v == 0 || c[v] > best)) {
+      best = c[v];
+      w = base + v;
+    }
+  }
+}
+
 #define TD_THREADS 64       // trials a block: S = 16384 gives 256 blocks
 
 // A thread owns a trial and reads its row straight from device memory: the
 // rows of a warp's 32 trials share cache lines, so after the first miss its
 // loads hit L1.  PASS_K counters in registers a pass, one pass over the row
-// per PASS_K values; the winner is carried across passes with a strict '>',
-// so the first maximum wins.
+// per PASS_K values, each folded into the first maximum (first_max).
 __global__ void __launch_bounds__(TD_THREADS) tally_decide_kernel(
     const int* __restrict__ votes, int S, int n, int K, int q,
     int* __restrict__ counts, int* __restrict__ winner,
@@ -152,16 +198,10 @@ __global__ void __launch_bounds__(TD_THREADS) tally_decide_kernel(
   int c[PASS_K];
   for (int base = 0; base < K; base += PASS_K) {
     count_row(votes + (size_t)s * n, n, base, c);
+    first_max(c, base, K, best, w);
 #pragma unroll
-    for (int v = 0; v < PASS_K; ++v) {
-      if (base + v < K) {
-        if (base + v == 0 || c[v] > best) {
-          best = c[v];
-          w = base + v;
-        }
-        counts[(size_t)s * K + base + v] = c[v];
-      }
-    }
+    for (int v = 0; v < PASS_K; ++v)
+      if (base + v < K) counts[(size_t)s * K + base + v] = c[v];
   }
   winner[s] = w;
   max_count[s] = best;
@@ -410,6 +450,16 @@ __device__ __forceinline__ unsigned order_key(unsigned u) {
 // The value of a key (-0 comes back as +0, which compares equal).
 __device__ __forceinline__ float key_value(unsigned k) {
   return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
+}
+
+// streaming.bucket_index, the same f32 expression:
+// ceil(log(max(x, 1e-2) / 1e-2) / log_g) clipped to [0, bins - 1].
+__device__ __forceinline__ int sketch_bucket(float x, float log_g,
+                                             int bins) {
+  const float r = fmaxf(x, 1e-2f) / 1e-2f;
+  float fi = ceilf(logf(r) / log_g);
+  fi = fminf(fmaxf(fi, 0.0f), (float)(bins - 1));
+  return (int)fi;
 }
 
 // One trial's order of one row: the lane at position j.  LB = 16 holds it
@@ -977,11 +1027,7 @@ __global__ void __launch_bounds__(ST_TILE * ST_MAX_MG, 2)
     const bool dec = fast || recb;
     const unsigned dm = __ballot_sync(FULL, dec);
     if (dec) {
-      // streaming.bucket_index, the same f32 expression.
-      float r = fmaxf(lat, 1e-2f) / 1e-2f;
-      float fi = ceilf(logf(r) / a.log_g);
-      fi = fminf(fmaxf(fi, 0.0f), (float)(a.bins - 1));
-      const int bin = (int)fi;
+      const int bin = sketch_bucket(lat, a.log_g, a.bins);
       const unsigned peers = __match_any_sync(dm, bin);
       if (lane == __ffs(peers) - 1)
         atomicAdd(a.hist + (size_t)m * a.bins + bin, __popc(peers));
@@ -1109,6 +1155,352 @@ static void stream_launch(const StreamArgs& a, dim3 grid, int threads,
 }
 
 // ---------------------------------------------------------------------------
+// race_card_hist
+// ---------------------------------------------------------------------------
+
+#define RC_TILE 64          // trials a tile
+#define RC_THREADS 512      // threads a block aims at, in groups of columns
+#define RC_MAX_THREADS 1024
+#define RC_NR 16            // rows of at most RC_NR lanes are ranked in
+                            // registers
+#define RC_BATCH 16         // partials a thread loads at once in a reduction
+
+// What one launch reads and writes.  Column c < P is recovery pair c, column
+// P + j the fast side's j-th winner arrival; a cell is (slot v, column c).
+struct CardArgs {
+  const int* votes;
+  const float* arr;
+  const float* cls;
+  const unsigned char* valid;
+  const int* pairs;
+  int S, n, K, P, k1, kr, k2f, bins;
+  int G, q32;   // groups of column threads, column threads a group
+  int gb;       // blocks a reduction group
+  float log_g, und, big;
+  unsigned char* scratch;  // the blocks' regions of `region` bytes of device
+  long long region;        // memory, where they work there
+  int* FH;
+  int* RH;
+  int* cnt;
+  int* tickets;
+  float* Fsum;
+  float* Fmax;
+  float* Rsum;
+  float* Rmax;
+  uint2* part;   // per-block partials, then per-reduction-group ones: cells
+  uint2* gpart;  // each, a cell (sum bits, max as an order key, 0 = none)
+};
+
+// A block's working memory, in bytes, each region 16-byte aligned:
+// votes, ka, kc  the tile's votes and the order keys of its arrive and
+//                classic rows (RC_TILE x n each)
+// ok, mx, nf     a trial's valid bit, its max count and the count of its
+//                k2f first winner arrivals below und
+// pre            a trial's ascending prefixes, pw floats: k2f winner
+//                arrivals, then k1 arrive, then kr classic
+// acc            each group's running sum and max of each cell, (group,
+//                slot, column)
+// cnt            the trials of each slot
+struct CardLayout {
+  int pw;
+  size_t votes, ka, kc, ok, mx, nf, pre, acc, cnt, bytes;
+};
+
+__host__ __device__ inline CardLayout card_layout(int n, int P, int k1,
+                                                  int kr, int k2f, int G) {
+  const int T = RC_TILE;
+  const size_t cells = (size_t)(k2f + 1) * (P + k2f);
+  CardLayout L;
+  L.pw = k2f + k1 + kr;
+  size_t o = 0;
+  L.votes = st_take(o, (size_t)T * n * 4);
+  L.ka = st_take(o, (size_t)T * n * 4);
+  L.kc = st_take(o, (size_t)T * n * 4);
+  L.ok = st_take(o, T * 4);
+  L.mx = st_take(o, T * 4);
+  L.nf = st_take(o, T * 4);
+  L.pre = st_take(o, (size_t)T * L.pw * 4);
+  L.acc = st_take(o, (size_t)G * cells * 8);
+  L.cnt = st_take(o, (size_t)(k2f + 1) * 4);
+  L.bytes = o;
+  return L;
+}
+
+// The winner (first maximum of the vote counts) of one row of n votes, and
+// its count in best: tally_decide's passes of PASS_K values.
+__device__ __forceinline__ int tally_winner(const int* row, int n, int K,
+                                            int& best) {
+  int w = 0, c[PASS_K];
+  best = 0;
+  for (int base = 0; base < K; base += PASS_K) {
+    count_row(row, n, base, c);
+    first_max(c, base, K, best, w);
+  }
+  return w;
+}
+
+// Fold cell partial p into (sum, m) after the ones before it.
+__device__ __forceinline__ void fold(float& sum, unsigned& m, uint2 p) {
+  sum = __fadd_rn(sum, __uint_as_float(p.x));
+  m = max(m, p.y);
+}
+
+// Cell e of partial rows [0, nb) (rows `cells` apart) reduced in row order;
+// the loads of RC_BATCH rows are in flight at once (a batch past nb
+// reloads row nb - 1).
+__device__ __forceinline__ uint2 reduce_cell(const uint2* part,
+                                             long long cells, long long e,
+                                             int nb) {
+  float sum = 0.0f;
+  unsigned m = 0u;
+  for (int b0 = 0; b0 < nb; b0 += RC_BATCH) {
+    uint2 x[RC_BATCH];
+#pragma unroll
+    for (int u = 0; u < RC_BATCH; ++u)
+      x[u] = __ldcg(part + (size_t)min(b0 + u, nb - 1) * cells + e);
+#pragma unroll
+    for (int u = 0; u < RC_BATCH; ++u)
+      if (b0 + u < nb) fold(sum, m, x[u]);
+  }
+  return make_uint2(__float_as_uint(sum), m);
+}
+
+// Grid (blocks): block b walks the tiles of RC_TILE trials b, b + gridDim.x,
+// ...  Per tile: stage the votes and the order keys of arrive and classic,
+// then order each valid trial's three rows -- the winner's arrivals
+// (arrive where it voted the winner, else big), arrive, classic -- by
+// (key, lane), keeping the k2f / k1 / kr first, values only: for n <=
+// RC_NR a thread a row with the row in registers, else a thread a lane
+// counting the lanes before it.  The thread of the winner's row decides the
+// winner from the staged votes.  Then the histograms, a warp a (column, 32
+// trials), equal cells merged before their atomic; then the sums: thread
+// (g, cl) takes the trials g, g + G, ... of the tile and columns cl, cl +
+// q32, ..., and where the trial adds to the cell, a plain add and max on
+// the group's own cell.  Each cell of a group is one thread's, updated in
+// trial order, so its sum has one order.  At the end the block's partials (its
+// groups' in group order) go to device memory, and the last block of each
+// reduction group, then the last group, found with a fence and an atomic
+// ticket each, reduce them in block and group order.  GLOB: the block
+// works in its region of device memory instead of shared memory.
+template <bool GLOB>
+__global__ void __launch_bounds__(RC_MAX_THREADS)
+    race_card_kernel(const CardArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int last;
+  const int n = a.n, T = RC_TILE, V = a.k2f + 1, Q = a.P + a.k2f;
+  const long long cells = (long long)V * Q;
+  const CardLayout L = card_layout(n, a.P, a.k1, a.kr, a.k2f, a.G);
+  unsigned char* tb =
+      GLOB ? a.scratch + (size_t)blockIdx.x * a.region : smem;
+  int* sv = reinterpret_cast<int*>(tb + L.votes);
+  unsigned* ka = reinterpret_cast<unsigned*>(tb + L.ka);
+  unsigned* kc = reinterpret_cast<unsigned*>(tb + L.kc);
+  int* sok = reinterpret_cast<int*>(tb + L.ok);
+  int* smx = reinterpret_cast<int*>(tb + L.mx);
+  int* snf = reinterpret_cast<int*>(tb + L.nf);
+  float* pre = reinterpret_cast<float*>(tb + L.pre);
+  uint2* acc = reinterpret_cast<uint2*>(tb + L.acc);
+  int* scnt = reinterpret_cast<int*>(tb + L.cnt);
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int g = tid / a.q32, cl = tid - g * a.q32;
+  const unsigned kbig = order_key(__float_as_uint(a.big));
+  // the pair of this thread's first column, held in registers
+  int q1c = 1, qrc = 1;
+  if (cl < a.P) {
+    q1c = __ldg(a.pairs + 2 * cl);
+    qrc = __ldg(a.pairs + 2 * cl + 1);
+  }
+  for (long long e = tid; e < a.G * cells; e += nt) acc[e] = make_uint2(0u, 0u);
+  for (int v = tid; v < V; v += nt) scnt[v] = 0;
+
+  const int tiles = (a.S + T - 1) / T;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int s0 = tile * T, cnt = min(T, a.S - s0), per = cnt * n;
+    const size_t base = (size_t)s0 * n;
+    __syncthreads();  // the previous tile's columns are done
+    for (int e = tid; e < per; e += nt) {
+      sv[e] = __ldg(a.votes + base + e);
+      ka[e] = order_key(__float_as_uint(__ldg(a.arr + base + e)));
+      kc[e] = order_key(__float_as_uint(__ldg(a.cls + base + e)));
+    }
+    for (int s = tid; s < cnt; s += nt) {
+      sok[s] = a.valid[s0 + s];
+      snf[s] = 0;
+    }
+    __syncthreads();
+    if (n <= RC_NR) {
+      // a thread a row: its RC_NR keys in registers (lanes past n the
+      // largest key, which no real lane follows), every rank at once
+      for (int e = tid; e < 3 * cnt; e += nt) {
+        const int r = e / cnt, s = e - r * cnt;
+        if (!sok[s]) continue;
+        const int* vr = sv + s * n;
+        const unsigned* kx = (r == 2 ? kc : ka) + s * n;
+        int w = 0;
+        if (r == 0) {
+          int best;
+          w = tally_winner(vr, n, a.K, best);
+          smx[s] = best;
+        }
+        unsigned kk[RC_NR];
+#pragma unroll
+        for (int j = 0; j < RC_NR; ++j) {
+          kk[j] = 0xffffffffu;
+          if (j < n) kk[j] = (r == 0 && vr[j] != w) ? kbig : kx[j];
+        }
+        const int k = r == 0 ? a.k2f : (r == 1 ? a.k1 : a.kr);
+        float* out = pre + s * L.pw + (r == 0 ? 0 : (r == 1 ? a.k2f
+                                                           : a.k2f + a.k1));
+        int nf = 0;
+#pragma unroll
+        for (int i = 0; i < RC_NR; ++i) {
+          int rank = 0;
+#pragma unroll
+          for (int j = 0; j < RC_NR; ++j)
+            if (j != i) rank += j < i ? kk[j] <= kk[i] : kk[j] < kk[i];
+          if (i < n && rank < k) {
+            const float x = key_value(kk[i]);
+            out[rank] = x;
+            nf += x < a.und;
+          }
+        }
+        if (r == 0) snf[s] = nf;
+      }
+    } else {
+      // a thread a lane: the lanes before it in (key, lane) order
+      for (int e = tid; e < 3 * per; e += nt) {
+        const int r = e / per, rem = e - r * per;
+        const int s = rem / n, i = rem - s * n;
+        if (!sok[s]) continue;
+        const int* vr = sv + s * n;
+        const unsigned* kx = (r == 2 ? kc : ka) + s * n;
+        unsigned ki = kx[i];
+        int rank = 0;
+        if (r == 0) {
+          int best;
+          const int w = tally_winner(vr, n, a.K, best);
+          if (i == 0) smx[s] = best;
+          if (vr[i] != w) ki = kbig;
+          for (int j = 0; j < n; ++j) {
+            const unsigned kj = vr[j] == w ? kx[j] : kbig;
+            rank += j < i ? kj <= ki : kj < ki;
+          }
+        } else {
+          for (int j = 0; j < n; ++j)
+            rank += j < i ? kx[j] <= ki : kx[j] < ki;
+        }
+        if (rank < (r == 0 ? a.k2f : (r == 1 ? a.k1 : a.kr))) {
+          const float x = key_value(ki);
+          pre[s * L.pw + (r == 0 ? 0 : (r == 1 ? a.k2f : a.k2f + a.k1)) +
+              rank] = x;
+          if (r == 0 && x < a.und) atomicAdd(snf + s, 1);
+        }
+      }
+    }
+    __syncthreads();
+    // histograms: a warp takes a column and 32 trials, a trial a lane;
+    // lanes with the same cell are merged (__match_any_sync) and the
+    // lowest adds their count with one atomic
+    const int lane = tid & 31, halves = (cnt + 31) >> 5;
+    for (int t = tid >> 5; t < Q * halves; t += nt >> 5) {
+      const int c = t / halves, s = (t - c * halves) * 32 + lane;
+      int key = -1;  // -1: the lane adds nothing
+      if (s < cnt && sok[s]) {
+        const int v = min(smx[s], snf[s]);
+        const float* ps = pre + s * L.pw;
+        if (c < a.P) {
+          const float x =
+              __fadd_rn(ps[a.k2f + __ldg(a.pairs + 2 * c) - 1],
+                        ps[a.k2f + a.k1 + __ldg(a.pairs + 2 * c + 1) - 1]);
+          key = v * (a.bins + 1) +
+                (x < a.und ? sketch_bucket(x, a.log_g, a.bins) : a.bins);
+        } else if (c - a.P < v) {
+          key = v * a.bins + sketch_bucket(ps[c - a.P], a.log_g, a.bins);
+        }
+      }
+      const unsigned peers = __match_any_sync(0xffffffffu, key);
+      if (key >= 0 && lane == __ffs(peers) - 1)
+        atomicAdd((c < a.P ? a.RH + (size_t)c * V * (a.bins + 1)
+                           : a.FH + (size_t)(c - a.P) * V * a.bins) +
+                      key,
+                  __popc(peers));
+    }
+    // sums and maxima: thread (g, cl) adds trials g, g + G, ... of its
+    // columns to its own cells, in trial order
+    for (int s = g; s < cnt; s += a.G) {
+      if (!sok[s]) continue;
+      const int v = min(smx[s], snf[s]);  // the trial's slot: its fcap
+      if (cl == 0) atomicAdd(scnt + v, 1);
+      const float* ps = pre + s * L.pw;
+      for (int c = cl; c < Q; c += a.q32) {
+        float x;
+        if (c < a.P) {
+          int q1 = q1c, qr = qrc;
+          if (c != cl) {
+            q1 = __ldg(a.pairs + 2 * c);
+            qr = __ldg(a.pairs + 2 * c + 1);
+          }
+          x = __fadd_rn(ps[a.k2f + q1 - 1], ps[a.k2f + a.k1 + qr - 1]);
+          if (!(x < a.und)) continue;
+        } else {
+          const int j = c - a.P;
+          if (j >= v) continue;
+          x = ps[j];
+        }
+        uint2& cell = acc[((size_t)g * V + v) * Q + c];
+        const uint2 was = cell;
+        cell = make_uint2(__float_as_uint(__fadd_rn(__uint_as_float(was.x),
+                                                    x)),
+                          max(was.y, order_key(__float_as_uint(x))));
+      }
+    }
+  }
+  __syncthreads();
+
+  // the block's partials: its groups' cells in group order
+  uint2* mine = a.part + (size_t)blockIdx.x * cells;
+  for (long long e = tid; e < cells; e += nt) {
+    float sum = 0.0f;
+    unsigned m = 0u;
+    for (int q = 0; q < a.G; ++q) fold(sum, m, acc[q * cells + e]);
+    mine[e] = make_uint2(__float_as_uint(sum), m);
+  }
+  for (int v = tid; v < V; v += nt)
+    if (scnt[v]) atomicAdd(a.cnt + v, scnt[v]);
+  __threadfence();  // the partials before the ticket
+  __syncthreads();
+  const int nbx = gridDim.x, gb = a.gb, ngrp = (nbx + gb - 1) / gb;
+  const int grp = blockIdx.x / gb, b0 = grp * gb, nb = min(gb, nbx - b0);
+  if (tid == 0) last = atomicAdd(a.tickets + grp, 1) == nb - 1;
+  __syncthreads();
+  if (!last) return;
+  // the last block of its reduction group: the group's partials in block
+  // order
+  for (long long e = tid; e < cells; e += nt)
+    a.gpart[(size_t)grp * cells + e] =
+        reduce_cell(a.part + (size_t)b0 * cells, cells, e, nb);
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(a.tickets + ngrp, 1) == ngrp - 1;
+  __syncthreads();
+  if (!last) return;
+  // the last group: the groups' partials in group order, into the outputs
+  for (long long e = tid; e < cells; e += nt) {
+    const uint2 r = reduce_cell(a.gpart, cells, e, ngrp);
+    const int v = (int)(e / Q), c = (int)(e - (long long)v * Q);
+    const float sum = __uint_as_float(r.x);
+    const float mx = r.y ? key_value(r.y) : -INFINITY;
+    if (c < a.P) {
+      a.Rsum[(size_t)c * V + v] = sum;
+      a.Rmax[(size_t)c * V + v] = mx;
+    } else {
+      a.Fsum[(size_t)(c - a.P) * V + v] = sum;
+      a.Fmax[(size_t)(c - a.P) * V + v] = mx;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // C entry points (ctypes).  Pointers and the stream arrive as void*.
 // ---------------------------------------------------------------------------
 
@@ -1152,6 +1544,93 @@ int qt_stream_plan(int n, int K, int M, int G1, int G2c, int G2f, int* out) {
   if (n <= 16) return stream_plan<16>(n, K, M, G, out);
   if (n <= 256) return stream_plan<0>(n, K, M, G, out);
   return stream_plan<-1>(n, K, M, G, out);
+}
+
+// The launch plan of race_card_hist for a shape: out = {column groups,
+// column threads a group, threads a block, dynamic shared memory, blocks
+// the card holds at once, bytes of device memory a block works in (0: its
+// shared memory), trials a tile}.  Returns a CUDA error code.
+int qt_card_plan(int n, int P, int k1, int kr, int k2f, long long* out) {
+  int q32 = (P + k2f + 31) / 32 * 32;
+  if (q32 > RC_MAX_THREADS) q32 = RC_MAX_THREADS;
+  const int G = RC_THREADS / q32 > 1 ? RC_THREADS / q32 : 1;
+  const CardLayout L = card_layout(n, P, k1, kr, k2f, G);
+  const bool glob = L.bytes > ST_MAX_SMEM;
+  const int threads = G * q32, smem = glob ? 0 : (int)L.bytes;
+  void (*kern)(CardArgs) =
+      glob ? race_card_kernel<true> : race_card_kernel<false>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, ST_MAX_SMEM);
+  int per_sm = 0, dev = 0, sms = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads,
+                                                      smem);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = G;
+  out[1] = q32;
+  out[2] = threads;
+  out[3] = smem;
+  out[4] = (long long)(per_sm > 0 ? per_sm : 1) * sms;
+  out[5] = glob ? (long long)L.bytes : 0;
+  out[6] = RC_TILE;
+  return 0;
+}
+
+int qt_race_card_hist(const void* votes, const void* arrive,
+                      const void* classic, const void* valid,
+                      const void* pairs, int S, int n, int K, int P, int k1,
+                      int kr, int k2f, float log_g, int bins,
+                      float undecided_ms, int G, int q32, int threads,
+                      int smem, int nbx, int gb, void* scratch,
+                      long long region, long long zero_bytes, void* FH,
+                      void* RH, void* cnt, void* tickets, void* Fsum,
+                      void* Fmax, void* Rsum, void* Rmax, void* part,
+                      void* gpart, void* stream) {
+  CardArgs a;
+  a.votes = (const int*)votes;
+  a.arr = (const float*)arrive;
+  a.cls = (const float*)classic;
+  a.valid = (const unsigned char*)valid;
+  a.pairs = (const int*)pairs;
+  a.S = S;
+  a.n = n;
+  a.K = K;
+  a.P = P;
+  a.k1 = k1;
+  a.kr = kr;
+  a.k2f = k2f;
+  a.bins = bins;
+  a.G = G;
+  a.q32 = q32;
+  a.gb = gb;
+  a.log_g = log_g;
+  a.und = undecided_ms;
+  a.big = 2.0f * undecided_ms;
+  a.scratch = (unsigned char*)scratch;
+  a.region = region;
+  a.FH = (int*)FH;
+  a.RH = (int*)RH;
+  a.cnt = (int*)cnt;
+  a.tickets = (int*)tickets;
+  a.Fsum = (float*)Fsum;
+  a.Fmax = (float*)Fmax;
+  a.Rsum = (float*)Rsum;
+  a.Rmax = (float*)Rmax;
+  a.part = (uint2*)part;
+  a.gpart = (uint2*)gpart;
+  cudaStream_t st = (cudaStream_t)stream;
+  // the one fill: FH, RH, the slot counts and the tickets, which lie
+  // together from FH on.
+  const cudaError_t e = cudaMemsetAsync(FH, 0, (size_t)zero_bytes, st);
+  if (e != cudaSuccess) return (int)e;
+  if (scratch)
+    race_card_kernel<true><<<nbx, threads, smem, st>>>(a);
+  else
+    race_card_kernel<false><<<nbx, threads, smem, st>>>(a);
+  return (int)cudaGetLastError();
 }
 
 int qt_stream_tally_decide_hist(

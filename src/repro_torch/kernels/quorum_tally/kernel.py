@@ -1,6 +1,6 @@
 """Hopper kernels for the quorum tally, bound with ctypes.
 
-``csrc/quorum_tally.cu`` holds four CUDA C++ kernels for ``sm_90a``; its
+``csrc/quorum_tally.cu`` holds five CUDA C++ kernels for ``sm_90a``; its
 header says which TPU kernel each replaces, what bounds it on the card and
 what its design does about that.  ``build()`` compiles the source with
 ``nvcc`` on first use into ``build/`` beside this file (git-ignored,
@@ -34,11 +34,13 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "quorum_tally.cu"
 MAX_SCRATCH_BYTES = 2 ** 30
 
 LAUNCHES: Dict[str, int] = {"tally_votes": 0, "tally_decide": 0,
-                            "masked_tally": 0, "stream_tally_decide_hist": 0}
+                            "masked_tally": 0, "stream_tally_decide_hist": 0,
+                            "race_card_hist": 0}
 
 _lib = None
 _lib_lock = threading.Lock()
 _STREAM_PLANS: Dict[tuple, tuple] = {}
+_CARD_PLANS: Dict[tuple, tuple] = {}
 
 
 def reset_launches() -> None:
@@ -52,25 +54,32 @@ def build() -> Tuple[Path, str]:
     return _build.build(SOURCE, "quorum_tally")
 
 
+def bind(path) -> ctypes.CDLL:
+    """The library at ``path`` with its C entry points' argument types."""
+    lib = ctypes.CDLL(str(path))
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    L = ctypes.c_longlong
+    lib.qt_tally_votes.argtypes = [P, I, I, I, P, P]
+    lib.qt_tally_decide.argtypes = [P, I, I, I, I, P, P, P, P, P]
+    lib.qt_masked_tally.argtypes = [P, P, P, I, I, I, I, P, P]
+    lib.qt_stream_plan.argtypes = [I] * 6 + [ctypes.POINTER(I)]
+    lib.qt_stream_tally_decide_hist.argtypes = (
+        [P] * 11 + [I] * 10 + [F, I, F] + [I] * 5 + [P] * 10)
+    lib.qt_card_plan.argtypes = [I] * 5 + [ctypes.POINTER(L)]
+    lib.qt_race_card_hist.argtypes = (
+        [P] * 5 + [I] * 7 + [F, I, F] + [I] * 6 + [P, L, L] + [P] * 11)
+    for f in ("qt_tally_votes", "qt_tally_decide", "qt_masked_tally",
+              "qt_stream_plan", "qt_stream_tally_decide_hist",
+              "qt_card_plan", "qt_race_card_hist"):
+        getattr(lib, f).restype = I
+    return lib
+
+
 def _load():
     global _lib
     with _lib_lock:
         if _lib is None:
-            path, _ = build()
-            lib = ctypes.CDLL(str(path))
-            P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            lib.qt_tally_votes.argtypes = [P, I, I, I, P, P]
-            lib.qt_tally_votes.restype = I
-            lib.qt_tally_decide.argtypes = [P, I, I, I, I, P, P, P, P, P]
-            lib.qt_tally_decide.restype = I
-            lib.qt_masked_tally.argtypes = [P, P, P, I, I, I, I, P, P]
-            lib.qt_masked_tally.restype = I
-            lib.qt_stream_plan.argtypes = [I] * 6 + [ctypes.POINTER(I)]
-            lib.qt_stream_plan.restype = I
-            lib.qt_stream_tally_decide_hist.argtypes = (
-                [P] * 11 + [I] * 10 + [F, I, F] + [I] * 5 + [P] * 10)
-            lib.qt_stream_tally_decide_hist.restype = I
-            _lib = lib
+            _lib = bind(build()[0])
     return _lib
 
 
@@ -303,3 +312,100 @@ def stream_tally_decide_hist(votes: torch.Tensor, val_arr: torch.Tensor,
         max_ms.fill_(-math.inf)
     return hist, {"n_fast": n_fast, "n_recovery": n_rec,
                   "n_undecided": n_und, "sum_ms": sum_ms, "max_ms": max_ms}
+
+
+def _card_plan(lib, dev, n: int, P: int, ks: tuple) -> tuple:
+    """(column groups, column threads a group, threads, shared memory,
+    blocks the card holds at once, device-memory bytes a block works in, 0
+    where it works in shared memory, trials a tile) for a shape, from
+    ``qt_card_plan`` once per device and shape."""
+    key = (dev.index, n, P, ks)
+    plan = _CARD_PLANS.get(key)
+    if plan is None:
+        out = (ctypes.c_longlong * 7)()
+        with torch.cuda.device(dev):
+            err = lib.qt_card_plan(n, P, *ks, out)
+        _raise_on(err, "race_card_hist plan")
+        plan = _CARD_PLANS[key] = tuple(out)
+    return plan
+
+
+def race_card_hist(votes: torch.Tensor, arrive: torch.Tensor,
+                   classic: torch.Tensor, valid: torch.Tensor,
+                   pairs: torch.Tensor, *, n_values: int, k_sat: tuple,
+                   precision: float, bins: int, undecided_ms: float):
+    """The cardinality race chunk in one launch, after one fill: tally,
+    first-max decide, order statistics and the fcap-slot histograms, sums
+    and maxima (shapes and semantics of ``ref.race_card_hist``; pairs
+    (P, 2) int32).  The outputs are views of one buffer; integers and
+    maxima are exact, and the sums reduce per-block partials in a fixed
+    order, so they are the same bit for bit from call to call."""
+    if votes.dim() != 2 or pairs.dim() != 2 or pairs.shape[-1] != 2:
+        raise ValueError(f"votes (C, n) and pairs (P, 2) expected, got "
+                         f"{tuple(votes.shape)} / {tuple(pairs.shape)}")
+    S, n = votes.shape
+    P = pairs.shape[0]
+    K = n_values
+    _require_cuda(votes)
+    _check_sizes(n, K)
+    dev = votes.device
+    for t, name, dtype, shape in (
+            (votes, "votes", torch.int32, (S, n)),
+            (arrive, "arrive", torch.float32, (S, n)),
+            (classic, "classic", torch.float32, (S, n)),
+            (valid, "valid", torch.bool, (S,)),
+            (pairs, "pairs", torch.int32, (P, 2))):
+        _check(t, name, dtype, shape, dev)
+    ref.check_stream(S, n, k_sat)
+    ks = tuple(int(k) for k in k_sat)
+    if bins < 1:
+        raise ValueError(f"race_card_hist takes bins >= 1, got {bins}")
+    k1, kr, k2f = ks
+    # the pairs are checked on the host once per tensor, version and depths
+    # (a chunk loop passes the same tensor every chunk), not at every call
+    mark = (pairs._version, k1, kr)
+    if getattr(pairs, "_race_card_checked", None) != mark:
+        ref.check_pairs(pairs, k1, kr)
+        pairs._race_card_checked = mark
+    V, Q = k2f + 1, P + k2f
+    cells = V * Q
+    lib = _load()
+    G, q32, threads, smem, blocks, region, tile = _card_plan(lib, dev, n,
+                                                             P, ks)
+    nbx = max(1, min(-(-S // tile), blocks))
+    scratch = None
+    if region:  # the blocks work in device memory: at most 1 GiB of it
+        nbx = max(1, min(nbx, MAX_SCRATCH_BYTES // region))
+        scratch = torch.empty(nbx * region, dtype=torch.uint8, device=dev)
+    gb = math.isqrt(nbx - 1) + 1                # blocks a reduction group
+    ngrp = -(-nbx // gb)
+    # one buffer: FH, RH, the slot counts and the tickets (zeroed by the C
+    # entry point); then Fsum, Fmax, Rsum, Rmax and the per-block and
+    # per-group partials (a sum and a max a cell); each region starts on 16
+    # bytes.
+    sizes = [k2f * V * bins, P * V * (bins + 1), V, ngrp + 1, k2f * V,
+             k2f * V, P * V, P * V, 2 * nbx * cells, 2 * ngrp * cells]
+    at = [0]
+    for n_words in sizes:
+        at.append(at[-1] + -(-n_words // 4) * 4)
+    buf = torch.empty(at[-1], dtype=torch.int32, device=dev)
+
+    def region_of(i, *shape, dtype=torch.int32):
+        return buf[at[i]:at[i] + sizes[i]].view(dtype).view(*shape)
+
+    p0 = buf.data_ptr()
+    with torch.cuda.device(dev):
+        err = lib.qt_race_card_hist(
+            votes.data_ptr(), arrive.data_ptr(), classic.data_ptr(),
+            valid.data_ptr(), pairs.data_ptr(), S, n, K, P, k1, kr, k2f,
+            _log_gamma(precision), bins, float(undecided_ms), G, q32,
+            threads, smem, nbx, gb,
+            None if scratch is None else scratch.data_ptr(), region,
+            4 * at[4], *(p0 + 4 * o for o in at[:len(sizes)]), _stream(dev))
+    _raise_on(err, "race_card_hist")
+    LAUNCHES["race_card_hist"] += 1
+    f32 = torch.float32
+    return (region_of(0, k2f, V, bins), region_of(4, k2f, V, dtype=f32),
+            region_of(5, k2f, V, dtype=f32), region_of(2, V),
+            region_of(1, P, V, bins + 1), region_of(6, P, V, dtype=f32),
+            region_of(7, P, V, dtype=f32))

@@ -62,3 +62,14 @@ def stream_tally_decide_hist(votes, val_arr, arrive, classic, w1, t1, w2c,
     return fn(votes, val_arr, arrive, classic, w1, t1, w2c, t2c, w2f, t2f,
               valid, n_values=n_values, k_sat=tuple(int(k) for k in k_sat),
               precision=precision, bins=bins, undecided_ms=undecided_ms)
+
+
+def race_card_hist(votes, arrive, classic, valid, pairs, *, n_values: int,
+                   k_sat: tuple, precision: float, bins: int,
+                   undecided_ms: float):
+    """The cardinality race chunk's tally, decide and fcap-slot histograms,
+    sums and maxima (``ref.race_card_hist``)."""
+    fn = kernel.race_card_hist if _on_card(votes) else ref.race_card_hist
+    return fn(votes, arrive, classic, valid, pairs, n_values=n_values,
+              k_sat=tuple(int(k) for k in k_sat), precision=precision,
+              bins=bins, undecided_ms=undecided_ms)

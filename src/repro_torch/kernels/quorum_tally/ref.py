@@ -9,9 +9,12 @@ the card's main path calls them.
 Conventions shared with the JAX oracles: ties go to the lowest index (a
 stable sort in place of ``lax.top_k``, first hit for ``argmax``), outputs
 are int32, and float sums are plain f32 adds (elementwise products and
-reductions, never a matrix product that TF32 could round).
+reductions), except ``race_card_hist``'s per-slot sums, one-hot products
+as the JAX package takes them, which need TF32 off (torch's default).
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -93,6 +96,90 @@ def check_stream(S: int, n: int, k_sat: tuple) -> None:
                          f"stream smaller chunks")
     if len(k_sat) != 3 or not all(1 <= int(k) <= n for k in k_sat):
         raise ValueError(f"k_sat {k_sat} out of range for n={n}")
+
+
+def check_pairs(pairs: torch.Tensor, k1: int, k_rec: int) -> None:
+    """What race_card_hist refuses, with ``ValueError``: a recovery pair
+    (q1, q_rec) outside [1, k1] x [1, k_rec]."""
+    if pairs.numel():
+        lo, hi = (x.tolist() for x in pairs.aminmax(dim=0))
+        if min(lo) < 1 or hi[0] > k1 or hi[1] > k_rec:
+            raise ValueError(f"recovery pairs span {lo}..{hi}, outside "
+                             f"[1, {k1}] x [1, {k_rec}]")
+
+
+def race_card_hist(votes: torch.Tensor, arrive: torch.Tensor,
+                   classic: torch.Tensor, valid: torch.Tensor,
+                   pairs: torch.Tensor, *, n_values: int, k_sat: tuple,
+                   precision: float, bins: int, undecided_ms: float):
+    """Plain version of the cardinality race chunk's fused kernel: tally,
+    first-max decide, the order statistics and the chunk's fcap-slot
+    histograms, sums and maxima over the valid trials.
+
+    votes (C, n) int32 (< 0 = no vote); arrive / classic (C, n) f32 raw
+    draws; valid (C,) bool; pairs (P, 2) int32 recovery pairs (q1, q_rec),
+    each within ``k_sat`` = (k1, k_rec, k2f), k_rec the recovery-commit
+    depth.  The winner's 2b arrivals are ``arrive`` where the trial voted
+    the winner, else BIG = 2 * ``undecided_ms``.  A trial's slot is its fast
+    capacity ``fcap = min(max count, #winner arrivals < undecided_ms among
+    its k2f first)``, one of V = k2f + 1.
+
+    Returns ``(FH, Fsum, Fmax, cnt, RH, Rsum, Rmax)``: FH (k2f, V, bins)
+    int32 counts of the j-th winner arrival's bucket per slot, Fsum / Fmax
+    (k2f, V) f32 their sum and max (-inf where empty), all three only for
+    j < v (the cells the epilogue reads; zero and -inf elsewhere); cnt (V,)
+    int32 trials per slot; RH (P, V, bins + 1) int32 counts of each pair's
+    recovery latency ``t_rec = sorted_arrive[q1-1] + sorted_classic[q_rec-1]``
+    per slot and bucket, bucket ``bins`` when ``t_rec >= undecided_ms``; Rsum
+    / Rmax (P, V) f32 the decided ones' sum and max."""
+    from repro_torch.montecarlo.streaming import _count, bucket_index
+    check_stream(*votes.shape, k_sat)
+    k1, k_rec, k2f = (int(k) for k in k_sat)
+    check_pairs(pairs, k1, k_rec)
+    dev = votes.device
+    _, winner, max_cnt, _ = tally_decide(votes, n_values, 0)
+    win_row = torch.where(votes == winner[:, None], arrive,
+                          2.0 * undecided_ms)
+    win = torch.sort(win_row, dim=-1, stable=True)[0][:, :k2f]
+    sa = torch.sort(arrive, dim=-1, stable=True)[0][:, :k1]
+    sc = torch.sort(classic, dim=-1, stable=True)[0][:, :k_rec]
+    C = win.shape[0]
+    P = pairs.shape[0]
+    V = k2f + 1                                          # fcap slots 0..k2f
+    nfin = (win < undecided_ms).sum(dim=-1)
+    fcap = torch.minimum(max_cnt.long(), nfin)
+    vkey = torch.where(valid, fcap, V)                   # V = padding slot
+    oh = (vkey[:, None] == torch.arange(V, device=dev)[None, :]).to(
+        torch.float32)                                   # (C, V)
+    below = (torch.arange(k2f, device=dev)[:, None]
+             < torch.arange(V, device=dev)[None, :])     # (k2f, V): j < v
+
+    # fast side: the winner's j-th arrival, per slot.
+    bwin = bucket_index(win, precision).long()
+    fkey = (torch.arange(k2f, device=dev)[None, :] * (V + 1)
+            + vkey[:, None]) * bins + bwin
+    FH = _count(fkey, k2f * (V + 1) * bins).reshape(k2f, V + 1, bins)[:, :V]
+    FH = torch.where(below[:, :, None], FH, 0)
+    Fsum = torch.where(below, win.T @ oh, 0.0)
+    Fmax = torch.full((V + 1, k2f), -math.inf, device=dev).scatter_reduce_(
+        0, vkey[:, None].expand(C, k2f), win, "amax")[:V].T
+    Fmax = torch.where(below, Fmax, -math.inf)
+    cnt = _count(vkey, V + 1)[:V]
+
+    # recovery side: each (q1, q_rec) pair's latency, per slot.
+    t_rec = (sa[:, pairs[:, 0].long() - 1]
+             + sc[:, pairs[:, 1].long() - 1])            # (C, P)
+    dec = t_rec < undecided_ms
+    brec = torch.where(dec, bucket_index(t_rec, precision).long(), bins)
+    rkey = (torch.arange(P, device=dev)[None, :] * (V + 1)
+            + vkey[:, None]) * (bins + 1) + brec
+    RH = _count(rkey, P * (V + 1) * (bins + 1)).reshape(
+        P, V + 1, bins + 1)[:, :V]
+    Rsum = torch.where(dec, t_rec, 0.0).T @ oh
+    Rmax = torch.full((V + 1, P), -math.inf, device=dev).scatter_reduce_(
+        0, vkey[:, None].expand(C, P), torch.where(dec, t_rec, -math.inf),
+        "amax")[:V].T
+    return FH, Fsum, Fmax, cnt, RH, Rsum, Rmax
 
 
 def stream_decide(votes: torch.Tensor, val_arr: torch.Tensor,

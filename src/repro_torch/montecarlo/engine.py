@@ -197,10 +197,9 @@ def _draw_race(gen: torch.Generator, offsets: torch.Tensor, delay, *, n: int,
     """Raw race draws: vote structure and unsorted arrivals.
 
     votes (S, n) int32 (-1 = no vote), arrive (S, n) phase-1 2b arrivals at
-    the learner, val_arr (S, K, n) per-value 2b arrivals (BIG where the
-    acceptor voted otherwise), classic (S, n) recovery-commit leg.  Both
-    recovery legs are always drawn, so coordinated draws are identical
-    across rules."""
+    the learner, classic (S, n) recovery-commit leg.  Both recovery legs are
+    always drawn, so coordinated draws are identical across rules.  The
+    per-value arrivals follow from votes and arrive (``_val_arr``)."""
     K = k_proposers
     d_prop = delay.sample_hops(gen, (samples, n, K), lat_mod.PROPOSAL)
     arrival = offsets.to(d_prop.dtype).expand(K) + d_prop
@@ -216,16 +215,20 @@ def _draw_race(gen: torch.Generator, offsets: torch.Tensor, delay, *, n: int,
     arrive = torch.where(voted, vote_time + d_ret, big)
     arrive = torch.where(arrive < UNDECIDED_MS, arrive, big)
 
-    vals = torch.arange(K, device=votes.device, dtype=torch.int32)
-    val_arr = torch.where(votes[:, None, :] == vals[None, :, None],
-                          arrive[:, None, :], BIG)
-
     d_2a = delay.sample_hops(gen, (samples, n), lat_mod.FROM_COORDINATOR)
     d_2b = delay.sample_hops(gen, (samples, n), lat_mod.TO_COORDINATOR)
     classic = d_2b if recovery == "uncoordinated" else d_2a + d_2b
     classic = torch.where(classic < UNDECIDED_MS, classic, big)
-    return {"votes": votes, "arrive": arrive, "val_arr": val_arr,
-            "classic": classic}
+    return {"votes": votes, "arrive": arrive, "classic": classic}
+
+
+def _val_arr(raw: Dict[str, torch.Tensor], k_proposers: int) -> torch.Tensor:
+    """(S, K, n) per-value 2b arrivals of race draws: ``arrive`` where the
+    acceptor voted the value, else BIG."""
+    votes = raw["votes"]
+    vals = torch.arange(k_proposers, device=votes.device, dtype=torch.int32)
+    return torch.where(votes[:, None, :] == vals[None, :, None],
+                       raw["arrive"][:, None, :], BIG)
 
 
 def _fast_path_draws(gen: torch.Generator, delay, n: int,
@@ -265,7 +268,7 @@ def _sample_race(gen: torch.Generator, offsets: torch.Tensor, delay, *,
     if recovery == "uncoordinated":
         k2c = k2f
     out = {"votes": raw["votes"]}
-    sv, pv = _topk_ascending(raw["val_arr"], k2f)
+    sv, pv = _topk_ascending(_val_arr(raw, k_proposers), k2f)
     sa, pa = _topk_ascending(raw["arrive"], k1)
     sc, pc = _topk_ascending(raw["classic"], k2c)
     out.update(sorted_val_arrive=sv, sorted_arrive=sa, sorted_classic=sc)

@@ -15,7 +15,7 @@ itself and reduces its output.
 Per chunk, the loop picks one lowering from what it can observe:
 
   cardinality table ("q") + k_max   sort-free shared-column reductions:
-                                    ``_race_card_update`` (tally_decide
+                                    ``_race_card_update`` (race_card_hist
                                     kernel) / ``_cols_card_update``
   masked table, race, k_max         ``_race_fused_update``: the raw chunk
                                     goes through the fused
@@ -284,15 +284,15 @@ def _suffix(x: torch.Tensor, dim: int) -> torch.Tensor:
 
 
 def _card_layout(table, recovery: str = "coordinated") -> tuple:
-    """Distinct (q1, q_rec) recovery pairs (P, 2) of a cardinality table and
-    each system's pair id (M,); q_rec is q2c under coordinated recovery,
-    q2f under uncoordinated.  Recovery latency depends on a system only
-    through this pair."""
+    """Distinct (q1, q_rec) recovery pairs (P, 2) int32 of a cardinality
+    table and each system's pair id (M,); q_rec is q2c under coordinated
+    recovery, q2f under uncoordinated.  Recovery latency depends on a system
+    only through this pair."""
     q = table["q"].detach().cpu().numpy()
     cols = [0, 1] if recovery == "coordinated" else [0, 2]
     pairs, inv = np.unique(q[:, cols], axis=0, return_inverse=True)
     dev = table["q"].device
-    return (torch.as_tensor(pairs, dtype=torch.long).to(dev),
+    return (torch.as_tensor(pairs, dtype=torch.int32).to(dev),
             torch.as_tensor(inv.reshape(-1), dtype=torch.long).to(dev))
 
 
@@ -338,59 +338,37 @@ def _race_card_update(state: StreamSummary, gen, table, layout, offsets,
     column histograms keyed by fcap slot (suffix sums over slots, gathered
     at (q2f-1, q2f)) and recovery-pair histograms keyed by fcap slot
     (prefix sums, gathered at (pair, q2f-1)), plus matching sums and
-    maxima.  The vote counts come from the tally_decide kernel."""
-    k2f = k_sat[2]
-    draws = engine._sample_race(gen, offsets, delay, n=n,
-                                k_proposers=k_proposers, samples=chunk,
-                                card=True, k_sat=k_sat, recovery=recovery)
+    maxima.  The raw draws go through the race_card_hist kernel, which
+    tallies, decides and reduces the chunk into those per-slot tensors;
+    the gathers here are the same on the CPU and the card."""
+    raw = engine._draw_race(gen, offsets, delay, n=n,
+                            k_proposers=k_proposers, samples=chunk,
+                            recovery=recovery)
+    if recovery == "uncoordinated":
+        k_sat = (k_sat[0], k_sat[2], k_sat[2])
     pairs, pair_of_m = layout
-    P_ = pairs.shape[0]
     q2f = table["q"][:, 2].long()
     B = state.bins
-    prec = state.precision
-    dev = valid.device
-    win = engine._win_sorted(draws)                      # (C, k2f)
-    C = win.shape[0]
-    V = k2f + 1                                          # fcap slots 0..k2f
-
-    nfin = (win < UNDECIDED_MS).sum(dim=-1)
-    fcap = torch.minimum(draws["max_cnt"].long(), nfin)
-    vkey = torch.where(valid, fcap, V)                   # V = padding slot
-    oh = (vkey[:, None] == torch.arange(V, device=dev)[None, :]).to(
-        torch.float32)                                   # (C, V)
+    FH, Fsum, Fmax, cnt, RH, Rsum, Rmax = qt_ops.race_card_hist(
+        raw["votes"], raw["arrive"], raw["classic"], valid, pairs,
+        n_values=k_proposers, k_sat=k_sat, precision=state.precision,
+        bins=B, undecided_ms=float(UNDECIDED_MS))
 
     # fast side: winner-2b prefix columns.
-    bwin = bucket_index(win, prec).long()
-    fkey = (torch.arange(k2f, device=dev)[None, :] * (V + 1)
-            + vkey[:, None]) * B + bwin
-    FH = _count(fkey, k2f * (V + 1) * B).reshape(k2f, V + 1, B)[:, :V]
     hist_fast = _suffix(FH, 1)[q2f - 1, q2f]             # (M, B)
-    sum_fast = _suffix(win.T @ oh, 1)[q2f - 1, q2f]      # (M,)
-    Fmax = torch.full((V + 1, k2f), -math.inf, device=dev).scatter_reduce_(
-        0, vkey[:, None].expand(C, k2f), win, "amax")[:V].T
+    sum_fast = _suffix(Fsum, 1)[q2f - 1, q2f]            # (M,)
     SFmax = torch.flip(torch.cummax(torch.flip(Fmax, (1,)), dim=1).values,
                        (1,))
     max_fast = SFmax[q2f - 1, q2f]
-    n_fast = _suffix(_count(vkey, V + 1)[:V], 0)[q2f]
+    n_fast = _suffix(cnt, 0)[q2f]
 
     # recovery side: (q1, q_rec) pair columns.
-    t_rec = (draws["sorted_arrive"][:, pairs[:, 0] - 1]
-             + draws["sorted_classic"][:, pairs[:, 1] - 1])   # (C, P)
-    dec = t_rec < UNDECIDED_MS
-    brec = torch.where(dec, bucket_index(t_rec, prec).long(), B)
-    rkey = (torch.arange(P_, device=dev)[None, :] * (V + 1)
-            + vkey[:, None]) * (B + 1) + brec
-    RH = _count(rkey, P_ * (V + 1) * (B + 1)).reshape(P_, V + 1, B + 1)
-    rec_rows = torch.cumsum(RH[:, :V], dim=1, dtype=torch.int32)[
+    rec_rows = torch.cumsum(RH, dim=1, dtype=torch.int32)[
         pair_of_m, q2f - 1]                              # (M, B + 1)
     hist_rec = rec_rows[:, :B]
     n_und = rec_rows[:, B]
     n_rec = hist_rec.sum(dim=-1, dtype=torch.int32)
-    t_dec = torch.where(dec, t_rec, 0.0)
-    sum_rec = torch.cumsum(t_dec.T @ oh, dim=1)[pair_of_m, q2f - 1]
-    Rmax = torch.full((V + 1, P_), -math.inf, device=dev).scatter_reduce_(
-        0, vkey[:, None].expand(C, P_),
-        torch.where(dec, t_rec, -math.inf), "amax")[:V].T    # (P, V)
+    sum_rec = torch.cumsum(Rsum, dim=1)[pair_of_m, q2f - 1]
     max_rec = torch.cummax(Rmax, dim=1).values[pair_of_m, q2f - 1]
 
     n_valid = valid.sum().to(torch.int32).expand(q2f.shape)
@@ -419,8 +397,8 @@ def _race_fused_update(state: StreamSummary, gen, table, offsets, delay,
     else:
         rec_w, rec_t = table["p2c_w"], table["p2c_t"]
     hist, stats = qt_ops.stream_tally_decide_hist(
-        raw["votes"], raw["val_arr"], raw["arrive"], raw["classic"],
-        table["p1_w"], table["p1_t"], rec_w, rec_t,
+        raw["votes"], engine._val_arr(raw, k_proposers), raw["arrive"],
+        raw["classic"], table["p1_w"], table["p1_t"], rec_w, rec_t,
         table["p2f_w"], table["p2f_t"], valid, n_values=k_proposers,
         k_sat=k_sat, precision=state.precision, bins=state.bins,
         undecided_ms=float(UNDECIDED_MS))

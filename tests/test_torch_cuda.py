@@ -39,6 +39,8 @@ from repro_torch.models import model as model_mod
 from repro_torch.models.ssm import ssd_chunked
 from repro_torch.montecarlo import streaming
 
+from chip_smoke import RACE_CARD_CASES, race_card_inputs
+
 BINS = streaming.sketch_bins(0.01)
 
 
@@ -271,7 +273,8 @@ def test_stream_kernel_one_launch_per_call(cuda):
     ops.reset_launches()
     ops.stream_tally_decide_hist(*args, **kw)
     assert ops.LAUNCHES == {"tally_votes": 0, "tally_decide": 0,
-                            "masked_tally": 0, "stream_tally_decide_hist": 1}
+                            "masked_tally": 0, "stream_tally_decide_hist": 1,
+                            "race_card_hist": 0}
 
 
 def test_ops_launch_on_cuda_and_count(cuda):
@@ -282,7 +285,8 @@ def test_ops_launch_on_cuda_and_count(cuda):
                      torch.ones(2, device=cuda), 2)
     ops.quorum_reached(votes, 2, 3)
     assert ops.LAUNCHES == {"tally_votes": 1, "tally_decide": 1,
-                            "masked_tally": 1, "stream_tally_decide_hist": 0}
+                            "masked_tally": 1, "stream_tally_decide_hist": 0,
+                            "race_card_hist": 0}
 
 
 @pytest.mark.parametrize("S,n,M,G,K,tier", [
@@ -312,6 +316,94 @@ def test_stream_kernel_refuses_what_the_reference_refuses(cuda):
     for ks in ((6, 6, 6), (0, 0, 0)):
         with pytest.raises(ValueError, match="k_sat"):
             kernel.stream_tally_decide_hist(*args, k_sat=ks, **kw)
+
+
+def assert_race_card_equal(got, want):
+    """Integers and maxima equal, sums within 1e-5 relative of each cell."""
+    for name, a, b in zip(("FH", "Fsum", "Fmax", "cnt", "RH", "Rsum",
+                           "Rmax"), got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        if name in ("Fsum", "Rsum"):
+            assert bool(((a - b).abs() <= 1e-5 * b.abs()).all()), name
+        else:
+            assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("case", RACE_CARD_CASES,
+                         ids=[c[0] for c in RACE_CARD_CASES])
+def test_race_card_kernel(cuda, case):
+    """The kernel against its plain version, and the same bits over two
+    calls: the sums reduce per-block partials in a fixed order."""
+    args, kw = race_card_inputs(case, cuda)
+    got = kernel.race_card_hist(*args, **kw)
+    assert_race_card_equal(got, ref.race_card_hist(*args, **kw))
+    assert int(got[3].sum()) == case[-1]
+    again = kernel.race_card_hist(*args, **kw)
+    for a, b in zip(got, again):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("case,tier", [(RACE_CARD_CASES[0], "shared"),
+                                       (RACE_CARD_CASES[4], "shared"),
+                                       (RACE_CARD_CASES[5], "device"),
+                                       (RACE_CARD_CASES[6], "device")],
+                         ids=["sweep", "n=33", "K=9 n=130", "n=300"])
+def test_race_card_kernel_plan_tiers(cuda, case, tier):
+    """Each tier of the plan, reached by a shape that needs it: a block's
+    tile, prefixes and cells in its shared memory (the sweep, rows ranked
+    in registers; n = 33, ranked a lane a thread), or in a region of device
+    memory where they do not fit there."""
+    args, kw = race_card_inputs(case, cuda)
+    plan = kernel._card_plan(kernel._load(), cuda, args[0].shape[1],
+                             args[4].shape[0], tuple(kw["k_sat"]))
+    assert (plan[5] > 0) == (tier == "device")
+    assert (plan[3] > 0) == (tier == "shared")
+
+
+def test_race_card_kernel_refuses_what_the_reference_refuses(cuda):
+    args, kw = race_card_inputs(RACE_CARD_CASES[3], cuda)
+    for ks in ((13, 7, 8), (0, 7, 8), (9, 7, 13)):
+        with pytest.raises(ValueError, match="k_sat"):
+            kernel.race_card_hist(*args, **dict(kw, k_sat=ks))
+        with pytest.raises(ValueError, match="k_sat"):
+            ref.race_card_hist(*args, **dict(kw, k_sat=ks))
+
+
+def test_race_card_kernel_refuses_pairs_out_of_range(cuda):
+    """As the reference does; a tensor changed in place is checked again."""
+    args, kw = race_card_inputs(RACE_CARD_CASES[3], cuda)
+    pairs = args[4].clone()
+    kernel.race_card_hist(*args[:4], pairs, **kw)
+    k1, k_rec = kw["k_sat"][:2]
+    for pair in ((0, 1), (1, 0), (k1 + 1, 1), (1, k_rec + 1)):
+        pairs[-1] = torch.tensor(pair, dtype=torch.int32, device=cuda)
+        for fn in (kernel.race_card_hist, ref.race_card_hist):
+            with pytest.raises(ValueError, match="recovery pairs"):
+                fn(*args[:4], pairs, **kw)
+
+
+def test_card_race_chunk_is_one_launch(cuda):
+    """A streamed cardinality race launches race_card_hist once a chunk
+    and no other quorum kernel, and no sort or scatter_reduce_."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.frontier import cardinality_family
+    from repro_torch.montecarlo import engine, rng
+    table = engine.build_mask_table([m.masks() for m in
+                                     cardinality_family(11)], device=cuda)
+    run = lambda: streaming.race_stream(rng.root(3), table, [0.0, 0.2],
+                                        n=11, k_proposers=2, trials=40000,
+                                        chunk=16384)
+    run()
+    ops.reset_launches()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    assert ops.LAUNCHES == {"tally_votes": 0, "tally_decide": 0,
+                            "masked_tally": 0, "stream_tally_decide_hist": 0,
+                            "race_card_hist": 3}
+    names = [e.key.lower() for e in prof.key_averages()]
+    assert not [k for k in names if "sort" in k or "scatter" in k
+                or "tally_decide" in k], names
 
 
 @pytest.mark.parametrize("S,n,V", [(64, 5, 9), (64, 129, 2)])

@@ -400,7 +400,8 @@ def test_ops_runs_plain_versions_on_cpu_without_launching():
                        ref.masked_tally(votes, w, th, 2))
     assert torch.equal(ops.tally_votes(votes, 2), ref.tally_votes(votes, 2))
     assert ops.LAUNCHES == {"tally_votes": 0, "tally_decide": 0,
-                            "masked_tally": 0, "stream_tally_decide_hist": 0}
+                            "masked_tally": 0, "stream_tally_decide_hist": 0,
+                            "race_card_hist": 0}
 
 
 def test_ops_rejects_other_devices():
@@ -410,7 +411,7 @@ def test_ops_rejects_other_devices():
 
 
 @pytest.mark.parametrize("call", ["tally_votes", "tally_decide",
-                                  "masked_tally", "stream"])
+                                  "masked_tally", "stream", "race_card"])
 def test_kernel_wrappers_refuse_cpu_tensors(call):
     """The CUDA wrappers never run a CPU tensor, and raise before building."""
     votes = torch.zeros((8, 5), dtype=torch.int32)
@@ -421,6 +422,12 @@ def test_kernel_wrappers_refuse_cpu_tensors(call):
             kernel.tally_decide(votes, 2, 3)
         elif call == "masked_tally":
             kernel.masked_tally(votes, torch.ones((1, 5)), torch.ones(1), 2)
+        elif call == "race_card":
+            kernel.race_card_hist(
+                votes, torch.zeros((8, 5)), torch.zeros((8, 5)),
+                torch.ones(8, dtype=torch.bool),
+                torch.ones((1, 2), dtype=torch.int32), n_values=2,
+                k_sat=(1, 1, 1), precision=0.01, bins=BINS, undecided_ms=UND)
         else:
             z = torch.zeros((1, 1, 5))
             kernel.stream_tally_decide_hist(
