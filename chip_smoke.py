@@ -14,7 +14,9 @@ Phases, one JSON line each:
               the bf16 instances of flash attention and the SSD scan
   3. kernels  each quorum-tally kernel against its plain PyTorch version on
               the card, at the main paths' shapes, the kernel tests' shapes
-              and shapes of any K and n: integer outputs equal, sums to
+              and shapes of any K and n (masked_tally's MASKED_CASES and
+              tally_votes' TALLY_VOTES_CASES among them, and both at a
+              large shape, timed there too): integer outputs equal, sums to
               1e-5 relative, maxima equal, race_card_hist's and the stream
               kernel's sums the same bits over two calls; median
               CUDA-event times of one call of kernel and plain version, the
@@ -195,6 +197,42 @@ RACE_CARD_CASES = [
     ("K=9 n=130", 500, 130, 9, (130, 100, 40), "uncoordinated", 433),
     ("n=300", 200, 300, 2, (300, 250, 60), "coordinated", 171),
 ]
+
+
+# masked_tally at the edges of its design: a table of unit rows, rows of
+# small integer weights (bit planes) and rows of quarter weights (every sum
+# exact in f32, in any order), rows with t <= 0 (an unvoted value sums to 0
+# and answers there), negative weights, K = 8 (the largest instance with
+# every mask in registers), K = 9 and K > n (voted values 8 a pass; a
+# trial of exactly 8 distinct values takes a second, empty pass), n each
+# side of a 32-lane mask word and past 128, n = 4000 (past a block's shared
+# memory: the device-memory tier), and G = 65535 * 32 + 1 rows (past the
+# old 2-D grid's cap; many row chunks, about 34 MB of weights): (name,
+# trials, n, rows G, K, the rows' kind for masked_inputs).
+MASKED_CASES = [
+    ("unit and quarter rows", 2000, 12, 40, 2, "mixed"),
+    ("t <= 0", 1000, 12, 24, 3, "nonpositive"),
+    ("negative weights", 1000, 11, 24, 3, "negative"),
+    ("K > n", 500, 12, 16, 70, "mixed"),
+    ("K = 8", 800, 12, 16, 8, "negative"),
+    ("K = 9", 800, 12, 16, 9, "nonpositive"),
+    ("n=31", 600, 31, 20, 3, "mixed"),
+    ("n=32", 600, 32, 20, 3, "nonpositive"),
+    ("n=33", 600, 33, 20, 3, "mixed"),
+    ("n=129", 300, 129, 20, 4, "negative"),
+    ("n=4000", 70, 4000, 300, 3, "mixed"),
+    ("G=65535*32+1", 33, 4, 65535 * 32 + 1, 2, "unit"),
+]
+# tally_votes at every K of its K-specialised instances and past them, at n
+# each side of a 32-lane word, with trial counts that leave a warp ragged:
+# (S, n, K).
+TALLY_VOTES_CASES = ([(4097, 11, K) for K in range(1, 10)]
+                     + [(3001, n, K) for n in (31, 32, 33) for K in (2, 8)]
+                     + [(2049, 300, 5), (1500, 12, 70)])
+# The two kernels at a large shape beside their main path's: masked_tally
+# on the mixed n=12 table's 39 fast rows at 65,536 trials, tally_votes at
+# 2^20 trials of 11 votes, K = 2.
+MASKED_LARGE_S, TALLY_VOTES_LARGE_S = 65_536, 2 ** 20
 
 
 def only(**launches) -> dict:
@@ -389,6 +427,38 @@ def race_card_inputs(case, dev):
             dict(n_values=K, k_sat=ks, precision=0.01,
                  bins=streaming.sketch_bins(0.01),
                  undecided_ms=float(engine.UNDECIDED_MS)))
+
+
+def masked_inputs(case, dev):
+    """(votes, weights, thresholds, K) on ``dev`` for a MASKED_CASES entry,
+    drawn with numpy from a seed.  Votes lie in [-1, K).  ``unit`` rows:
+    0/1 weights, integral thresholds from 0 on, the last row a padding row
+    (zero weights, threshold 2^30); the others: about a third of the rows
+    unit, a quarter integral in [0, 4], a twentieth integral in [0, 300)
+    (past the kernel's 8 bit planes), the rest quarter weights in [0, 2]
+    (``negative``: in [-2, 2]), thresholds in quarters from -2 on;
+    ``nonpositive`` also sets every third threshold to -0.0, 0.0, -0.25 or
+    -3."""
+    _, S, n, G, K, rows = case
+    r = np.random.default_rng(S * 31 + n * 7 + K)
+    votes = r.integers(-1, K, (S, n)).astype(np.int32)
+    if rows == "unit":
+        w = r.integers(0, 2, (G, n)).astype(np.float32)
+        t = r.integers(0, n + 2, G).astype(np.float32)
+        w[-1], t[-1] = 0.0, 2.0 ** 30
+    else:
+        lo = -8 if rows == "negative" else 0
+        w = (r.integers(lo, 9, (G, n)) / 4.0).astype(np.float32)
+        u = r.random(G)
+        for rows_of, hi in ((u < 0.35, 2), ((u >= 0.35) & (u < 0.6), 5),
+                            (u >= 0.95, 300)):
+            w[rows_of] = r.integers(0, hi, (int(rows_of.sum()), n))
+        t = (r.integers(-8, 4 * n // K + 8, G) / 4.0).astype(np.float32)
+        if rows == "nonpositive":
+            t[::3] = r.choice(np.array([-0.0, 0.0, -0.25, -3.0], np.float32),
+                              len(t[::3]))
+    f = lambda x: torch.as_tensor(x).to(dev)
+    return f(votes), f(w), f(t), K
 
 
 def ssd_cost(B, S, nh, hd, ds, chunk, x_bytes, bc_bytes, init: bool):
@@ -1122,6 +1192,17 @@ def main() -> None:
         v = torch.as_tensor(r.integers(-1, V, (S, n)).astype(np.int32)).to(dev)
         same(kernel.tally_votes(v, V), ref.tally_votes(v, V),
              f"tally_votes {(S, n, V)}")
+    for S, n, V in TALLY_VOTES_CASES:
+        r = np.random.default_rng(S * 3 + n + V)
+        v = torch.as_tensor(r.integers(-1, V, (S, n)).astype(np.int32)).to(dev)
+        same(kernel.tally_votes(v, V), ref.tally_votes(v, V),
+             f"tally_votes {(S, n, V)}")
+    # the large shape: 2^20 trials of the n=11 race's draws
+    v11_large = engine._draw_race(
+        rng.generator(rng.root(14), dev), offsets, streaming.default_delay(),
+        n=11, k_proposers=2, samples=TALLY_VOTES_LARGE_S)["votes"]
+    same(kernel.tally_votes(v11_large, 2), ref.tally_votes(v11_large, 2),
+         f"tally_votes {tuple(v11_large.shape)}")
     for S, n, q, V in ((100, 11, 7, 2), (2049, 11, 9, 3), (500, 7, 4, 4)):
         g = torch.Generator(device=dev).manual_seed(S + V)
         v = torch.randint(-1, V, (S, n), generator=g, device=dev,
@@ -1166,6 +1247,19 @@ def main() -> None:
                              ).astype(np.float32)).to(dev)
         same(kernel.masked_tally(v, w, t, V), ref.masked_tally(v, w, t, V),
              f"masked_tally {(S, n, V, 40)}")
+
+    for case in MASKED_CASES:
+        v, w, t, V = masked_inputs(case, dev)
+        same(kernel.masked_tally(v, w, t, V), ref.masked_tally(v, w, t, V),
+             f"masked_tally {case[0]} {tuple(v.shape)} G={w.shape[0]} K={V}")
+    # the large shape: the mixed table's fast rows at 65,536 trials
+    v12_large = engine._draw_race(
+        rng.generator(rng.root(15), dev), offsets, streaming.default_delay(),
+        n=12, k_proposers=2, samples=MASKED_LARGE_S)["votes"]
+    same(kernel.masked_tally(v12_large, w_flat, t_flat, 2),
+         ref.masked_tally(v12_large, w_flat, t_flat, 2),
+         f"masked_tally {tuple(v12_large.shape)} x {M12 * G2f} rows")
+    torch.cuda.empty_cache()
 
     k_sat12 = engine.saturation_depths(table12)
     bins = streaming.sketch_bins(0.01)
@@ -1345,6 +1439,27 @@ def main() -> None:
                         bound_ms=max(b_ms, o_ms),
                         bound_by="bytes" if b_ms >= o_ms else "operations",
                         bytes=bytes_[k], operations=ops_[k])
+    # both redesigned kernels at a large shape: device time, event time and
+    # the bound (votes read once, outputs written once)
+    SL, ML = v11_large.shape[0], v12_large.shape[0]
+    large = {
+        "tally_votes": (lambda: kernel.tally_votes(v11_large, 2),
+                        SL * 11 * 4 + SL * 2 * 4, SL * 11 * 2,
+                        f"{SL}x11, K=2"),
+        "masked_tally": (
+            lambda: kernel.masked_tally(v12_large, w_flat, t_flat, 2),
+            ML * 12 * 4 + M12 * G2f * 13 * 4 + ML * M12 * G2f * 4,
+            ML * M12 * G2f * 12 * 2, f"{ML}x12 x {M12 * G2f} rows"),
+    }
+    for k, (kf, nbytes, nops, shape) in large.items():
+        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        o_ms = nops / FP32_OPS_PER_S * 1e3
+        stats[k]["large"] = dict(
+            shape=shape, ms=cuda_ms(kf),
+            device_us=kernel_device_us(kf, symbol[k], reps=20)[0],
+            bound_ms=max(b_ms, o_ms),
+            bound_by="bytes" if b_ms >= o_ms else "operations",
+            bytes=nbytes, operations=nops)
     # the least device time of a launch on this card, for scale: torch's
     # fill of a tensor of the sweep chunk's 16384 ints (64 KB written)
     fill = torch.empty(S11, dtype=torch.int32, device=dev)

@@ -8,21 +8,30 @@
 // point launches on the stream it is given, allocates nothing and returns
 // cudaGetLastError().
 //
-// Registers a thread (ptxas -v, sm_90a, CUDA 12.8): tally_votes_kernel 26,
-// tally_decide_kernel 28, masked_tally_kernel 58, no spills; every
-// stream_kernel instance 64 (its launch bounds), none spilling where the
-// masks are resident (RES), 126-166 bytes stored to the stack where they
-// are read from device memory; race_card_kernel<false> 64, no spills.
+// Registers a thread (ptxas -v, sm_90a, CUDA 12.8): tally_votes_kernel_k
+// 29-34, tally_votes_kernel 24, tally_decide_kernel 28, no spills;
+// masked_tally_kernel 32-80 (<false, 2>, the main path's, 40), 12-36 bytes
+// stored to the stack in <false, 1, 2, 4, 7>; every stream_kernel instance
+// 64 (its launch bounds), none spilling where the masks are resident
+// (RES), 126-166 bytes stored to the stack where they are read from device
+// memory; race_card_kernel<false> 64, no spills.
 //
 // tally_votes              replaces src/repro/kernels/quorum_tally/kernel.py
 //                          :tally_votes (_tally_kernel).
 //   Bound: device memory.  It reads S*n*4 bytes of votes and writes S*K*4
-//   bytes of counts; the work is n*K integer compares a trial.
-//   Design: tally_decide's counting (count_row below) without the decide
-//   outputs: one thread per trial, 8 counters in registers, one pass over
-//   the row for each 8 values, so any K and any n.
-//   Votes outside [0, K), such as the -1 of "no vote" (the TPU kernel's
-//   padding), are counted for no value, here and in tally_decide.
+//   bytes of counts; the work is n*K integer compares a trial.  At
+//   quorum_reached's 16384 x 11, K = 2 that is 0.85 MB, 0.25 us: the
+//   launch's fixed cost and the dependent chain of a thread are what is
+//   left to cut.
+//   Design: a thread a trial in blocks of 64 threads (S = 16384 gives 256
+//   blocks, two an SM), reading its row straight from device memory (a
+//   warp's 32 rows share cache lines, so after the first miss its loads hit
+//   L1).  For K <= 8 an instance a K keeps K counters in registers, so a
+//   vote costs K compares, and the warp's 32 x K counts pass through shared
+//   memory to leave as one contiguous span.  Past 8 values, one pass over
+//   the row per 8.  Votes outside [0, K), such as the -1 of "no vote" (the
+//   TPU kernel's padding), are counted for no value, here and in
+//   tally_decide.
 //
 // tally_decide             replaces src/repro/kernels/quorum_tally/kernel.py
 //                          :tally_decide (_tally_decide_kernel).
@@ -43,20 +52,28 @@
 //
 // masked_tally             replaces kernel.py:masked_tally
 //                          (_masked_tally_kernel).
-//   Bound: device memory at the main path's shapes (S*n*4 in, S*G*4 out);
-//   the adds, S*G*n of them, are far below the f32 rate.
-//   Design: a block owns a tile of 32 trials x 32 quorum rows; the tile's
-//   votes and weights are staged in shared memory with asynchronous copies,
-//   128 lanes at a time (rows 129 words apart, so a warp's 32 rows fall in
-//   distinct banks), then each thread sums its (trial, row) pairs.  Each
-//   value's weight is summed with plain f32 adds in acceptor order (no
-//   tensor cores, no TF32), 8 values a pass, and the lowest value id that
-//   reaches the threshold wins, as the TPU kernel's descending value loop
-//   does.  Where n <= 128 and K <= 8 (every shape of the main path) the
-//   rows are staged once and each pair takes one pass; else each of a
-//   thread's four pairs walks the passes, and within a pass the chunks of
-//   128 lanes, and a pass decides only the pairs no lower pass decided.
-//   Grid.y walks the rows, so any G, any n and any K work.
+//   Bound: device memory (S*n*4 bytes in, S*G*4 out; 1.7 MB, 0.50 us at
+//   the masked race's 8192 x 12 against 39 rows).  The TPU kernel's
+//   S*G*n*K multiply-adds are not needed: a trial votes for at most
+//   min(n, K) values, and a row of small integer weights is decided by
+//   population counts.  In practice the kernel is bound by the latency of
+//   its one round trip to device memory at launch, the per-block staging
+//   of the rows, and the instructions of the (trial, row) pairs.
+//   Design (masked_tally_kernel below): a block takes tiles of 32 trials,
+//   1-D over tiles and chunks of rows, so any S and G.  The rows are
+//   staged and classified once a block: each row's support mask, and for
+//   a row of integer weights in [0, 256) its bit planes and its threshold
+//   as a count (a unit row is one plane); any other row adds its voters'
+//   weights in lane order with __fadd_rn.  A warp takes 4 trials, a lane
+//   an acceptor: for n <= 32 and K <= 8 (every main-path shape) one ballot
+//   a value gives each voter mask, and the warp's (trial, row) pairs go a
+//   lane each, rows fastest, so the outputs leave as contiguous words; any
+//   other n or K takes the voted values 8 a pass in ascending order (a
+//   warp minimum, then a ballot), so the work follows the values voted,
+//   not K, and where t <= 0 the lowest unvoted id (sum 0) answers, as in
+//   the reference.  Where a block's working set does not fit in shared
+//   memory (n past about 2200) it works in device memory.  Weights must
+//   be finite (the reference's 0 * inf is NaN for every value).
 //
 // stream_tally_decide_hist replaces kernel.py:stream_tally_decide_hist
 //                          (_stream_kernel, _select_sat).
@@ -127,6 +144,7 @@
 //   call is one fill (FH, RH, slot counts, tickets) and one launch.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -134,7 +152,17 @@
 
 #include "sm90_mma.cuh"
 
+#define FULL 0xffffffffu
 #define PASS_K 8            // values counted in one pass over a row
+
+typedef unsigned long long u64;
+
+// Take the next 16-byte aligned region of `bytes` from offset o.
+__host__ __device__ inline size_t st_take(size_t& o, size_t bytes) {
+  size_t at = o;
+  o += (bytes + 15) & ~(size_t)15;
+  return at;
+}
 
 // ---------------------------------------------------------------------------
 // tally_votes and tally_decide
@@ -153,9 +181,13 @@ __device__ __forceinline__ void count_row(const int* __restrict__ row, int n,
   }
 }
 
-__global__ void tally_votes_kernel(const int* __restrict__ votes, int S,
-                                   int n, int K, int* __restrict__ counts) {
-  int s = blockIdx.x * blockDim.x + threadIdx.x;
+#define TV_THREADS 64       // trials a block: S = 16384 gives 256 blocks
+
+// K > PASS_K: a thread a trial, one pass over its row per PASS_K values.
+__global__ void __launch_bounds__(TV_THREADS) tally_votes_kernel(
+    const int* __restrict__ votes, int S, int n, int K,
+    int* __restrict__ counts) {
+  int s = blockIdx.x * TV_THREADS + threadIdx.x;
   if (s >= S) return;
   int c[PASS_K];
   for (int base = 0; base < K; base += PASS_K) {
@@ -165,6 +197,44 @@ __global__ void tally_votes_kernel(const int* __restrict__ votes, int S,
       if (base + v < K) counts[(size_t)s * K + base + v] = c[v];
     }
   }
+}
+
+// K = KC <= PASS_K: a thread a trial, KC counters in registers, KC compares
+// a vote.  The thread reads its row straight from device memory (a warp's
+// 32 rows share cache lines, so after the first miss its loads hit L1);
+// the warp's 32 x KC counts are then passed through shared memory and
+// leave as one contiguous span.
+template <int KC>
+__global__ void __launch_bounds__(TV_THREADS) tally_votes_kernel_k(
+    const int* __restrict__ votes, int S, int n, int* __restrict__ counts) {
+  __shared__ int stage[TV_THREADS * KC];
+  const int lane = threadIdx.x & 31, wb = threadIdx.x - lane;
+  const long long w0 = (long long)blockIdx.x * TV_THREADS + wb;
+  const long long s = w0 + lane;
+  int c[KC];
+#pragma unroll
+  for (int v = 0; v < KC; ++v) c[v] = 0;
+  if (s < S) {
+    const int* row = votes + (size_t)s * n;
+    for (int a = 0; a < n; ++a) {
+      const int x = __ldg(row + a);
+#pragma unroll
+      for (int v = 0; v < KC; ++v) c[v] += x == v;
+    }
+  }
+  int* st = stage + wb * KC;
+#pragma unroll
+  for (int v = 0; v < KC; ++v) st[lane * KC + v] = c[v];
+  __syncwarp();
+  const long long live = min(32LL, (long long)S - w0) * KC;
+  for (int i = lane; i < live; i += 32) counts[w0 * KC + i] = st[i];
+}
+
+template <int KC>
+void tv_launch(int blocks, cudaStream_t st, const int* votes, int S, int n,
+               int* counts) {
+  tally_votes_kernel_k<KC><<<blocks, TV_THREADS, 0, st>>>(votes, S, n,
+                                                          counts);
 }
 
 // Fold one pass's counts c (values base .. base + PASS_K - 1, those below K
@@ -219,110 +289,416 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
                "l"(src));
 }
 
-#define MT_TS 32            // trials a block
-#define MT_GT 32            // quorum rows a block
-#define MT_LC 128           // lanes staged at a time
-#define MT_LD (MT_LC + 1)   // staged row stride: an odd number of words
+#define MT_TS 32            // trials a tile
 #define MT_THREADS 256
-#define MT_PAIRS (MT_TS * MT_GT / MT_THREADS)  // (trial, row) pairs a thread
+#define MT_WARPS (MT_THREADS / 32)
+#define MT_TPW (MT_TS / MT_WARPS)   // trials a warp takes of a tile
+#define MT_KC 8             // K up to which (n <= 32) an instance keeps
+                            // every value's mask in registers
+#define MT_VP 8             // voted values a pass, past MT_KC
+#define MT_PL 8             // bit planes of an integral row: weights
+                            // 0 .. 255
+#define MT_EPT 2            // weights a thread loads at once (n <= 32)
+#define MT_SMEM (96 * 1024) // shared memory a block may take (2 an SM)
+#define MT_MIN_ROWS 32      // rows a chunk that shared memory must hold
+#define MT_GLOB_ROWS 256    // rows a chunk where the block works in
+                            // device memory
 
-// Stage lanes [a0, a0 + lc) of the block's ts vote rows and gt weight rows,
-// every asynchronous copy in flight at once.
-__device__ __forceinline__ void mt_stage(int* sv, float* sw,
-                                         const int* __restrict__ votes,
-                                         const float* __restrict__ w, int n,
-                                         int s0, int ts, int g0, int gt,
-                                         int a0, int lc) {
-  for (int i = threadIdx.x; i < ts * lc; i += MT_THREADS) {
-    const int r = i / lc, j = i - r * lc;
-    cp_async4(sv + r * MT_LD + j, votes + (size_t)(s0 + r) * n + a0 + j);
-  }
-  for (int i = threadIdx.x; i < gt * lc; i += MT_THREADS) {
-    const int r = i / lc, j = i - r * lc;
-    cp_async4(sw + r * MT_LD + j, w + (size_t)(g0 + r) * n + a0 + j);
-  }
-  cp_async_commit();
-  cp_async_wait<0>();
+// A block's working set for rc rows a chunk, in bytes, each region 16-byte
+// aligned (in shared memory, or in the block's region of device memory
+// where that cannot hold MT_MIN_ROWS rows):
+// rec   for n <= 32, a row's record in one 16-byte load: {kt, P, plane 0,
+//       plane 1} of an integral row, {th, 0, sup, 0} of a float row
+// th    the chunk's thresholds
+// kt    an integral row's threshold as a count: the least integer k with
+//       (float)k >= th (0 for th <= 0, INT_MAX past 2^24 or for NaN)
+// npl   per row its bit planes P: every weight an integer in [0, 2^P), P
+//       <= MT_PL; 0 for any other row (a float row)
+// sup   support masks: bit b of sup[r * W + q] is set when lane 32 q + b of
+//       row r has a nonzero weight; for n <= 32, sup[rc + r] is nonzero
+//       when a weight of row r is not an integer in [0, 2^MT_PL)
+// pln   bit planes: bit b of pln[(p * rc + r) * W + q] is bit p of the
+//       weight of lane 32 q + b of an integral row r (0 past its P planes)
+// msk   each warp's voter masks of a pass: bit b of msk[(warp * MT_VP + i)
+//       * W + q] is set when lane 32 q + b voted the pass's value i
+// val   each warp's values of a pass, ascending
+struct MaskedLayout {
+  int W;
+  size_t rec, th, kt, npl, sup, pln, msk, val, bytes;
+};
+
+__host__ __device__ inline MaskedLayout masked_layout(int n, int rc) {
+  MaskedLayout L;
+  L.W = (n + 31) / 32;
+  size_t o = 0;
+  L.rec = st_take(o, L.W == 1 ? (size_t)rc * 16 : 0);
+  L.th = st_take(o, (size_t)rc * 4);
+  L.kt = st_take(o, (size_t)rc * 4);
+  L.npl = st_take(o, (size_t)rc * 4);
+  L.sup = st_take(o, (size_t)rc * (L.W == 1 ? 2 : L.W) * 4);
+  L.pln = st_take(o, (size_t)MT_PL * rc * L.W * 4);
+  L.msk = st_take(o, (size_t)MT_WARPS * MT_VP * L.W * 4);
+  L.val = st_take(o, MT_WARPS * MT_VP * 4);
+  L.bytes = o;
+  return L;
 }
 
-// sum[v] += the weights of the lc staged lanes that voted base + v, in lane
-// order.
-__device__ __forceinline__ void mt_sum(const int* vr, const float* wr, int lc,
-                                       int base, float (&sum)[PASS_K]) {
-  for (int a = 0; a < lc; ++a) {
-    const int x = vr[a] - base;
-    const float wa = wr[a];
+struct MaskedArgs {
+  const int* votes;
+  const float* w;
+  const float* t;
+  int S, n, G, K, rc;
+  long long ntiles, items;  // tiles of MT_TS trials; items: tiles x chunks
+  unsigned char* scratch;   // the blocks' regions of device memory (glob)
+  long long region;
+  int* out;
+};
+
+// The f32 sum, in lane order, of the weights of the voters b (lanes 32 q ..
+// 32 q + 31 of a float row, within its support; sum carries across words).
+// A zero weight, which the support leaves out, changes no sum a >= can see.
+__device__ __forceinline__ float mt_walk(unsigned b, int q, const float* wr,
+                                         float sum) {
+  for (; b; b &= b - 1)
+    sum = __fadd_rn(sum, __ldg(wr + 32 * q + __ffs(b) - 1));
+  return sum;
+}
+
+// KC > 0: the votes x of trials s0 + j0 .. s0 + j0 + MT_TPW - 1, a lane an
+// acceptor (-1 past S or n).
+template <int KC>
+__device__ __forceinline__ void mt_votes(const MaskedArgs& a, long long s0,
+                                         int j0, int lane, int (&x)[MT_TPW]) {
 #pragma unroll
-    for (int v = 0; v < PASS_K; ++v)
-      if (x == v) sum[v] = __fadd_rn(sum[v], wa);
-  }
+  for (int i = 0; i < MT_TPW; ++i)
+    x[i] = KC > 0 && s0 + j0 + i < a.S && lane < a.n
+               ? __ldg(a.votes + (size_t)(s0 + j0 + i) * a.n + lane)
+               : -1;
 }
 
-// The lowest value base + v < K whose sum reaches th, else res.
-__device__ __forceinline__ int mt_lowest(const float (&sum)[PASS_K],
-                                         int base, int K, float th,
-                                         int res) {
-#pragma unroll
-  for (int v = PASS_K - 1; v >= 0; --v)
-    if (base + v < K && sum[v] >= th) res = base + v;
-  return res;
-}
-
+// An item is a tile of MT_TS trials against a chunk of rc rows; a block
+// walks items chunk by chunk, so with one chunk (G <= rc) it stages the
+// rows once, and then each warp takes its trials with no further barrier.
+// The staging classifies each row: a row whose weights are all integers in
+// [0, 2^P) is held as P bit planes, and the weight its voters b reach is
+// sum_p popc(b & plane p) << p, exact in integers and so the ordered f32
+// sum bit for bit (every partial sum is an integer below 2^24); a unit row
+// (weights 0 and 1) is one plane.  Any other row (a float row) adds its
+// voters' weights in lane order.  For n <= 32 a thread takes a weight and
+// ORs its bits into its row's support and planes with shared-memory
+// atomics (the chunk's weights are contiguous: one coalesced load), then a
+// thread a row finishes the row's record; past 32, a thread a row.
+// KC > 0 (n <= 32, K = KC <= MT_KC): a warp holds its MT_TPW trials' votes
+// a lane an acceptor (loaded an item ahead), takes every value's voter
+// mask by a ballot, then takes the trials' (trial, row) pairs a lane each,
+// rows fastest, every mask in registers; a value no acceptor voted has an
+// empty mask and sums to 0, as in the reference.  The outputs of a warp's
+// trials leave as contiguous words.  Where every row of the chunk is
+// integral with at most two planes (lean: the main path's tables), a pair
+// is two population counts a value and a compare.
+// KC = 0 (any n and K): a pass finds a trial's next MT_VP voted values in
+// ascending order (the lowest voted value above the last one by a warp
+// minimum, its voters by a ballot), then decides the rows no earlier pass
+// decided; the reference sums an unvoted value to 0, so where t <= 0 the
+// lowest unvoted id (between two voted values, or past the last one, below
+// K) answers before any higher voted value.
+template <bool GLOB, int KC>
 __global__ void __launch_bounds__(MT_THREADS) masked_tally_kernel(
-    const int* __restrict__ votes, const float* __restrict__ w,
-    const float* __restrict__ t, int S, int n, int G, int K,
-    int* __restrict__ out) {
-  __shared__ int sv[MT_TS * MT_LD];
-  __shared__ float sw[MT_GT * MT_LD];
-  __shared__ float st[MT_GT];
-  const int tid = threadIdx.x;
-  const int s0 = blockIdx.x * MT_TS;
-  const int g0 = blockIdx.y * MT_GT;
-  const int ts = min(MT_TS, S - s0);
-  const int gt = min(MT_GT, G - g0);
-  if (tid < gt) st[tid] = t[g0 + tid];
-  if (n <= MT_LC && K <= PASS_K) {
-    // The main path's shapes: the rows staged once, each pair in one pass.
-    mt_stage(sv, sw, votes, w, n, s0, ts, g0, gt, 0, n);
-    __syncthreads();
-    for (int p = tid; p < ts * gt; p += MT_THREADS) {
-      const int ls = p / gt, lg = p - ls * gt;
-      float sum[PASS_K];
-#pragma unroll
-      for (int v = 0; v < PASS_K; ++v) sum[v] = 0.0f;
-      mt_sum(sv + ls * MT_LD, sw + lg * MT_LD, n, 0, sum);
-      out[(size_t)(s0 + ls) * G + g0 + lg] = mt_lowest(sum, 0, K, st[lg], -1);
-    }
-    return;
+    MaskedArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* base =
+      GLOB ? a.scratch + (size_t)blockIdx.x * a.region : smem;
+  const int n = a.n, G = a.G, K = a.K, rc = a.rc;
+  const MaskedLayout L = masked_layout(n, rc);
+  const int W = L.W;
+  float* th = (float*)(base + L.th);
+  int* kt = (int*)(base + L.kt);
+  int* npl = (int*)(base + L.npl);
+  unsigned* sup = (unsigned*)(base + L.sup);
+  unsigned* pln = (unsigned*)(base + L.pln);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  unsigned* wm = (unsigned*)(base + L.msk) + (size_t)warp * MT_VP * W;
+  int* wv = (int*)(base + L.val) + warp * MT_VP;
+  long long staged = -1;  // the chunk whose rows are staged
+  bool lean = false;      // its rows are integral, 2 planes at most
+  long long chunk = 0, tile = blockIdx.x;  // the block's first item
+  if (tile >= a.ntiles) {
+    chunk = tile / a.ntiles;
+    tile %= a.ntiles;
   }
-  const bool whole = n <= MT_LC;  // the rows stay staged throughout
-  // The thread's pairs one at a time, each over the passes of PASS_K values
-  // and, within a pass, the staged chunks of lanes (staged once when the
-  // rows are whole).
-#pragma unroll
-  for (int k = 0; k < MT_PAIRS; ++k) {
-    const int p = tid + k * MT_THREADS;
-    const bool mine = p < ts * gt;
-    const int ls = mine ? p / gt : 0, lg = mine ? p - ls * gt : 0;
-    int res = -1;
-    for (int base = 0; base < K; base += PASS_K) {
-      float sum[PASS_K];
-#pragma unroll
-      for (int v = 0; v < PASS_K; ++v) sum[v] = 0.0f;
-      for (int a0 = 0; a0 < n; a0 += MT_LC) {
-        const int lc = min(MT_LC, n - a0);
-        if (!whole || (k == 0 && base == 0)) {
-          __syncthreads();  // the previous chunk is summed
-          mt_stage(sv, sw, votes, w, n, s0, ts, g0, gt, a0, lc);
-          __syncthreads();
-        }
-        if (mine && res < 0)
-          mt_sum(sv + ls * MT_LD, sw + lg * MT_LD, lc, base, sum);
-      }
-      // a pass decides only the pairs no earlier (lower) pass decided
-      if (mine && res < 0) res = mt_lowest(sum, base, K, st[lg], -1);
+  const int j0 = warp * MT_TPW;  // the warp's trials: j0 .. j0 + MT_TPW - 1
+  // KC > 0: the votes of the warp's trials of an item, a lane an acceptor,
+  // loaded an item ahead
+  int x[MT_TPW];
+  mt_votes<KC>(a, tile * MT_TS, j0, lane, x);
+  for (long long item = blockIdx.x; item < a.items; item += gridDim.x) {
+    const long long s0 = tile * MT_TS;
+    const int g0 = (int)(chunk * rc), gt = min(rc, G - g0);
+    const int ts = (int)min((long long)MT_TS, (long long)a.S - s0);
+    long long nchunk = chunk, ntile = tile + gridDim.x;  // the next item
+    if (ntile >= a.ntiles) {
+      nchunk += ntile / a.ntiles;
+      ntile %= a.ntiles;
     }
-    if (mine) out[(size_t)(s0 + ls) * G + g0 + lg] = res;
+    if (chunk != staged) {
+      if (staged >= 0)
+        __syncthreads();  // every warp is done with the last chunk's rows
+      staged = chunk;
+      bool general = false;
+      if (W == 1) {
+        // a thread a weight (the chunk's rows are contiguous), its bits
+        // OR-ed into its row's support and planes; then a thread a row
+        const float* src = a.w + (size_t)g0 * n;
+        const int ne = gt * n;
+        float wl[MT_EPT];
+#pragma unroll
+        for (int e = 0; e < MT_EPT; ++e)
+          wl[e] = tid + e * MT_THREADS < ne
+                      ? __ldg(src + tid + e * MT_THREADS)
+                      : 0.0f;
+        const float t0 = tid < gt ? __ldg(a.t + g0 + tid) : 0.0f;
+        for (int i = tid; i < gt * (MT_PL + 2); i += MT_THREADS) {
+          const int p = i / gt, r = i - p * gt;  // planes, support, flags
+          (p < MT_PL ? pln : sup)[(size_t)(p < MT_PL ? p : p - MT_PL) * rc +
+                                  r] = 0u;
+        }
+        __syncthreads();
+        for (int e0 = 0; e0 < ne; e0 += MT_EPT * MT_THREADS) {
+#pragma unroll
+          for (int e = 0; e < MT_EPT; ++e) {
+            const int i = e0 + tid + e * MT_THREADS;
+            if (i >= ne) break;
+            const float x = e0 ? __ldg(src + i) : wl[e];
+            const int r = i / n, b = i - r * n;
+            const bool ok =
+                x >= 0.0f && x < (float)(1 << MT_PL) && x == truncf(x);
+            const unsigned bit = 1u << b;
+            if (x != 0.0f) atomicOr(sup + r, bit);
+            if (!ok) atomicOr(sup + rc + r, 1u);  // not integral
+            for (unsigned iw = ok ? (unsigned)x : 0u; iw; iw &= iw - 1)
+              atomicOr(pln + (size_t)(__ffs(iw) - 1) * rc + r, bit);
+          }
+        }
+        __syncthreads();
+        for (int r = tid; r < gt; r += MT_THREADS) {
+          const float tg = r == tid ? t0 : __ldg(a.t + g0 + r);
+          const int kr = !(tg > 0.0f) ? (tg != tg ? INT_MAX : 0)
+                         : tg > 16777216.0f ? INT_MAX
+                                            : (int)ceilf(tg);
+          int P = 0;
+#pragma unroll
+          for (int p = 0; p < MT_PL; ++p)
+            if (pln[(size_t)p * rc + r]) P = p + 1;
+          // P planes, every partial sum an integer below 2^24
+          const bool exact = ((1LL << P) - 1) * (long long)n < (1LL << 24);
+          const int Pr = !sup[rc + r] && exact ? (P ? P : 1) : 0;
+          th[r] = tg;
+          kt[r] = kr;
+          npl[r] = Pr;
+          ((int4*)(base + L.rec))[r] =
+              Pr ? make_int4(kr, Pr, (int)pln[r], (int)pln[rc + r])
+                 : make_int4(__float_as_int(tg), 0, (int)sup[r], 0);
+          general |= Pr == 0 || Pr > 2;
+        }
+      }
+      // W > 1: a thread a row: its support, class, bit planes, thresholds
+      for (int r = tid; r < gt && W > 1; r += MT_THREADS) {
+        const float* wr = a.w + (size_t)(g0 + r) * n;
+        const float tg = __ldg(a.t + g0 + r);
+        const int kr = !(tg > 0.0f) ? (tg != tg ? INT_MAX : 0)
+                       : tg > 16777216.0f ? INT_MAX
+                                          : (int)ceilf(tg);
+        bool integral = true;
+        unsigned all = 0u;
+        for (int q = 0; q < W; ++q) {
+          unsigned sq = 0u;
+          const int lim = min(32, n - 32 * q);
+          for (int b = 0; b < lim; ++b) {
+            const float wl = __ldg(wr + 32 * q + b);
+            const bool ok = wl >= 0.0f && wl < (float)(1 << MT_PL) &&
+                            wl == truncf(wl);
+            sq |= (unsigned)(wl != 0.0f) << b;
+            integral &= ok;
+            all |= ok ? (unsigned)wl : 0u;
+          }
+          sup[(size_t)r * W + q] = sq;
+        }
+        // P planes, every partial sum an integer below 2^24
+        const int P = 32 - __clz(all);
+        const bool exact = ((1LL << P) - 1) * (long long)n < (1LL << 24);
+        const int Pr = integral && exact ? (P ? P : 1) : 0;
+        for (int p = 0; p < MT_PL; ++p) {
+          for (int q = 0; q < W; ++q) {
+            unsigned pl = 0u;
+            const int lim = min(32, n - 32 * q);
+            for (int b = 0; p < Pr && b < lim; ++b)
+              pl |= ((unsigned)__ldg(wr + 32 * q + b) >> p & 1u) << b;
+            pln[((size_t)p * rc + r) * W + q] = pl;
+          }
+        }
+        th[r] = tg;
+        kt[r] = kr;
+        npl[r] = Pr;
+        general = true;
+      }
+      // lean: every row of the chunk is integral with at most 2 planes
+      lean = !__syncthreads_or(general);
+    }
+    const float* wrows = a.w + (size_t)g0 * n;
+
+    if (KC > 0) {
+      // every value's voter mask of the warp's trials, then the (trial,
+      // row) pairs a lane each, rows fastest: the warp's trials' outputs
+      // leave as contiguous words (one span when G <= rc)
+      unsigned m[MT_TPW][KC > 0 ? KC : 1];
+#pragma unroll
+      for (int i = 0; i < MT_TPW; ++i)
+#pragma unroll
+        for (int v = 0; v < KC; ++v) m[i][v] = __ballot_sync(FULL, x[i] == v);
+      if (item + gridDim.x < a.items)
+        mt_votes<KC>(a, ntile * MT_TS, j0, lane, x);
+      const int nt = max(0, min(MT_TPW, ts - j0));
+      int* o = a.out + (size_t)(s0 + j0) * G + g0;
+      const int q32 = 32 / gt, r32 = 32 % gt;
+      int jl = lane / gt, r = lane % gt;
+      if (lean) {  // every row: k = popc(b & plane 0) + 2 popc(b & plane 1)
+        const int4* rec = (const int4*)(base + L.rec);
+        for (int p = lane; p < nt * gt; p += 32) {
+          const int4 rr = rec[r];
+          int ans = -1;
+#pragma unroll
+          for (int v = KC - 1; v >= 0; --v) {  // the lowest hit wins
+            unsigned b = m[0][v];
+#pragma unroll
+            for (int i = 1; i < MT_TPW; ++i)
+              if (jl == i) b = m[i][v];
+            const int k = __popc(b & (unsigned)rr.z) +
+                          (__popc(b & (unsigned)rr.w) << 1);
+            if (k >= rr.x) ans = v;
+          }
+          o[gt == G ? p : (size_t)jl * G + r] = ans;
+          r += r32;
+          jl += q32;
+          if (r >= gt) {
+            r -= gt;
+            ++jl;
+          }
+        }
+      } else {
+        for (int p = lane; p < nt * gt; p += 32) {
+          unsigned mv[KC > 0 ? KC : 1];
+#pragma unroll
+          for (int v = 0; v < KC; ++v) {
+            mv[v] = m[0][v];
+#pragma unroll
+            for (int i = 1; i < MT_TPW; ++i)
+              if (jl == i) mv[v] = m[i][v];
+          }
+          const int4 rr = ((const int4*)(base + L.rec))[r];
+          const int P = rr.y;
+          int ans = -1;
+          if (P) {
+#pragma unroll
+            for (int v = KC - 1; v >= 0; --v) {  // the lowest hit wins
+              int k = __popc(mv[v] & (unsigned)rr.z);
+              if (P > 1) {
+                k += __popc(mv[v] & (unsigned)rr.w) << 1;
+                for (int pp = 2; pp < P; ++pp)
+                  k += __popc(mv[v] & pln[pp * rc + r]) << pp;
+              }
+              if (k >= rr.x) ans = v;
+            }
+          } else {
+#pragma unroll
+            for (int v = KC - 1; v >= 0; --v)
+              if (mt_walk(mv[v] & (unsigned)rr.z, 0, wrows + (size_t)r * n,
+                          0.0f) >= __int_as_float(rr.x))
+                ans = v;
+          }
+          o[gt == G ? p : (size_t)jl * G + r] = ans;
+          r += r32;
+          jl += q32;
+          if (r >= gt) {
+            r -= gt;
+            ++jl;
+          }
+        }
+      }
+    } else {
+      for (int i = 0; i < MT_TPW; ++i) {
+        const int j = j0 + i;
+        if (j >= ts) break;
+        const int* row = a.votes + (size_t)(s0 + j) * n;
+        const int x0 = lane < n ? __ldg(row + lane) : -1;
+        int* o = a.out + (size_t)(s0 + j) * G + g0;
+        int prev = -1;
+        for (int pass = 0;; ++pass) {
+          // the pass's voted values above prev, ascending, and their masks
+          const int pre = prev;
+          int cnt = 0;
+          while (cnt < MT_VP) {
+            int c = INT_MAX;
+            for (int q = 0; q < W; ++q) {
+              const int l = 32 * q + lane;
+              const int xv = q == 0 ? x0 : l < n ? __ldg(row + l) : -1;
+              if (xv > prev && xv < K) c = min(c, xv);
+            }
+            const int v = __reduce_min_sync(FULL, c);
+            if (v == INT_MAX) break;
+            for (int q = 0; q < W; ++q) {
+              const int l = 32 * q + lane;
+              const int xv = q == 0 ? x0 : l < n ? __ldg(row + l) : -1;
+              const unsigned b = __ballot_sync(FULL, xv == v);
+              if (lane == 0) wm[cnt * W + q] = b;
+            }
+            if (lane == 0) wv[cnt] = v;
+            prev = v;
+            ++cnt;
+          }
+          // a pass that filled all MT_VP slots may have more values after it
+          const bool last = cnt < MT_VP;
+          __syncwarp();
+          for (int r = lane; r < gt; r += 32) {
+            if (pass > 0 && o[r] != -2) continue;  // an earlier pass decided
+            const float tg = th[r];
+            const int P = npl[r], kr = kt[r];
+            const float* wr = wrows + (size_t)r * n;
+            int pv = pre, ans = -2;
+            for (int c = 0; c < cnt; ++c) {
+              const int v = wv[c];
+              if (tg <= 0.0f && v > pv + 1) {  // an unvoted id below v
+                ans = pv + 1;
+                break;
+              }
+              int kv = 0;
+              float sum = 0.0f;
+              for (int q = 0; q < W; ++q) {
+                const unsigned b = wm[c * W + q];
+                if (P) {
+                  for (int pp = 0; pp < P; ++pp)
+                    kv += __popc(b & pln[((size_t)pp * rc + r) * W + q])
+                          << pp;
+                } else {
+                  sum = mt_walk(b & sup[(size_t)r * W + q], q, wr, sum);
+                }
+              }
+              if (P ? kv >= kr : sum >= tg) {
+                ans = v;
+                break;
+              }
+              pv = v;
+            }
+            if (ans == -2 && last)
+              ans = tg <= 0.0f && pv + 1 < K ? pv + 1 : -1;
+            o[r] = ans;  // -2: undecided, a later pass decides it
+          }
+          __syncwarp();  // the lanes are done with the pass's masks
+          if (last) break;
+        }
+      }
+    }
+    chunk = nchunk;
+    tile = ntile;
   }
 }
 
@@ -335,9 +711,6 @@ __global__ void __launch_bounds__(MT_THREADS) masked_tally_kernel(
 #define ST_MIN_WARPS 4      // warps a block has at least, for the staging
 #define ST_MAX_SMEM (232448 - 1024)   // dynamic shared memory a block may use
 #define ST_MAX_SCRATCH (1 << 30)      // device-memory staging a block may use
-#define FULL 0xffffffffu
-
-typedef unsigned long long u64;
 
 // What one launch reads and writes.  Phase p = 0 is phase 1 (arrive), 1 the
 // recovery commit (classic), 2 the fast phase (the winner's val_arr row).
@@ -392,11 +765,6 @@ template <int LB>
 using lane_t = typename std::conditional<(LB < 0), unsigned short,
                                          unsigned char>::type;
 
-__host__ __device__ inline size_t st_take(size_t& o, size_t bytes) {
-  size_t at = o;
-  o += (bytes + 15) & ~(size_t)15;
-  return at;
-}
 
 // lb > 0: the instance keeps a trial's order in registers, lb bytes; lb <= 0:
 // it reads the order from shared memory (lane_t<lb> a lane), whose rows then
@@ -1508,10 +1876,18 @@ extern "C" {
 
 int qt_tally_votes(const void* votes, int S, int n, int K, void* counts,
                    void* stream) {
-  const int threads = 256;
-  const int blocks = (S + threads - 1) / threads;
-  tally_votes_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const int*)votes, S, n, K, (int*)counts);
+  const int blocks = (S + TV_THREADS - 1) / TV_THREADS;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (K <= PASS_K) {
+    static void (*const launch[PASS_K])(int, cudaStream_t, const int*, int,
+                                        int, int*) = {
+        tv_launch<1>, tv_launch<2>, tv_launch<3>, tv_launch<4>,
+        tv_launch<5>, tv_launch<6>, tv_launch<7>, tv_launch<8>};
+    launch[K - 1](blocks, st, (const int*)votes, S, n, (int*)counts);
+  } else {
+    tally_votes_kernel<<<blocks, TV_THREADS, 0, st>>>((const int*)votes, S,
+                                                      n, K, (int*)counts);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -1525,12 +1901,75 @@ int qt_tally_decide(const void* votes, int S, int n, int K, int q,
   return (int)cudaGetLastError();
 }
 
+// The masked_tally instance for a shape: every value's mask in registers
+// for n <= 32 and K <= MT_KC, else the passes of voted values, in device
+// memory where a block works there.
+typedef void (*MaskedKernel)(MaskedArgs);
+static MaskedKernel masked_kernel(int n, int K, bool glob) {
+  static const MaskedKernel kc[MT_KC + 1] = {
+      masked_tally_kernel<false, 0>, masked_tally_kernel<false, 1>,
+      masked_tally_kernel<false, 2>, masked_tally_kernel<false, 3>,
+      masked_tally_kernel<false, 4>, masked_tally_kernel<false, 5>,
+      masked_tally_kernel<false, 6>, masked_tally_kernel<false, 7>,
+      masked_tally_kernel<false, 8>};
+  if (glob) return masked_tally_kernel<true, 0>;
+  return kc[n <= 32 && K <= MT_KC ? K : 0];
+}
+
+// The launch plan of masked_tally for n acceptors, G rows and K values:
+// out = {rows a chunk, dynamic shared memory, blocks the card holds at
+// once, bytes of device memory a block works in (0: its shared memory),
+// trials a tile}.  Returns a CUDA error code.
+int qt_masked_plan(int n, int G, int K, long long* out) {
+  const long long fixed = (long long)masked_layout(n, 0).bytes;
+  const long long row = 36 + 4LL * (1 + MT_PL) * ((n + 31) / 32);
+  long long rc = (MT_SMEM - 64 - fixed) / row;
+  if (rc > G) rc = G;
+  while (rc > 1 && masked_layout(n, (int)rc).bytes > MT_SMEM) --rc;
+  const bool glob = rc < (G < MT_MIN_ROWS ? G : MT_MIN_ROWS) ||
+                    masked_layout(n, (int)rc).bytes > MT_SMEM;
+  if (glob) rc = G < MT_GLOB_ROWS ? G : MT_GLOB_ROWS;
+  const MaskedLayout L = masked_layout(n, (int)rc);
+  const int smem = glob ? 0 : (int)L.bytes;
+  const MaskedKernel kern = masked_kernel(n, K, glob);
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, MT_SMEM);
+  int per_sm = 0, dev = 0, sms = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
+                                                      MT_THREADS, smem);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = rc;
+  out[1] = smem;
+  out[2] = (long long)(per_sm > 0 ? per_sm : 1) * sms;
+  out[3] = glob ? (long long)L.bytes : 0;
+  out[4] = MT_TS;
+  return 0;
+}
+
 int qt_masked_tally(const void* votes, const void* w, const void* t, int S,
-                    int n, int G, int K, void* out, void* stream) {
-  dim3 grid((S + MT_TS - 1) / MT_TS, (G + MT_GT - 1) / MT_GT);
-  masked_tally_kernel<<<grid, MT_THREADS, 0, (cudaStream_t)stream>>>(
-      (const int*)votes, (const float*)w, (const float*)t, S, n, G, K,
-      (int*)out);
+                    int n, int G, int K, int rc, int smem, int nbx,
+                    void* scratch, long long region, void* out,
+                    void* stream) {
+  MaskedArgs a;
+  a.votes = (const int*)votes;
+  a.w = (const float*)w;
+  a.t = (const float*)t;
+  a.S = S;
+  a.n = n;
+  a.G = G;
+  a.K = K;
+  a.rc = rc;
+  a.ntiles = (S + MT_TS - 1) / MT_TS;
+  a.items = a.ntiles * ((G + rc - 1) / rc);
+  a.scratch = (unsigned char*)scratch;
+  a.region = region;
+  a.out = (int*)out;
+  const MaskedKernel kern = masked_kernel(n, K, scratch != nullptr);
+  kern<<<nbx, MT_THREADS, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -28,9 +28,10 @@ from . import ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "quorum_tally.cu"
 
-# Device memory the stream kernel's blocks stage their tiles in together,
-# where a tile of 32 trials does not fit in a block's shared memory (fewer
-# blocks a system group then, but at least one).
+# Device memory the blocks of a launch work in together, where a block's
+# tile does not fit in its shared memory (stream_tally_decide_hist,
+# race_card_hist, masked_tally at large n): fewer blocks then, but at
+# least one.
 MAX_SCRATCH_BYTES = 2 ** 30
 
 LAUNCHES: Dict[str, int] = {"tally_votes": 0, "tally_decide": 0,
@@ -39,6 +40,7 @@ LAUNCHES: Dict[str, int] = {"tally_votes": 0, "tally_decide": 0,
 
 _lib = None
 _lib_lock = threading.Lock()
+_MASKED_PLANS: Dict[tuple, tuple] = {}
 _STREAM_PLANS: Dict[tuple, tuple] = {}
 _CARD_PLANS: Dict[tuple, tuple] = {}
 
@@ -61,16 +63,18 @@ def bind(path) -> ctypes.CDLL:
     L = ctypes.c_longlong
     lib.qt_tally_votes.argtypes = [P, I, I, I, P, P]
     lib.qt_tally_decide.argtypes = [P, I, I, I, I, P, P, P, P, P]
-    lib.qt_masked_tally.argtypes = [P, P, P, I, I, I, I, P, P]
+    lib.qt_masked_plan.argtypes = [I, I, I, ctypes.POINTER(L)]
+    lib.qt_masked_tally.argtypes = [P, P, P] + [I] * 7 + [P, L, P, P]
     lib.qt_stream_plan.argtypes = [I] * 6 + [ctypes.POINTER(I)]
     lib.qt_stream_tally_decide_hist.argtypes = (
         [P] * 11 + [I] * 10 + [F, I, F] + [I] * 5 + [P] * 10)
     lib.qt_card_plan.argtypes = [I] * 5 + [ctypes.POINTER(L)]
     lib.qt_race_card_hist.argtypes = (
         [P] * 5 + [I] * 7 + [F, I, F] + [I] * 6 + [P, L, L] + [P] * 11)
-    for f in ("qt_tally_votes", "qt_tally_decide", "qt_masked_tally",
-              "qt_stream_plan", "qt_stream_tally_decide_hist",
-              "qt_card_plan", "qt_race_card_hist"):
+    for f in ("qt_tally_votes", "qt_tally_decide", "qt_masked_plan",
+              "qt_masked_tally", "qt_stream_plan",
+              "qt_stream_tally_decide_hist", "qt_card_plan",
+              "qt_race_card_hist"):
         getattr(lib, f).restype = I
     return lib
 
@@ -121,7 +125,8 @@ def _stream(device) -> ctypes.c_void_p:
 
 def tally_votes(votes: torch.Tensor, n_values: int) -> torch.Tensor:
     """(S, n) int32 votes (< 0 = no vote) -> (S, K) int32 counts, for any
-    n and K (one pass over each row per 8 values)."""
+    n and K (K compares a vote up to K = 8, else one pass over each row
+    per 8 values)."""
     if votes.dim() != 2:
         raise ValueError(f"votes must be (S, n), got {tuple(votes.shape)}")
     S, n = votes.shape
@@ -169,10 +174,27 @@ def tally_decide(votes: torch.Tensor, n_values: int, q) -> tuple:
     return counts, winner, max_count, reached
 
 
+def _masked_plan(lib, dev, n: int, G: int, K: int) -> tuple:
+    """(rows a chunk, shared memory, blocks the card holds at once,
+    device-memory bytes a block works in, 0 where it works in shared
+    memory, trials a tile) for a shape, from ``qt_masked_plan`` once per
+    device and shape."""
+    key = (dev.index, n, G, K)
+    plan = _MASKED_PLANS.get(key)
+    if plan is None:
+        out = (ctypes.c_longlong * 5)()
+        with torch.cuda.device(dev):
+            err = lib.qt_masked_plan(n, G, K, out)
+        _raise_on(err, "masked_tally plan")
+        plan = _MASKED_PLANS[key] = tuple(out)
+    return plan
+
+
 def masked_tally(votes: torch.Tensor, weights: torch.Tensor,
                  thresholds: torch.Tensor, n_values: int) -> torch.Tensor:
     """(S, n) int32 votes x (G, n) f32 weights, (G,) f32 thresholds ->
-    (S, G) int32 lowest satisfying value id, else -1, for any n, G and K."""
+    (S, G) int32 lowest satisfying value id, else -1, for any S, n, G and
+    K, in one launch."""
     if votes.dim() != 2 or weights.dim() != 2:
         raise ValueError(f"votes (S, n) and weights (G, n) expected, got "
                          f"{tuple(votes.shape)} / {tuple(weights.shape)}")
@@ -184,15 +206,25 @@ def masked_tally(votes: torch.Tensor, weights: torch.Tensor,
     _check(votes, "votes", torch.int32, (S, n), dev)
     _check(weights, "weights", torch.float32, (G, n), dev)
     _check(thresholds, "thresholds", torch.float32, (G,), dev)
+    if G >= 2 ** 31:
+        raise ValueError(f"masked_tally takes G < 2^31 rows, got {G}")
     out = torch.empty((S, G), dtype=torch.int32, device=dev)
     if S and G:
-        if -(-G // 32) > 65535:
-            raise ValueError(f"masked_tally takes at most {65535 * 32} rows")
         lib = _load()
+        rc, smem, blocks, region, tile = _masked_plan(lib, dev, n, G,
+                                                      n_values)
+        nbx = max(1, min(-(-S // tile) * -(-G // rc), blocks))
+        scratch = None
+        if region:  # the blocks work in device memory: at most 1 GiB of it
+            nbx = max(1, min(nbx, MAX_SCRATCH_BYTES // region))
+            scratch = torch.empty(nbx * region, dtype=torch.uint8,
+                                  device=dev)
         with torch.cuda.device(dev):
             err = lib.qt_masked_tally(
                 votes.data_ptr(), weights.data_ptr(), thresholds.data_ptr(),
-                S, n, G, n_values, out.data_ptr(), _stream(dev))
+                S, n, G, n_values, rc, smem, nbx,
+                None if scratch is None else scratch.data_ptr(), region,
+                out.data_ptr(), _stream(dev))
         _raise_on(err, "masked_tally")
         LAUNCHES["masked_tally"] += 1
     return out

@@ -39,7 +39,8 @@ from repro_torch.models import model as model_mod
 from repro_torch.models.ssm import ssd_chunked
 from repro_torch.montecarlo import streaming
 
-from chip_smoke import RACE_CARD_CASES, race_card_inputs
+from chip_smoke import (MASKED_CASES, RACE_CARD_CASES, TALLY_VOTES_CASES,
+                        masked_inputs, race_card_inputs)
 
 BINS = streaming.sketch_bins(0.01)
 
@@ -173,6 +174,44 @@ def test_masked_tally_kernel(cuda, S, n, V, G):
                         device=cuda)
     assert torch.equal(kernel.masked_tally(votes, w, t, V),
                        ref.masked_tally(votes, w, t, V))
+
+
+@pytest.mark.parametrize("case", MASKED_CASES,
+                         ids=[c[0].replace(" ", "_") for c in MASKED_CASES])
+def test_masked_tally_kernel_edges(cuda, case):
+    """Unit and weighted rows, t <= 0 (lowest unvoted values), negative
+    weights, K > n, n each side of a mask word, the device-memory tier and
+    G past the old 65535 x 32 cap: equal to the plain version."""
+    votes, w, t, K = masked_inputs(case, cuda)
+    assert torch.equal(kernel.masked_tally(votes, w, t, K),
+                       ref.masked_tally(votes, w, t, K))
+
+
+@pytest.mark.parametrize("n,G,tier", [(12, 39, "one chunk"),
+                                      (4, 65535 * 32 + 1, "chunks"),
+                                      (4000, 300, "device memory")])
+def test_masked_tally_kernel_plan_tiers(cuda, n, G, tier):
+    """The shapes of MASKED_CASES reach the plan's tiers: all rows staged
+    once, rows in chunks, and the block's working set in device memory."""
+    rc, smem, _, region, _ = kernel._masked_plan(kernel._load(), cuda, n, G,
+                                                 2)
+    assert (region > 0) == (tier == "device memory")
+    assert (smem > 0) == (tier != "device memory")
+    assert (rc >= G) == (tier == "one chunk")
+
+
+def test_masked_tally_kernel_unaligned_rows(cuda):
+    """Votes and weights that do not start on 16 bytes."""
+    r = np.random.default_rng(4)
+    vb = torch.as_tensor(r.integers(-1, 3, (700 * 12 + 1,)).astype(np.int32),
+                         device=cuda)
+    wb = torch.as_tensor((r.integers(0, 9, (30 * 12 + 1,)) / 4.0).astype(
+        np.float32), device=cuda)
+    votes, w = vb[1:].view(700, 12), wb[1:].view(30, 12)
+    t = torch.as_tensor((r.integers(-4, 20, (30,)) / 4.0).astype(np.float32),
+                        device=cuda)
+    assert torch.equal(kernel.masked_tally(votes, w, t, 3),
+                       ref.masked_tally(votes, w, t, 3))
 
 
 # (S, n, M, G, K, k_sat, stream_test_inputs options): the mixed n=12 shape,
@@ -450,6 +489,16 @@ def test_tally_votes_kernel(cuda, S, n, V):
     q = n // 2 + 1
     assert torch.equal(ops.quorum_reached(votes, V, q),
                        ref.quorum_reached(votes, V, q))
+
+
+@pytest.mark.parametrize("S,n,V", TALLY_VOTES_CASES)
+def test_tally_votes_kernel_each_k(cuda, S, n, V):
+    """Every K-specialised instance (K <= 8) and the passes past it."""
+    r = np.random.default_rng(S * 3 + n + V)
+    votes = torch.as_tensor(r.integers(-1, V, (S, n)).astype(np.int32),
+                            device=cuda)
+    assert torch.equal(kernel.tally_votes(votes, V),
+                       ref.tally_votes(votes, V))
 
 
 # ---------------------------------------------------------------------------

@@ -25,6 +25,8 @@ from repro.montecarlo.engine import saturation_depths as jax_depths
 from repro_torch.kernels.quorum_tally import kernel, ops, ref
 from repro_torch.montecarlo import streaming
 
+from chip_smoke import masked_inputs
+
 BINS = streaming.sketch_bins(0.01)
 UND = 5e8
 
@@ -341,6 +343,76 @@ def test_masked_tally_any_k_and_n_matches_jax_interpret(n, K):
                                    jnp.asarray(th), K, interpret=True)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert bool((got[:, -1] == -1).all()) and bool((got[:, :-1] >= 0).any())
+
+
+# The edges of the card's masked_tally design, held here to JAX's oracle and
+# its Pallas kernel in interpret mode (chip_smoke.masked_inputs' rows, small
+# sizes): thresholds <= 0, where an unvoted value (sum 0) answers; negative
+# weights; K > n; K = 8 (a trial of 8 distinct values); unit and mixed rows
+# at n = 33, past one 32-lane word.  (name, S, n, G, K, rows)
+MASKED_EDGE_CASES = [
+    ("t_nonpositive", 96, 12, 12, 3, "nonpositive"),
+    ("negative_weights", 96, 11, 12, 3, "negative"),
+    ("K_above_n", 64, 12, 8, 70, "mixed"),
+    ("K_8", 96, 12, 8, 8, "negative"),
+    ("unit_n33", 96, 33, 10, 3, "unit"),
+    ("mixed_n33", 64, 33, 10, 40, "nonpositive"),
+]
+
+
+@pytest.mark.parametrize("case", MASKED_EDGE_CASES,
+                         ids=[c[0] for c in MASKED_EDGE_CASES])
+def test_masked_tally_edges_match_jax_interpret(case):
+    """Equal to JAX's oracle and interpret kernel; a row with t <= 0 is
+    answered wherever some value id below K went unvoted."""
+    votes, w, th, K = masked_inputs(case, torch.device("cpu"))
+    got = ops.masked_tally(votes, w, th, K)
+    assert torch.equal(got, ref.masked_tally(votes, w, th, K))
+    args = [jnp.asarray(x.numpy()) for x in (votes, w, th)]
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(jax_ref.masked_tally(*args, K)))
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(jax_kernel.masked_tally(*args, K,
+                                                        interpret=True)))
+    counts = ref.tally_votes(votes, K)
+    unvoted = (counts == 0).any(dim=-1)                   # (S,)
+    low = th <= 0                                         # (G,)
+    assert bool((got[unvoted][:, low] >= 0).all())
+    if case[-1] != "unit":
+        # some answers are values that no acceptor of the trial voted
+        ans = got.clamp(min=0).long()
+        unvoted_answer = (got >= 0) & (torch.gather(counts, 1, ans) == 0)
+        assert bool(unvoted_answer.any())
+
+
+@pytest.mark.parametrize("K,want", [(4, 2), (2, -1), (1, -1)])
+def test_masked_tally_lowest_unvoted_value(K, want):
+    """Negative weights: values 0 and 1 are voted and sum to -2 and -1,
+    below t = -0.5; value 2 is unvoted and sums to 0, which reaches it.  A
+    positive row with t = -0.0 answers 0, voted or not."""
+    votes = t([[0, 0, 1, -1]], np.int32)
+    w = t([[-1.0, -1.0, -1.0, -1.0], [1.0, 0.5, 0.0, 2.0]], np.float32)
+    th = t([-0.5, -0.0], np.float32)
+    got = ops.masked_tally(votes, w, th, K)
+    assert got.tolist() == [[want, 0]]
+    args = [jnp.asarray(x.numpy()) for x in (votes, w, th)]
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(jax_kernel.masked_tally(*args, K,
+                                                        interpret=True)))
+
+
+@pytest.mark.parametrize("n,K", [(11, 1), (33, 4), (12, 8), (31, 9),
+                                 (12, 70)])
+def test_tally_votes_each_k_matches_jax_interpret(n, K):
+    """K = 1 .. 8 (the card's K-specialised instances) and past them."""
+    votes = np.random.default_rng(n * 7 + K).integers(
+        -1, K, (70, n)).astype(np.int32)
+    got = ops.tally_votes(t(votes), K)
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(jax_kernel.tally_votes(jnp.asarray(votes), K,
+                                                       interpret=True)))
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(jax_ref.tally_votes(jnp.asarray(votes), K)))
 
 
 def test_stream_any_k_matches_jax_interpret():
