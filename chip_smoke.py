@@ -39,6 +39,22 @@ Phases, one JSON line each:
   quorum_reached   ops.quorum_reached on the n=11 race's 16384 x 11 votes
               (the tally_votes path), equal to the plain version and to
               tally_decide's reached bits
+  experiment  the Experiment API (``repro_torch.api``) on the card: (a)
+              the quickstart's three n=11 systems (cardinality, grid,
+              weighted) under a 2-way race at 0.2 ms, 20,000 samples
+              (masked_tally), its DES run (within 5% on p50, 0.05 on
+              P(recovery)) and the n=5 model-check batch (all safe); (b)
+              three n=11 cardinality systems at 20,000 samples
+              (tally_decide) and 10^6 trials, chunk 65,536
+              (race_card_hist); (c) the quickstart at 10^6 trials
+              (stream_tally_decide_hist); (d) examples/scenarios/
+              diurnal_wan.json and trace_replay.json, loaded unchanged (10^6
+              trials, chunk 16384, 3 Markov regimes: masked_tally and
+              tally_decide a chunk), occupancy summing to the trials and
+              the total the merge of the slices.  Each run again with the
+              quorum kernels swapped for their plain versions: integers and
+              maxima equal, means to 1e-5; warm wall (median of 3), rate,
+              launches, the card's busy and idle share over one traced run
   serve_mamba2_130m   mamba2_130m at full width (24 layers, d_model 768,
               vocab 50280), seeded weights, 4 requests of 1024 prompt
               tokens and 32 greedy decode steps through
@@ -74,8 +90,9 @@ Phases, one JSON line each:
               with the strides decode hands them); event, device, plain and
               library times (scaled_dot_product_attention, rms_norm) and
               bounds there
-  the kernels line: all eight kernels' launches on their main paths,
-              error, times, bounds
+  the kernels line: all eight kernels' launches on their main paths
+              (summed; ``launches_by_path`` names each path's), error,
+              times, bounds
 
 Launch counts are zeroed just before each main-path phase and read just
 after it; launches made to compare a kernel with its plain version do not
@@ -1060,6 +1077,208 @@ def serve_phase(arch: str, dev, n_tokens: int) -> dict:
             "model": model, "prompt": prompt, "phase": phase}
 
 
+# ---------------------------------------------------------------------------
+# The Experiment API on the card: the quickstart, a cardinality batch, and
+# both committed scenario configs (regime streams).
+# ---------------------------------------------------------------------------
+
+EXPERIMENT_SAMPLES = 20_000
+EXPERIMENT_TRIALS = 10 ** 6
+EXPERIMENT_CHUNK = 65_536
+SCENARIOS = ("examples/scenarios/diurnal_wan.json",
+             "examples/scenarios/trace_replay.json")
+STREAM_FIELDS = ("n_trials", "n_fast", "n_recovery", "n_undecided", "hist",
+                 "max_ms")
+
+
+@contextlib.contextmanager
+def plain_quorum_kernels():
+    """The quorum-tally kernels swapped for their plain versions (on the
+    card's tensors): the dispatch calls ``ref`` and launches nothing."""
+    from repro_torch.kernels.quorum_tally import kernel, ref
+    saved = {k: getattr(kernel, k) for k in QUORUM_KERNELS}
+    for k in QUORUM_KERNELS:
+        setattr(kernel, k, getattr(ref, k))
+    try:
+        yield
+    finally:
+        for k, fn in saved.items():
+            setattr(kernel, k, fn)
+
+
+def same_stream(a, b, what: str) -> None:
+    """Stream summaries (plain or regime-decomposed): integers and maxima
+    equal, means within 1e-5 relative (f32 sums in another order)."""
+    from repro_torch.montecarlo.regimes import RegimeStreamSummary
+    pairs = [(a, b, what)]
+    if isinstance(a, RegimeStreamSummary):
+        if not torch.equal(a.occupancy, b.occupancy):
+            fail(f"{what}: occupancy differs from the plain versions'")
+        pairs += [(a.regime(i), b.regime(i), f"{what} regime {name}")
+                  for i, name in enumerate(a.names)]
+    for x, y, w in pairs:
+        for f in STREAM_FIELDS:
+            if not torch.equal(getattr(x, f), getattr(y, f)):
+                fail(f"{w} {f} differs from the plain versions'")
+        if not torch.allclose(x.mean_ms, y.mean_ms, rtol=1e-5, atol=0.0,
+                              equal_nan=True):
+            fail(f"{w} mean_ms off by more than 1e-5 relative")
+
+
+def check_regime_stream(st, trials: int, m: int, what: str) -> None:
+    """Occupancy sums to the trials and counts each slice's trials; the
+    total is the merge of the slices, field by field."""
+    occ = st.occupancy
+    if int(occ.sum()) != trials:
+        fail(f"{what}: occupancy {occ.tolist()} does not sum to {trials}")
+    tot = st.total()
+    per = [st.regime(i) for i in range(st.n_regimes)]
+    for i, p in enumerate(per):
+        if not bool((p.n_trials == occ[i]).all()):
+            fail(f"{what}: regime {st.names[i]} counts {p.n_trials.tolist()}"
+                 f" trials, occupancy {int(occ[i])}")
+    for f in ("n_trials", "n_fast", "n_recovery", "n_undecided", "hist"):
+        if not torch.equal(sum(getattr(p, f) for p in per), getattr(tot, f)):
+            fail(f"{what}: total {f} is not the sum of the slices")
+    if not torch.equal(torch.stack([p.max_ms for p in per]).amax(0),
+                       tot.max_ms):
+        fail(f"{what}: total max_ms is not the slices' max")
+    if tot.n_trials.tolist() != [trials] * m:
+        fail(f"{what}: {tot.n_trials.tolist()} trials, {trials} asked")
+
+
+def experiment_run(name: str, exp, expect: dict, units: int) -> dict:
+    """One Monte-Carlo run of an Experiment on the card: the main-path run
+    (launch counts zeroed just before, read just after, ``expect`` held),
+    three warm runs timed (median wall), one traced (busy and idle share),
+    then the run with the plain versions, held to the kernel run."""
+    from repro_torch.kernels.quorum_tally import ops
+    ops.reset_launches()
+    res = exp.run("montecarlo")
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    if launches != only(**expect):
+        fail(f"experiment {name} launches {launches}, expected {expect}")
+
+    def once():
+        exp.run("montecarlo")
+        torch.cuda.synchronize()
+
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        once()
+        walls.append(time.perf_counter() - t0)
+    wall = statistics.median(walls)
+    prof = device_profile(once, top=4)
+    with plain_quorum_kernels():
+        ops.reset_launches()
+        plain = exp.run("montecarlo")
+        torch.cuda.synchronize()
+        if any(ops.LAUNCHES.values()):
+            fail(f"experiment {name}: the plain run launched {ops.LAUNCHES}")
+    if res.raw is not None:
+        for f in res.raw:
+            if not torch.equal(res.raw[f], plain.raw[f]):
+                fail(f"experiment {name} {f} differs from the plain "
+                     f"versions'")
+    else:
+        same_stream(res.stream, plain.stream, f"experiment {name}")
+    for k, v in res.summary.items():
+        if tuple(v.shape) != (len(exp.systems),):
+            fail(f"experiment {name} summary {k} shape {tuple(v.shape)}")
+    lat = res.summary["p50_ms"]
+    if not bool(torch.isfinite(lat).all()):
+        fail(f"experiment {name}: p50 not finite {lat.tolist()}")
+    return {"result": res, "row": dict(
+        launches=launches, warm_wall_s=walls, wall_median_s=wall,
+        per_sec=units / wall, units=units,
+        device_busy_s=prof["device_busy_s"],
+        busy_share=prof["device_busy_s"] / wall,
+        idle_share=1.0 - prof["device_busy_s"] / wall,
+        profiled_wall_s=prof["wall_s"],
+        device_launches=sum(prof["by_kernel_n"].values()),
+        top_ms=prof["top"],
+        summary={k: [float(x) for x in v] for k, v in res.summary.items()
+                 if k in ("p50_ms", "p99_ms", "recovery_rate",
+                          "undecided_rate")})}
+
+
+def experiment_phase(dev, smi: str) -> dict:
+    """The Experiment API's four Monte-Carlo paths on the card, with the
+    quickstart's DES and model-check backends: returns the rows and the
+    launches by kernel on this path."""
+    from repro_torch.api import Experiment, Workload
+    from repro_torch.api.__main__ import quickstart, small_batch
+    from repro_torch.core.quorum import QuorumSpec
+
+    rows, launches = {}, {k: 0 for k in QUORUM_KERNELS}
+
+    def record(name, exp, expect, units):
+        r = experiment_run(name, exp, expect, units)
+        rows[name] = r["row"]
+        for k, v in r["row"]["launches"].items():
+            launches[k] += v
+        return r["result"]
+
+    # (a) the quickstart: montecarlo (masked_tally), des and modelcheck
+    quick = quickstart(device=dev)
+    mc = record("quickstart", quick, dict(masked_tally=1),
+                EXPERIMENT_SAMPLES)
+    t0 = time.perf_counter()
+    des = quick.run("des")
+    des_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mcheck = small_batch().run("modelcheck")
+    mcheck_s = time.perf_counter() - t0
+    for i, label in enumerate(quick.labels):
+        p_mc, p_des = float(mc.summary["p50_ms"][i]), des.summary["p50_ms"][i]
+        r_mc = float(mc.summary["recovery_rate"][i])
+        r_des = des.summary["recovery_rate"][i]
+        if abs(p_mc - p_des) / p_des >= 0.05 or abs(r_mc - r_des) >= 0.05:
+            fail(f"quickstart {label}: montecarlo p50 {p_mc}, P(recovery) "
+                 f"{r_mc} vs des {p_des}, {r_des}")
+    if not all(v["ok"] for v in mcheck.safety):
+        fail(f"quickstart modelcheck: {mcheck.summary}")
+    rows["quickstart"].update(
+        des_wall_s=des_s, des_p50_ms=des.summary["p50_ms"],
+        des_recovery_rate=des.summary["recovery_rate"],
+        modelcheck_wall_s=mcheck_s, modelcheck=mcheck.summary)
+
+    # (b) cardinality only: tally_decide materialized, race_card_hist
+    # streamed
+    card = Experiment(systems=[QuorumSpec.paper_headline(11),
+                               QuorumSpec.fast_paxos(11),
+                               QuorumSpec.majority_fast(11)],
+                      workload=Workload.race(k=2, delta_ms=0.2),
+                      samples=EXPERIMENT_SAMPLES, device=dev)
+    chunks = -(-EXPERIMENT_TRIALS // EXPERIMENT_CHUNK)
+    record("cardinality", card, dict(tally_decide=1), EXPERIMENT_SAMPLES)
+    record("cardinality_stream",
+           dataclasses.replace(card, trials=EXPERIMENT_TRIALS,
+                               chunk=EXPERIMENT_CHUNK),
+           dict(race_card_hist=chunks), EXPERIMENT_TRIALS)
+
+    # (c) the quickstart's systems streamed: the fused stream kernel
+    record("quickstart_stream",
+           dataclasses.replace(quick, trials=EXPERIMENT_TRIALS,
+                               chunk=EXPERIMENT_CHUNK),
+           dict(stream_tally_decide_hist=chunks), EXPERIMENT_TRIALS)
+
+    # (d) both committed configs, loaded unchanged: regime streams decide
+    # through masked_tally (diurnal_wan has a grid) and tally_decide
+    for path, kern in zip(SCENARIOS, ("masked_tally", "tally_decide")):
+        exp = Experiment.from_config(os.path.join(ROOT, path), device=dev)
+        name = os.path.basename(path)[:-len(".json")]
+        st = record(name, exp, {kern: -(-exp.trials // exp.chunk)},
+                    exp.trials).stream
+        check_regime_stream(st, exp.trials, len(exp.systems), name)
+        rows[name].update(trials=exp.trials, chunk=exp.chunk,
+                          regimes=list(st.names),
+                          occupancy=st.occupancy.tolist())
+    return {"card": smi, "rows": rows, "launches": launches}
+
+
 def serve_profile(res: dict) -> None:
     """Trace a prefill and a whole serving run of ``serve_phase``'s model
     with torch.profiler (the card's busy and idle share, device time by
@@ -1606,6 +1825,12 @@ def main() -> None:
     emit("quorum_reached", ok=True, launches=launches_qr,
          reached_share=float(reached.float().mean()))
 
+    # ---- the Experiment API (tally_decide, masked_tally, race_card_hist,
+    # stream_tally_decide_hist) -------------------------------------------
+    exper = experiment_phase(dev, smi)
+    emit("experiment", ok=True, card=exper["card"], rows=exper["rows"],
+         launches=exper["launches"])
+
     # ---- the model paths ----------------------------------------------------
     # Every per-kernel timing runs before the serving traces (serve_profile).
     ssd_errs = ssd_phase(dev)
@@ -1626,13 +1851,19 @@ def main() -> None:
     serve_profile(zamba)
 
     # ---- the kernels line ---------------------------------------------------
-    launches = {"tally_votes": launches_qr["tally_votes"],
-                "tally_decide": launches4c["tally_decide"],
-                "masked_tally": launches4["masked_tally"],
-                "stream_tally_decide_hist":
-                    launches5["stream_tally_decide_hist"],
-                "race_card_hist": launches6["race_card_hist"],
-                **zamba["launches"]}
+    by_path = {"tally_votes": {"quorum_reached":
+                               launches_qr["tally_votes"]},
+               "tally_decide": {"masked_race":
+                                launches4c["tally_decide"]},
+               "masked_tally": {"masked_race": launches4["masked_tally"]},
+               "stream_tally_decide_hist": {
+                   "mixed_batch": launches5["stream_tally_decide_hist"]},
+               "race_card_hist": {"sweep": launches6["race_card_hist"]}}
+    for k, v in exper["launches"].items():
+        by_path[k]["experiment"] = v
+    for k, v in zamba["launches"].items():
+        by_path[k] = {"serve_zamba2_2_7b": v}
+    launches = {k: sum(v.values()) for k, v in by_path.items()}
     model_stats = {
         "ssd": dict(ssd_zamba, max_abs_err=ssd_err, library_ms=None),
         "flash_attention": dict(
@@ -1645,12 +1876,14 @@ def main() -> None:
     line = {"kernels": [
         {"name": k, "route": "cuda", "source": SOURCE,
          "replaces": REPLACES[k], "launches": launches[k],
+         "launches_by_path": by_path[k],
          "max_abs_err": stats[k]["max_abs_err"], "ms": stats[k]["ms"],
          "plain_ms": stats[k]["plain_ms"], "bound_ms": stats[k]["bound_ms"],
          "bound_by": stats[k]["bound_by"], "library_ms": None}
         for k in QUORUM_KERNELS] + [
         {"name": k, "route": "cuda", "source": MODEL_SOURCES[k],
          "replaces": REPLACES[k], "launches": launches[k],
+         "launches_by_path": by_path[k],
          "max_abs_err": st["max_abs_err"], "ms": st["ms"],
          "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
          "bound_by": st["bound_by"], "library_ms": st["library_ms"]}

@@ -94,6 +94,7 @@ def score_systems(systems: Sequence, *,
                   precision: float = streaming.DEFAULT_PRECISION,
                   k_max="auto",
                   seed: int = 0,
+                  regimes=None,
                   recovery: str = "coordinated",
                   axes: Optional[Sequence[Axis]] = None,
                   device=None) -> FrontierResult:
@@ -105,8 +106,11 @@ def score_systems(systems: Sequence, *,
     ``n``).  The batch streams through ``fast_path_stream`` and
     ``race_stream`` at ``trials`` trials each, on the keys of passes
     ``FAST_PASS`` / ``RACE_PASS`` under ``rng.root(seed)``.  ``k_max`` as in
-    ``race_stream``; ``recovery`` picks the collision-recovery rule the race
-    pass prices.  ``wall_s`` of the result holds each pass's wall time."""
+    ``race_stream``; ``regimes`` (a ``MarkovRegimes`` or its config)
+    modulates both passes through failure epochs, and the axes then read
+    the regime-merged totals; ``recovery`` picks the collision-recovery
+    rule the race pass prices.  ``wall_s`` of the result holds each pass's
+    wall time."""
     dev = device_mod.resolve(device)
     masks, native, n = _as_masks(systems, n)
     labels = tuple(m.label or f"system{i}" for i, m in enumerate(masks))
@@ -122,13 +126,15 @@ def score_systems(systems: Sequence, *,
     t0 = time.perf_counter()
     fast = streaming.fast_path_stream(k_fast, table, delay, n=n,
                                       trials=trials, chunk=chunk,
-                                      precision=precision, k_max=k_max)
+                                      precision=precision, k_max=k_max,
+                                      regimes=regimes)
     _sync(dev)
     t1 = time.perf_counter()
     race = streaming.race_stream(k_race, table, offsets, delay, n=n,
                                  k_proposers=k_proposers, trials=trials,
                                  chunk=chunk, precision=precision,
-                                 k_max=k_max, recovery=recovery)
+                                 k_max=k_max, regimes=regimes,
+                                 recovery=recovery)
     _sync(dev)
     t2 = time.perf_counter()
 

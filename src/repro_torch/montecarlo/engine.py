@@ -437,7 +437,8 @@ def race(key: int, table, offsets, delay=None, *, n: int, k_proposers: int,
     _check_recovery(recovery)
     dev = _table_device(table)
     return _race_outcomes(rng.generator(key, dev), table,
-                          _offsets(offsets, dev), delay, n=n,
+                          _offsets(offsets, dev),
+                          lat_mod.to_device(delay, dev), n=n,
                           k_proposers=k_proposers, samples=samples,
                           recovery=recovery)
 
@@ -461,8 +462,10 @@ def fast_path(key: int, table, delay=None, *, n: int,
     """(M, S) conflict-free fast-path commit latencies: each system's
     phase-2f saturation over client -> acceptor -> learner paths."""
     _check_mask_table(table, n)
-    return _fast_path_outcomes(rng.generator(key, _table_device(table)),
-                               table, delay, n=n, samples=samples)
+    dev = _table_device(table)
+    return _fast_path_outcomes(rng.generator(key, dev), table,
+                               lat_mod.to_device(delay, dev), n=n,
+                               samples=samples)
 
 
 def _classic_path_outcomes(gen: torch.Generator, table, delay, *, n: int,
@@ -484,8 +487,10 @@ def classic_path(key: int, table, delay=None, *, n: int,
     """(M, S) leader-relayed classic commit latencies (phase-2c saturation
     after the client -> leader hop)."""
     _check_mask_table(table, n)
-    return _classic_path_outcomes(rng.generator(key, _table_device(table)),
-                                  table, delay, n=n, samples=samples)
+    dev = _table_device(table)
+    return _classic_path_outcomes(rng.generator(key, dev), table,
+                                  lat_mod.to_device(delay, dev), n=n,
+                                  samples=samples)
 
 
 # ---------------------------------------------------------------------------

@@ -6,8 +6,11 @@ for any indices (a collision needs a 63-bit hash collision).  The domains:
 
   ``CHUNK_DOMAIN``        chunk c of a streamed pass
   ``PASS_DOMAIN``         the fast / race pass of one scoring run
+  ``SPLIT_DOMAIN``        a scenario's racing and conflict-free parts
+                          (``RACE_SPLIT`` / ``FREE_SPLIT``; JAX splits the
+                          key in two there)
   ``DEVICE_FOLD_DOMAIN``  per-device keys of a sharded stream (later slice)
-  ``REGIME_FOLD_DOMAIN``  the Markov regime chain (later slice)
+  ``REGIME_FOLD_DOMAIN``  epoch e of the Markov regime chain (``uniform``)
 
 The last two keep the JAX package's tag values (``streaming.py:75``,
 ``regimes.py:76``).  A generator is seeded with the key itself, so
@@ -20,11 +23,15 @@ import torch
 
 CHUNK_DOMAIN = 0
 PASS_DOMAIN = 1
+SPLIT_DOMAIN = 2
 DEVICE_FOLD_DOMAIN = 0x7FFFFFFF
 REGIME_FOLD_DOMAIN = 0x7FFFFFFE
 
 FAST_PASS = 0
 RACE_PASS = 1
+
+RACE_SPLIT = 0
+FREE_SPLIT = 1
 
 _M64 = (1 << 64) - 1
 _M63 = (1 << 63) - 1
@@ -54,3 +61,9 @@ def generator(key: int, device) -> torch.Generator:
     g = torch.Generator(device=device)
     g.manual_seed(int(key))
     return g
+
+
+def uniform(key: int) -> float:
+    """A uniform float in [0, 1) from the key's top 24 bits: exact in f32,
+    computed on the host without a generator."""
+    return (int(key) >> 39) / float(1 << 24)

@@ -25,6 +25,16 @@ Per chunk, the loop picks one lowering from what it can observe:
 
 Decide bits, counts, histograms and maxima are identical across lowerings;
 only the f32 latency sum (hence the mean) accumulates in another order.
+
+``regimes=`` (a ``regimes.MarkovRegimes`` or its config) Markov-modulates
+a stream through failure epochs and returns a ``RegimeStreamSummary``.
+Such a run mixes environments within a chunk, which the card and fused
+lowerings cannot take (they assume one environment a chunk), so it always
+decides through the materialized outcomes (``engine._race_outcomes``: the
+tally_decide or masked_tally kernel on the card) and reduces them into R
+per-regime slices at once.  Trial t's regime is ``zs[t // epoch_trials]``
+in trial-index space, so occupancy does not depend on ``chunk``; even
+``trials <= chunk`` runs the chunk loop.
 """
 from __future__ import annotations
 
@@ -38,8 +48,10 @@ import torch
 from repro_torch.kernels.quorum_tally import ops as qt_ops
 
 from . import engine, rng
+from . import latency as lat_mod
 from .engine import UNDECIDED_MS
 from .latency import default_delay
+from .regimes import MarkovRegimes, RegimeStreamSummary
 
 DEFAULT_CHUNK = 65536
 DEFAULT_PRECISION = 0.01
@@ -158,16 +170,18 @@ class StreamSummary:
     def update(self, out: Dict[str, torch.Tensor],
                valid: torch.Tensor) -> "StreamSummary":
         """Absorb one chunk: ``out`` an (M, C) outcome dict, ``valid`` a (C,)
-        bool mask (False = padding trial, contributes nothing)."""
+        bool mask (False = padding trial, contributes nothing).  A summary
+        stacked over R regimes takes an (R, C) ``valid``, one row a
+        regime."""
         lat = out["latency_ms"]
-        v = valid[None, :]
+        v = valid[..., None, :]
         fast = out["reached_fast"] & v
         rec = out["recovery"] & v
         und = out["undecided"] & v
         decided = fast | rec
-        idx = bucket_index(lat, self.precision).long()
+        idx = bucket_index(lat, self.precision).long().expand(decided.shape)
         hist = torch.zeros_like(self.hist).scatter_add_(
-            1, idx, decided.to(torch.int32))
+            -1, idx, decided.to(torch.int32))
         return self._absorb(
             n_trials=(fast | rec | und).sum(dim=-1).to(torch.int32),
             n_fast=fast.sum(dim=-1).to(torch.int32),
@@ -411,6 +425,59 @@ def _race_fused_update(state: StreamSummary, gen, table, offsets, delay,
 
 
 # ---------------------------------------------------------------------------
+# Markov-modulated regimes: the chunk loop through failure epochs.
+# ---------------------------------------------------------------------------
+
+def _regime_zeros(regimes: MarkovRegimes, m: int, precision: float,
+                  device) -> RegimeStreamSummary:
+    """The merge identity: zero occupancy, R zero summaries stacked."""
+    r = regimes.n_regimes
+    z = StreamSummary.zeros(m, precision, device)
+    return RegimeStreamSummary(
+        names=regimes.names,
+        occupancy=torch.zeros((r,), dtype=torch.int32, device=device),
+        by_regime=replace(z, **{f: torch.stack([getattr(z, f)] * r)
+                                for f in _FIELDS}))
+
+
+def _regime_stream(path: str, key: int, table, offsets,
+                   regimes: MarkovRegimes, *, n, k_proposers, trials, chunk,
+                   precision, k_sat, recovery) -> RegimeStreamSummary:
+    """The chunk loop under a Markov regime chain.
+
+    The chain ``zs`` covers the loop's trial capacity, computed on the host
+    once and moved to the device once; chunk c keeps the i.i.d. stream's
+    generator, samples every hop under the mixed environment, decides
+    once and reduces into the R slices by the regime-selected validity
+    rows."""
+    dev = engine._table_device(table)
+    m = table["p1_w"].shape[0]
+    r, ep = regimes.n_regimes, regimes.epoch_trials
+    n_chunks = -(-trials // chunk)
+    n_epochs = -(-(n_chunks * chunk) // ep)
+    zs = regimes.sequence(key, n_epochs).to(dev)
+    placed = replace(regimes, delays=tuple(
+        lat_mod.to_device(d, dev) for d in regimes.delays))
+    state = _regime_zeros(regimes, m, precision, dev)
+    occ, by = state.occupancy, state.by_regime
+    lanes = torch.arange(chunk, device=dev)
+    regs = torch.arange(r, device=dev)[:, None]
+    for i in range(n_chunks):
+        gen = rng.generator(rng.derive(key, rng.CHUNK_DOMAIN, i), dev)
+        tidx = i * chunk + lanes
+        rid = zs[torch.div(tidx, ep, rounding_mode="floor")]
+        out = _chunk_outcomes(path, gen, table, offsets,
+                              placed.mixed_delay(rid), n=n,
+                              k_proposers=k_proposers, chunk=chunk,
+                              k_sat=k_sat, recovery=recovery)
+        sel = (tidx < trials)[None, :] & (rid[None, :] == regs)   # (R, C)
+        by = by.update(out, sel)
+        occ = occ + sel.sum(dim=1, dtype=torch.int32)
+    return RegimeStreamSummary(names=regimes.names, occupancy=occ,
+                               by_regime=by)
+
+
+# ---------------------------------------------------------------------------
 # The chunk loop.
 # ---------------------------------------------------------------------------
 
@@ -440,7 +507,7 @@ def _resolve_k_sat(table, k_max, n: int):
 
 def _stream_entry(path: str, key: int, table, delay, offsets, *, n,
                   k_proposers, trials, chunk, precision, k_max="auto",
-                  recovery="coordinated") -> StreamSummary:
+                  regimes=None, recovery="coordinated"):
     engine._check_mask_table(table, n)
     engine._check_recovery(recovery)
     if trials < 1:
@@ -449,6 +516,16 @@ def _stream_entry(path: str, key: int, table, delay, offsets, *, n,
         raise ValueError(f"chunk must be >= 1, got {chunk}")
     sketch_bins(precision)
     dev = engine._table_device(table)
+    if regimes is not None:
+        if isinstance(regimes, dict):
+            regimes = MarkovRegimes.from_config(regimes, n)
+        regimes = regimes.validate().bound(
+            delay if delay is not None else default_delay())
+        return _regime_stream(path, key, table, engine._offsets(offsets, dev),
+                              regimes, n=n, k_proposers=k_proposers,
+                              trials=trials, chunk=chunk, precision=precision,
+                              k_sat=_resolve_k_sat(table, k_max, n),
+                              recovery=recovery)
     if trials <= chunk:
         # the materializing path is the T <= chunk case, on the same key.
         if path == "race":
@@ -468,8 +545,8 @@ def _stream_entry(path: str, key: int, table, delay, offsets, *, n,
     card = "q" in table and k_sat is not None
     fused = path == "race" and "q" not in table and k_sat is not None
     layout = _card_layout(table, recovery) if card else None
-    if delay is None:
-        delay = default_delay()
+    delay = lat_mod.to_device(default_delay() if delay is None else delay,
+                              dev)
     offsets = engine._offsets(offsets, dev)
     m = table["p1_w"].shape[0]
     state = StreamSummary.zeros(m, precision, dev)
@@ -508,33 +585,35 @@ def _stream_entry(path: str, key: int, table, delay, offsets, *, n,
 def race_stream(key: int, table, offsets, delay=None, *, n: int,
                 k_proposers: int, trials: int, chunk: int = DEFAULT_CHUNK,
                 precision: float = DEFAULT_PRECISION, k_max="auto",
-                recovery: str = "coordinated") -> StreamSummary:
+                regimes=None, recovery: str = "coordinated"):
     """``engine.race`` at any trial count in fixed memory, reduced into a
     ``StreamSummary`` on the table's device.  ``k_max`` ("auto" by default)
     selects the sort-free lowerings; ``None`` keeps the full-sort reference
-    path.  Integer outputs are identical across settings."""
+    path.  Integer outputs are identical across settings.  ``regimes`` (a
+    ``MarkovRegimes`` or its config) returns a ``RegimeStreamSummary``."""
     return _stream_entry("race", key, table, delay, offsets, n=n,
                          k_proposers=k_proposers, trials=trials, chunk=chunk,
-                         precision=precision, k_max=k_max, recovery=recovery)
+                         precision=precision, k_max=k_max, regimes=regimes,
+                         recovery=recovery)
 
 
 def fast_path_stream(key: int, table, delay=None, *, n: int, trials: int,
                      chunk: int = DEFAULT_CHUNK,
                      precision: float = DEFAULT_PRECISION,
-                     k_max="auto") -> StreamSummary:
+                     k_max="auto", regimes=None):
     """Streamed conflict-free fast path: decided instances count as fast
-    commits, lost ones as undecided."""
+    commits, lost ones as undecided.  ``regimes`` as in ``race_stream``."""
     return _stream_entry("fast_path", key, table, delay, None, n=n,
                          k_proposers=1, trials=trials, chunk=chunk,
-                         precision=precision, k_max=k_max)
+                         precision=precision, k_max=k_max, regimes=regimes)
 
 
 def classic_path_stream(key: int, table, delay=None, *, n: int, trials: int,
                         chunk: int = DEFAULT_CHUNK,
                         precision: float = DEFAULT_PRECISION,
-                        k_max="auto") -> StreamSummary:
+                        k_max="auto", regimes=None):
     """Streamed leader-relayed classic path: decided instances count as
-    recoveries."""
+    recoveries.  ``regimes`` as in ``race_stream``."""
     return _stream_entry("classic_path", key, table, delay, None, n=n,
                          k_proposers=1, trials=trials, chunk=chunk,
-                         precision=precision, k_max=k_max)
+                         precision=precision, k_max=k_max, regimes=regimes)

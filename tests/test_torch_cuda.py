@@ -910,3 +910,92 @@ def test_forward_under_autograd_raises_on_the_card(cuda):
         m({"tokens": toks})
     with torch.no_grad():
         assert m({"tokens": toks}).shape == (1, 16, cfg.vocab)
+
+
+# ---------------------------------------------------------------------------
+# The Experiment API on the card.
+# ---------------------------------------------------------------------------
+
+def _experiment(case, dev):
+    """(Experiment, the one kernel its Monte-Carlo run launches, launches)
+    at a small size: the quickstart's mixed batch and a cardinality batch,
+    materialized and streamed, and both committed scenario configs."""
+    import dataclasses
+    import os
+    from repro_torch.api import Experiment, Workload
+    from repro_torch.api.__main__ import quickstart
+    from repro_torch.core.quorum import QuorumSpec
+    from chip_smoke import ROOT, SCENARIOS
+    card = Experiment(systems=[QuorumSpec.paper_headline(11),
+                               QuorumSpec.fast_paxos(11)],
+                      workload=Workload.race(k=2, delta_ms=0.2),
+                      samples=4000, device=dev)
+    quick = quickstart(samples=4000, device=dev)
+    if case == "quickstart":
+        return quick, "masked_tally", 1
+    if case == "cardinality":
+        return card, "tally_decide", 1
+    if case == "cardinality_stream":
+        return (dataclasses.replace(card, trials=100_000, chunk=32_768),
+                "race_card_hist", 4)
+    if case == "quickstart_stream":
+        return (dataclasses.replace(quick, trials=100_000, chunk=32_768),
+                "stream_tally_decide_hist", 4)
+    path = SCENARIOS[0 if case == "diurnal_wan" else 1]
+    exp = Experiment.from_config(os.path.join(ROOT, path), device=dev)
+    kern = "masked_tally" if case == "diurnal_wan" else "tally_decide"
+    return dataclasses.replace(exp, trials=100_000), kern, 7
+
+
+@pytest.mark.parametrize("case", ["quickstart", "cardinality",
+                                  "cardinality_stream", "quickstart_stream",
+                                  "diurnal_wan", "trace_replay"])
+def test_experiment_kernels_equal_plain_versions(cuda, case):
+    """An Experiment's Monte-Carlo run on the card launches its path's
+    kernel and no other, and equals the same run with the quorum kernels
+    swapped for their plain versions: decide bits and latencies, or
+    counts, histograms, maxima and occupancy, equal; means to 1e-5."""
+    from chip_smoke import plain_quorum_kernels, same_stream
+    exp, kern, n = _experiment(case, cuda)
+    ops.reset_launches()
+    got = exp.run("montecarlo")
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES == {k: n if k == kern else 0 for k in ops.LAUNCHES}
+    with plain_quorum_kernels():
+        want = exp.run("montecarlo")
+    if got.raw is not None:
+        for f in got.raw:
+            assert torch.equal(got.raw[f], want.raw[f]), f
+    else:
+        same_stream(got.stream, want.stream, case)
+    for v in got.summary.values():
+        assert v.device.type == "cuda"
+
+
+@pytest.mark.parametrize("path", ["race", "fast_path"])
+@pytest.mark.parametrize("masked", [False, True], ids=["card", "masked"])
+def test_single_regime_stream_equals_iid_on_card(cuda, path, masked):
+    """A single-regime stream (generic outcomes: tally_decide or
+    masked_tally) equals the i.i.d. stream (race_card_hist or the fused
+    stream kernel on the race; the shared-column or masked fast path) on
+    counts, histograms and maxima."""
+    from repro_torch.core.quorum import QuorumSpec
+    from repro_torch.montecarlo import engine, regimes, rng
+    specs = [QuorumSpec.paper_headline(11), QuorumSpec.fast_paxos(11)]
+    table = engine.build_mask_table(specs, device=cuda,
+                                    specialize=not masked)
+    only = regimes.MarkovRegimes(names=("only",), delays=(None,),
+                                 transition=torch.ones((1, 1)))
+    kw = dict(n=11, trials=50_000, chunk=16_384)
+    if path == "race":
+        run = lambda **r: streaming.race_stream(
+            rng.root(2), table, [0.0, 0.2], k_proposers=2, **kw, **r)
+    else:
+        run = lambda **r: streaming.fast_path_stream(rng.root(2), table,
+                                                     **kw, **r)
+    plain, mod = run(), run(regimes=only)
+    assert mod.occupancy.tolist() == [50_000]
+    for f in ("n_trials", "n_fast", "n_recovery", "n_undecided", "hist",
+              "max_ms"):
+        assert torch.equal(getattr(plain, f), getattr(mod, f)), f
+    assert torch.allclose(plain.mean_ms, mod.mean_ms, rtol=1e-5, atol=0.0)

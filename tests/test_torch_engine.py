@@ -262,11 +262,22 @@ def test_key_domains_are_disjoint_and_seed_generators():
     devices = {rng.derive(rng.derive(root, rng.DEVICE_FOLD_DOMAIN, 0),
                           rng.CHUNK_DOMAIN, d) for d in range(1024)}
     passes = {rng.derive(root, rng.PASS_DOMAIN, p) for p in range(3)}
-    regimes = {rng.derive(root, rng.REGIME_FOLD_DOMAIN, 0)}
-    assert len(chunks) == 1 << 16
-    for other in (devices, passes, regimes):
+    regimes = {rng.derive(root, rng.REGIME_FOLD_DOMAIN, e)
+               for e in range(1024)}
+    splits = {rng.derive(root, rng.SPLIT_DOMAIN, s)
+              for s in (rng.RACE_SPLIT, rng.FREE_SPLIT)}
+    assert len(chunks) == 1 << 16 and len(splits) == 2
+    for other in (devices, passes, regimes, splits):
         assert not chunks & other
     assert not devices & passes
+    for a, b in ((splits, devices), (splits, passes), (splits, regimes),
+                 (regimes, devices), (regimes, passes)):
+        assert not a & b
+    # the split keys' own chunk streams are disjoint from the root's
+    for k in splits:
+        assert not chunks & {rng.derive(k, rng.CHUNK_DOMAIN, i)
+                             for i in range(1 << 12)}
+    assert all(0.0 <= rng.uniform(k) < 1.0 for k in regimes)
     assert rng.derive(root, rng.CHUNK_DOMAIN, 3) == rng.derive(
         rng.root(0), rng.CHUNK_DOMAIN, 3)
     key = rng.derive(root, rng.PASS_DOMAIN, rng.RACE_PASS)

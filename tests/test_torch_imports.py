@@ -38,7 +38,14 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "repro_torch.kernels.rmsnorm.kernel",
                  "repro_torch.kernels.rmsnorm.ops",
                  "repro_torch.kernels.rmsnorm.ref",
-                 "repro_torch.kernels._build"):
+                 "repro_torch.kernels._build",
+                 "repro_torch.api", "repro_torch.api.experiment",
+                 "repro_torch.api.__main__",
+                 "repro_torch.core.protocol", "repro_torch.core.simulator",
+                 "repro_torch.core.model_check",
+                 "repro_torch.montecarlo.traces",
+                 "repro_torch.montecarlo.regimes",
+                 "repro_torch.montecarlo.scenarios"):
         assert name in names
     code = f"""
 import importlib, sys
@@ -65,8 +72,18 @@ from repro_torch.montecarlo import engine
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.launch import serve
 from repro_torch.models.model import DecoderLM
+from repro_torch.api import Experiment, Workload, frontier
+from repro_torch.api.__main__ import main as api_main
 cfg = reduced_config(get_config("mamba2_130m"))
+exp = Experiment(systems=[QuorumSpec(3, 2, 2, 3)],
+                 workload=Workload.race(k=2))
 for fn in (lambda: score_systems(cardinality_family(3), trials=10),
+           lambda: exp.run("montecarlo"),
+           lambda: Experiment.from_config(
+               "examples/scenarios/trace_replay.json").run("montecarlo"),
+           lambda: exp.frontier(trials=10),
+           lambda: frontier([QuorumSpec(3, 2, 2, 3)], trials=10),
+           lambda: api_main(["--smoke"]),
            lambda: run_sweep(quick=True),
            lambda: engine.build_mask_table([QuorumSpec(3, 2, 2, 3)]),
            lambda: serve.main(["--arch", "mamba2_130m", "--smoke"]),
