@@ -55,6 +55,24 @@ Phases, one JSON line each:
               quorum kernels swapped for their plain versions: integers and
               maxima equal, means to 1e-5; warm wall (median of 3), rate,
               launches, the card's busy and idle share over one traced run
+  planner     the search-and-serve planner (``repro_torch.planner``) on the
+              card: (1) a cold n=11 cardinality search at 10^6 final
+              trials (rungs of 10^5 and 10^6, chunk 16384, seed 0: the
+              race_card_hist path), its frontier the direct 271-system
+              sweep's at 10^6 trials and its survivors' rows the direct
+              rows on every axis, at most 40% of the exhaustive budget;
+              (2) the same geometry under another budget and objective:
+              answered warm, no launch plan built and no kernel launched;
+              (3) the n=11 "all" family (404 systems, 10^5 trials: the
+              fused stream kernel) with its peak device memory; (4) the
+              weighted family under examples/scenarios/diurnal_wan.json's
+              regime workload (masked_tally a chunk); (5) a PlannerServer
+              answering two concurrent n=11 queries (10^5 trials, chunk
+              16384: one rung materialized, tally_decide) with one search,
+              then a repeat warm.  Each query's launches (zeroed before,
+              read after, held to those its rungs' batches take), launch
+              plans built, wall, rungs, and the card's busy time and idle
+              share over a traced cold run
   serve_mamba2_130m   mamba2_130m at full width (24 layers, d_model 768,
               vocab 50280), seeded weights, 4 requests of 1024 prompt
               tokens and 32 greedy decode steps through
@@ -1279,6 +1297,296 @@ def experiment_phase(dev, smi: str) -> dict:
     return {"card": smi, "rows": rows, "launches": launches}
 
 
+# The planner phase: JAX's acceptance search (n=11, 10^6 final trials,
+# rungs of 10^5 and 10^6, chunk 16384, seed 0), its warm repeat, the
+# n=11 "all" family and a weighted search under diurnal_wan.json's regime
+# workload at 10^5 trials (default schedule and chunk), and the server
+# (two concurrent n=11 queries of 10^5 trials at chunk 16384: a rung of
+# 10^4 trials materialized, tally_decide).
+PLANNER_N = 11
+PLANNER_TRIALS = 10 ** 6
+PLANNER_CHUNK = 16_384
+PLANNER_SCHEDULE = ((100_000, 1.0), (1_000_000, 1.0))
+PLANNER_ALL_TRIALS = 10 ** 5
+PLANNER_BUDGET = 0.40
+
+
+def rung_launches(rungs, batches, chunk: int, regimes: bool) -> dict:
+    """The quorum kernels' launches a search's race passes make: a
+    cardinality batch (``"q"`` in its table) streams through
+    ``race_card_hist`` a chunk and materializes (trials <= chunk) through
+    one ``tally_decide``; a masked batch through the fused stream kernel a
+    chunk, or one ``masked_tally``.  Regime streams decide every chunk
+    through ``tally_decide`` / ``masked_tally``.  ``batches[i]`` are rung
+    i's members."""
+    from repro_torch.frontier.score import _as_masks
+    out = only()
+    for r, members in zip(rungs, batches):
+        card = all(m.cardinality_q() is not None
+                   for m in _as_masks(members, None)[0])
+        chunks = -(-r.trials // chunk)
+        if regimes:
+            out["tally_decide" if card else "masked_tally"] += chunks
+        elif r.trials <= chunk:
+            out["tally_decide" if card else "masked_tally"] += 1
+        else:
+            out["race_card_hist" if card
+                else "stream_tally_decide_hist"] += chunks
+    return out
+
+
+def survivors_by_family(members) -> dict:
+    """How many of a search's survivors each family holds (by label)."""
+    out = {}
+    for m in members:
+        fam = m.label.split("[")[0].split(".")[0]
+        out[fam] = out.get(fam, 0) + 1
+    return out
+
+
+def planner_query(name: str, planner, query: dict, expect, *, cold: bool,
+                  fresh=None) -> tuple:
+    """One ``Planner.plan`` on the card: launch counts zeroed just before
+    and read just after (held to ``expect``: a dict, or a function of the
+    search's rungs and batches), launch plans built, untraced wall; then
+    the same query traced (on ``fresh()``, a new planner, where the query
+    is cold) for the card's busy time and idle share."""
+    from repro_torch.kernels.quorum_tally import ops
+    plans0 = ops.launch_plans()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    res = planner.plan(query)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    built = ops.launch_plans() - plans0
+    if not res.ok:
+        fail(f"planner {name}: {res.reason}")
+    if res.cold != cold:
+        fail(f"planner {name}: cold {res.cold}, expected {cold}")
+    if res.engine_compiles != (built if cold else 0):
+        fail(f"planner {name}: engine_compiles {res.engine_compiles}, "
+             f"{built} launch plans built")
+    # the search that answered: the planner's LRU, newest last
+    sr = list(planner._searches.values())[-1]
+    want = expect(sr) if callable(expect) else expect
+    if launches != want:
+        fail(f"planner {name} launches {launches}, expected {want}")
+    target = fresh() if fresh is not None else planner
+    prof = device_profile(lambda: target.plan(query), top=4)
+    row = dict(
+        launches=launches, launch_plans_built=built, wall_s=wall,
+        device_busy_s=prof["device_busy_s"],
+        idle_share=1.0 - prof["device_busy_s"] / wall,
+        profiled_wall_s=prof["wall_s"],
+        device_launches=sum(prof["by_kernel_n"].values()),
+        top_ms=prof["top"], cold=res.cold,
+        engine_compiles=res.engine_compiles,
+        recommended=res.recommended, fault_tolerance=res.fault_tolerance,
+        predicted_ms=res.predicted_ms,
+        budget_fraction=res.search["budget_fraction"],
+        rungs=[r.to_dict() for r in sr.rungs],
+        frontier=list(res.frontier_labels))
+    return res, sr, row
+
+
+def planner_plain(name: str, dev, query: dict, sr) -> float:
+    """The query's search again, on a new planner with the plain versions:
+    nothing launches, every rung scores and keeps as many systems, the
+    survivors and the final frontier (labels, values, mask) are equal, and
+    its fast and race streams agree as ``same_stream`` holds them.  Returns
+    the plain search's wall seconds."""
+    from repro_torch.kernels.quorum_tally import ops
+    from repro_torch.planner import Planner
+    planner = Planner(device=dev)
+    query = {k: v for k, v in query.items() if k != "op"}
+    with plain_quorum_kernels():
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        planner.plan(query)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if any(ops.LAUNCHES.values()):
+            fail(f"planner {name}: the plain search launched {ops.LAUNCHES}")
+    ref = list(planner._searches.values())[-1]
+    got = [(r.trials, r.n_scored, r.n_survivors) for r in sr.rungs]
+    want = [(r.trials, r.n_scored, r.n_survivors) for r in ref.rungs]
+    if got != want:
+        fail(f"planner {name}: rungs {got}, the plain versions' {want}")
+    a, b = sr.frontier, ref.frontier
+    if tuple(a.labels) != tuple(b.labels):
+        fail(f"planner {name}: survivors {a.labels}, the plain versions' "
+             f"{b.labels}")
+    if not np.array_equal(a.values, b.values, equal_nan=True):
+        fail(f"planner {name}: frontier values differ from the plain "
+             f"versions'")
+    if not np.array_equal(np.asarray(a.mask), np.asarray(b.mask)):
+        fail(f"planner {name}: frontier mask differs from the plain versions'")
+    for k in ("fast", "race"):
+        same_stream(a.streams[k], b.streams[k], f"planner {name} {k}")
+    return wall
+
+
+def planner_phase(dev) -> dict:
+    """The search-and-serve planner (``repro_torch.planner``) on the card:
+    returns the rows and the launches by kernel on this path."""
+    import threading
+    from repro_torch.api import Experiment
+    from repro_torch.frontier import families, score_systems
+    from repro_torch.kernels.quorum_tally import ops
+    from repro_torch.planner import Planner, PlannerServer, query_server
+
+    rows, launches = {}, only()
+    fresh = lambda: Planner(device=dev)
+
+    def record(name, *args, **kw):
+        res, sr, row = planner_query(name, *args, **kw)
+        rows[name] = row
+        for k, v in row["launches"].items():
+            launches[k] += v
+        return res, sr
+
+    # 1. cold: the acceptance search against the direct 271-system sweep
+    planner = fresh()
+    geo = dict(n=PLANNER_N, family="cardinality", trials=PLANNER_TRIALS,
+               schedule=PLANNER_SCHEDULE, chunk=PLANNER_CHUNK, seed=0)
+    members = families.cardinality_family(PLANNER_N)
+    res, sr = record("cold", planner, dict(geo, faults={"classic": 1}),
+                     lambda s: rung_launches(s.rungs, [members, s.members],
+                                             PLANNER_CHUNK, False),
+                     cold=True, fresh=fresh)
+    direct = score_systems(members, n=PLANNER_N, trials=PLANNER_TRIALS,
+                           chunk=PLANNER_CHUNK, seed=0, device=dev)
+    if set(res.frontier_labels) != set(direct.frontier_labels):
+        fail(f"planner frontier {res.frontier_labels} is not the direct "
+             f"sweep's {direct.frontier_labels}")
+    didx = {l: i for i, l in enumerate(direct.labels)}
+    for row, label in enumerate(sr.frontier.labels):
+        a, b = sr.frontier.values[row], direct.values[didx[label]]
+        if not np.array_equal(a, b, equal_nan=True):
+            fail(f"planner survivor {label}: {a.tolist()} is not the direct "
+                 f"row {b.tolist()}")
+    if res.search["budget_fraction"] > PLANNER_BUDGET:
+        fail(f"planner budget fraction {res.search['budget_fraction']}")
+    if res.fault_tolerance["classic"] < 1:
+        fail(f"planner cold: {res.fault_tolerance} misses the budget")
+    rows["cold"].update(direct_frontier=list(direct.frontier_labels),
+                        n_survivors=len(sr.members),
+                        plain_wall_s=planner_plain(
+                            "cold", dev, dict(geo, faults={"classic": 1}),
+                            sr))
+
+    # 2. warm: same geometry, another budget and objective
+    res, _ = record("warm", planner,
+                    dict(geo, faults={"fast": 1, "phase1": 1},
+                         objective="fast_p50_ms"), only(), cold=False)
+    if res.fault_tolerance["fast"] < 1 or res.fault_tolerance["phase1"] < 1:
+        fail(f"planner warm: {res.fault_tolerance} misses the budget")
+
+    # 3. the n=11 "all" family (masked table), peak device memory
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    q_all = dict(n=PLANNER_N, family="all", trials=PLANNER_ALL_TRIALS,
+                 seed=0)
+    from repro_torch.frontier.score import DEFAULT_CHUNK
+    batches = lambda s: [families.all_families(PLANNER_N), s.members]
+    _, sr = record("all", planner, q_all,
+                   lambda s: rung_launches(s.rungs, batches(s),
+                                           DEFAULT_CHUNK, False),
+                   cold=True, fresh=fresh)
+    rows["all"].update(peak_bytes=torch.cuda.max_memory_allocated(),
+                       allocated_before_bytes=mem0,
+                       n_candidates=len(families.all_families(PLANNER_N)),
+                       survivors_by_family=survivors_by_family(sr.members),
+                       plain_wall_s=planner_plain("all", dev, q_all, sr))
+    if not rows["all"]["launches"]["stream_tally_decide_hist"]:
+        fail("planner all: the fused stream kernel did not run")
+
+    # 4. a weighted search under diurnal_wan.json's regime workload
+    cfg = os.path.join(ROOT, "examples/scenarios/diurnal_wan.json")
+    exp = Experiment.from_config(cfg, device=dev)
+    q_reg = dict(n=exp.n, family="weighted", trials=PLANNER_ALL_TRIALS,
+                 workload=exp.workload.to_dict(), seed=0)
+    wmembers = families.family("weighted", exp.n)
+    _, sr = record("regimes", planner, q_reg,
+                   lambda s: rung_launches(s.rungs, [wmembers, s.members],
+                                           DEFAULT_CHUNK, True),
+                   cold=True, fresh=fresh)
+    rows["regimes"].update(n=exp.n, n_candidates=len(wmembers),
+                           survivors_by_family=survivors_by_family(
+                               sr.members),
+                           plain_wall_s=planner_plain("regimes", dev, q_reg,
+                                                      sr))
+
+    # 5. the server: two concurrent same-geometry queries, one search
+    server = PlannerServer(device=dev, port=0, batch_window_s=0.05)
+    server.start()
+    try:
+        q_srv = dict(op="plan", n=PLANNER_N, family="cardinality",
+                     trials=PLANNER_ALL_TRIALS, chunk=PLANNER_CHUNK, seed=0)
+        replies = [None, None]
+
+        def ask(i, faults):
+            replies[i] = query_server(dict(q_srv, faults=faults),
+                                      port=server.port)
+
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=ask, args=(i, f)) for i, f in
+                   enumerate(({"classic": 1}, {"fast": 1}))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        srv_launches = dict(ops.LAUNCHES)
+        if any(t.is_alive() for t in threads) or not all(
+                r and r["ok"] for r in replies):
+            fail(f"planner server: replies {replies}")
+        stats = query_server({"op": "stats"}, port=server.port)
+        if stats["search_misses"] != 1.0:
+            fail(f"planner server: {stats['search_misses']} searches for "
+                 f"two same-geometry queries")
+        if sorted(r["engine_compiles"] for r in replies)[0] != 0:
+            fail(f"planner server: the repeat built launch plans {replies}")
+        sr_srv = list(server.planner._searches.values())[-1]
+        want = rung_launches(sr_srv.rungs,
+                             [members, sr_srv.members], PLANNER_CHUNK,
+                             False)
+        if srv_launches != want:
+            fail(f"planner server launches {srv_launches}, expected {want}")
+        ops.reset_launches()
+        t1 = time.perf_counter()
+        again = query_server(dict(q_srv, faults={"phase1": 1}),
+                             port=server.port)
+        warm_wall = time.perf_counter() - t1
+        if again["cold"] or again["engine_compiles"] or any(
+                ops.LAUNCHES.values()):
+            fail(f"planner server repeat: {again}, launches {ops.LAUNCHES}")
+        prof = device_profile(lambda: query_server(
+            dict(q_srv, faults={"classic": 2}, seed=1), port=server.port),
+            top=4)
+    finally:
+        server.shutdown()
+    for k, v in srv_launches.items():
+        launches[k] += v
+    plain_s = planner_plain("server", dev, dict(q_srv, faults={"classic": 1}),
+                            sr_srv)
+    rows["server"] = dict(
+        launches=srv_launches, wall_s=wall, repeat_wall_s=warm_wall,
+        cold=[r["cold"] for r in replies],
+        engine_compiles=[r["engine_compiles"] for r in replies],
+        search_misses=stats["search_misses"],
+        rungs=[r.to_dict() for r in sr_srv.rungs],
+        traced_cold_wall_s=prof["wall_s"],
+        traced_cold_device_busy_s=prof["device_busy_s"],
+        traced_cold_idle_share=1.0 - prof["device_busy_s"] / prof["wall_s"],
+        recommended=[r["recommended"] for r in replies],
+        plain_wall_s=plain_s)
+    return {"rows": rows, "launches": launches}
+
+
 def serve_profile(res: dict) -> None:
     """Trace a prefill and a whole serving run of ``serve_phase``'s model
     with torch.profiler (the card's busy and idle share, device time by
@@ -1831,6 +2139,12 @@ def main() -> None:
     emit("experiment", ok=True, card=exper["card"], rows=exper["rows"],
          launches=exper["launches"])
 
+    # ---- the planner (race_card_hist, stream_tally_decide_hist,
+    # masked_tally, tally_decide) ------------------------------------------
+    plan = planner_phase(dev)
+    emit("planner", ok=True, card=smi, rows=plan["rows"],
+         launches=plan["launches"])
+
     # ---- the model paths ----------------------------------------------------
     # Every per-kernel timing runs before the serving traces (serve_profile).
     ssd_errs = ssd_phase(dev)
@@ -1861,6 +2175,8 @@ def main() -> None:
                "race_card_hist": {"sweep": launches6["race_card_hist"]}}
     for k, v in exper["launches"].items():
         by_path[k]["experiment"] = v
+    for k, v in plan["launches"].items():
+        by_path[k]["planner"] = v
     for k, v in zamba["launches"].items():
         by_path[k] = {"serve_zamba2_2_7b": v}
     launches = {k: sum(v.values()) for k, v in by_path.items()}

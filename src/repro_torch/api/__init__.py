@@ -14,8 +14,9 @@ runs unmodified against:
 ``Experiment(..., trials=10**6)`` streams the Monte-Carlo backend into a
 fixed-size quantile sketch; ``Experiment.from_config`` loads the scenario
 JSON (``examples/scenarios/*.json``).  ``frontier(...)`` scores a batch into
-its Pareto frontier.  ``plan`` raises ``NotImplementedError``: the planner
-is not ported yet.
+its Pareto frontier.  ``plan(...)`` / ``Experiment.plan()`` run the
+successive-halving planner (``repro_torch.planner``) through the device's
+process-wide planner: repeat same-geometry calls reuse its cached search.
 
 ``python -m repro_torch.api [--config FILE] [--backend ...] [--device cpu]
 [--smoke]`` runs the quickstart experiment or a scenario JSON.
@@ -23,4 +24,5 @@ is not ported yet.
 from repro_torch.montecarlo.streaming import StreamSummary  # noqa: F401
 
 from .experiment import (BACKENDS, Experiment, Results,  # noqa: F401
-                         Workload, frontier, plan, sweep, system_from_config)
+                         Workload, default_planner, frontier, plan, sweep,
+                         system_from_config)

@@ -25,9 +25,11 @@ picks the kernel.  The DES and model-check backends run on the host.
 """
 from __future__ import annotations
 
+import dataclasses
 import inspect
 import json
 import random
+import threading
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Any, Dict, Optional, Sequence, Tuple
@@ -64,13 +66,8 @@ _DROPPED_KEYS = {
     "use_kernel": "the port has no kernel switch: the device picks every "
                   "kernel (CUDA kernels on the card, plain versions on the "
                   "CPU)",
-    "shard": "the multi-process trial mesh is not ported yet (ROADMAP.md "
-             "queue 1, the multi-process mesh item); a run uses one "
-             "device",
+    "shard": device_mod.SHARD_REFUSED,
 }
-
-_PLANNER_TODO = ("the planner is not ported yet (ROADMAP.md queue 1, the "
-                 "planner item: planner/search.py, cache.py, service.py)")
 
 
 # ---------------------------------------------------------------------------
@@ -476,10 +473,37 @@ class Experiment:
                         seed=self.seed, k_max=self.k_max, axes=axes,
                         device=self.device)
 
-    def plan(self, *args, **kwargs):
-        """Search a family for the best system under this workload: the
-        planner is not ported yet."""
-        raise NotImplementedError(_PLANNER_TODO)
+    def plan(self, family: str = "cardinality", *,
+             faults: Optional[Dict[str, int]] = None,
+             trials: Optional[int] = None,
+             objective: str = "race_p999_ms", planner=None, **query_kw):
+        """Search ``family`` for the best system under this experiment's
+        workload and engine knobs (``repro_torch.planner``), on its
+        ``device``.
+
+        ``faults`` is the minimum crash-budget triple the recommendation
+        must satisfy (``{"fast": 1, "phase1": 2, "classic": 2}``; missing
+        keys 0) -- distinct from the experiment's ``faults`` tuple, whose
+        named acceptors are crashed for the whole scoring run, as on the
+        montecarlo backend.  ``trials`` is the final successive-halving
+        budget (default: the experiment's streaming trial count, or 10^6).
+        Queries go to the device's default planner (or an explicit
+        ``planner``), so a repeat same-geometry plan reuses its cached
+        search.  Returns a ``repro_torch.planner.PlanResult``."""
+        wl = self.workload
+        if self.faults:
+            wl = dataclasses.replace(
+                wl, delay=CrashedDelay(wl.delay_for(self.n),
+                                       crash_mask(self.n, self.faults)),
+                loss_prob=0.0)
+        query = dict(n=self.n, family=family, workload=wl,
+                     faults=faults or {},
+                     trials=(trials if trials is not None
+                             else self.trials or 1_000_000),
+                     objective=objective, chunk=self.chunk,
+                     precision=self.precision, seed=self.seed,
+                     k_max=self.k_max, **query_kw)
+        return plan(query, planner=planner, device=self.device)
 
     def _fault_tolerance(self) -> Optional[Tuple[Dict[str, int], ...]]:
         if not self.compute_fault_tolerance or self.n > _FT_MAX_N:
@@ -668,11 +692,46 @@ def frontier(systems: Sequence, workload: Optional[Workload] = None, *,
         recovery=wl.recovery, device=device)
 
 
-def default_planner():
-    """The process-wide planner: not ported yet."""
-    raise NotImplementedError(_PLANNER_TODO)
+# Process-wide planners behind ``plan()``, one per device: one engine pool
+# and search LRU shared by every in-process query on that device, so the
+# second same-geometry call searches nothing (the planner service holds its
+# own instance).
+_PLANNERS: Dict[torch.device, Any] = {}
+_PLANNERS_LOCK = threading.Lock()
 
 
-def plan(query=None, *, planner=None, **query_kw):
-    """One-call quorum planning: not ported yet."""
-    raise NotImplementedError(_PLANNER_TODO)
+def default_planner(device=None):
+    """The lazily-created process-wide ``repro_torch.planner.Planner`` of
+    ``device`` (``None`` = the CUDA card)."""
+    dev = device_mod.resolve(device)
+    with _PLANNERS_LOCK:
+        if dev not in _PLANNERS:
+            from repro_torch.planner import Planner
+            _PLANNERS[dev] = Planner(device=dev)
+        return _PLANNERS[dev]
+
+
+def plan(query=None, *, planner=None, device=None, **query_kw):
+    """One-call quorum planning (``repro_torch.planner``).
+
+    Successive-halving search over a family, answered by ``planner`` or
+    the process-wide planner of ``device`` (``None`` = the CUDA card):
+    pass a ``repro_torch.planner.PlanQuery``, a dict, or its fields as
+    keywords --
+
+        plan(n=11, family="cardinality",
+             workload=Workload.race(k=2, delta_ms=0.2),
+             faults={"fast": 1, "classic": 2}, trials=1_000_000)
+
+    ``faults`` is the minimum crash-budget triple the recommendation must
+    satisfy; ``objective`` ranks the budget-satisfying frontier members
+    (``race_p999_ms`` default).  Returns a ``PlanResult`` (recommended
+    system, predicted p50/p99.9/p99.99, fault-tolerance triple, search
+    telemetry).  Repeat same-geometry calls hit the search cache and build
+    no launch plan."""
+    if planner is None:
+        planner = default_planner(device)
+    elif device is not None and device_mod.resolve(device) != planner.device:
+        raise ValueError(f"the planner runs on {planner.device}, the query "
+                         f"asks for {device_mod.resolve(device)}")
+    return planner.plan(query, **query_kw)

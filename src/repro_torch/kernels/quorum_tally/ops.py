@@ -4,6 +4,7 @@ A CPU tensor gets the plain version in ``ref.py``; a CUDA tensor gets the
 hand-written kernel in ``kernel.py``, or the exception the kernel wrapper
 raises.  Nothing falls back from one to the other.  ``LAUNCHES`` counts the
 kernel launches (one per launch, nowhere else); ``reset_launches()`` zeroes it.
+``launch_plans()`` counts what the card path builds once and keeps.
 """
 from __future__ import annotations
 
@@ -13,6 +14,15 @@ from . import kernel, ref
 
 LAUNCHES = kernel.LAUNCHES
 reset_launches = kernel.reset_launches
+
+
+def launch_plans() -> int:
+    """What the kernels have built for reuse so far in this process: the
+    loaded library (one) plus the launch plans cached per device and shape
+    (``masked_tally``'s, ``stream_tally_decide_hist``'s and
+    ``race_card_hist``'s).  0 where no kernel ran, as on the CPU."""
+    return (int(kernel._lib is not None) + len(kernel._MASKED_PLANS)
+            + len(kernel._STREAM_PLANS) + len(kernel._CARD_PLANS))
 
 
 def _on_card(t: torch.Tensor) -> bool:

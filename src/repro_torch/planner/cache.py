@@ -1,0 +1,249 @@
+"""Warm engine pool for planner queries (``repro.planner.cache`` in
+PyTorch; DESIGN.md §11).
+
+The port has no jit.  What its engine builds once per scoring geometry and
+keeps for the life of the process is the quorum kernels' state on the
+card: the loaded kernel library and a launch plan per device and shape
+(``kernels.quorum_tally.ops.launch_plans``).  That count is the port's
+"compiles": ``trace_total()`` reads it, and it stays 0 on the CPU, where
+the kernels' plain versions run and nothing is planned.  What a
+long-lived planner needs on top is bookkeeping and memoization:
+
+  EngineKey     the geometry a scoring query lowers to, computed host-side
+                without running the engine -- two queries with equal keys
+                reuse the same launch plans.
+  EngineCache   routes ``frontier.score.score_systems`` calls through a
+                per-key ledger (queries seen, launch plans built, measured
+                as the ``trace_total()`` delta around the call) plus an
+                LRU of full ``FrontierResult``s keyed by a *content*
+                fingerprint (table bytes + delay contents + every
+                parameter), so a bit-identical repeat query returns
+                without running the engine at all.
+
+The planner service keeps one ``EngineCache`` for its whole lifetime; the
+successive-halving search threads one through all its rungs.
+"""
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+from collections import OrderedDict
+from dataclasses import dataclass, replace
+from typing import Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch import device as device_mod
+from repro_torch.kernels.quorum_tally import ops as qt_ops
+from repro_torch.montecarlo import engine, streaming
+
+
+def trace_total() -> int:
+    """Kernel state built so far in this process (the loaded library and
+    the launch plans): the port's counterpart of the JAX package's jit
+    traces."""
+    return qt_ops.launch_plans()
+
+
+@dataclass(frozen=True)
+class EngineKey:
+    """The static geometry one scoring query lowers to.
+
+    The JAX package's fields in its order, but for ``device`` (``"cuda"``
+    or ``"cpu"``: the device picks the kernels, where the JAX key holds
+    ``use_kernel``) and ``ndev``, always 1 (the trial mesh is not
+    ported).  The materializing T <= chunk path runs on ``samples``
+    instead of a chunk count, so ``mode`` + ``n_chunks`` carries either
+    geometry.
+    """
+
+    table_sig: Tuple[Tuple[str, Tuple[int, ...], str], ...]
+    layout_pairs: int               # P of the cardinality pair layout (0: n/a)
+    n: int
+    k_proposers: int
+    chunk: int
+    n_chunks: int                   # streamed: chunks; materializing: samples
+    mode: str                       # "stream" | "materialize"
+    precision: float
+    k_sat: Optional[Tuple[int, int, int]]
+    device: str
+    ndev: int
+    # Markov regime modulation: (R regime environments, epoch length in
+    # trials) or None.
+    regimes_sig: Optional[Tuple[int, int]] = None
+    # Collision-recovery rule: it changes the cardinality pair layout (q2c
+    # vs q2f columns), so equal keys require it.
+    recovery: str = "coordinated"
+
+
+def engine_key(table: Dict, *, n: int, k_proposers: int, trials: int,
+               chunk: int, precision: float, shard=False, k_max,
+               regimes=None, recovery: str = "coordinated") -> EngineKey:
+    """Compute the warm-pool key for one scoring query, host-side.
+    ``table_sig`` spells dtypes as numpy does (``"float32"``)."""
+    device_mod.refuse_shard(shard)
+    sig = tuple(sorted((k, tuple(v.shape),
+                        str(v.dtype).removeprefix("torch."))
+                       for k, v in table.items()))
+    dev = engine._table_device(table).type
+    if regimes is None and trials <= chunk:
+        # materializing path: ``samples`` itself is the geometry
+        return EngineKey(sig, 0, n, k_proposers, chunk, trials,
+                         "materialize", precision, None, dev, 1,
+                         recovery=recovery)
+    k_sat = streaming._resolve_k_sat(table, k_max, n)
+    pairs = 0
+    if "q" in table and k_sat is not None:
+        # the recovery rule picks which q-column pairs with q1 in the
+        # cardinality layout, so the pair count is rule-dependent
+        cols = [0, 1] if recovery == "coordinated" else [0, 2]
+        pairs = int(np.unique(table["q"].cpu().numpy()[:, cols],
+                              axis=0).shape[0])
+    n_chunks = -(-trials // chunk)
+    rsig = (None if regimes is None
+            else (len(regimes.names), int(regimes.epoch_trials)))
+    return EngineKey(sig, pairs, n, k_proposers, chunk, n_chunks, "stream",
+                     precision, k_sat, dev, 1, rsig, recovery)
+
+
+def _token(obj, h) -> None:
+    """Feed ``obj``'s content to the hash ``h``: a dataclass as its class
+    name and its init fields in order (not caches built from them, such as
+    ``WanDelay``'s hop tables), a tensor or array as its dtype, shape and
+    bytes, a tuple or list element by element, anything else by type and
+    ``repr``."""
+    if isinstance(obj, torch.Tensor):
+        obj = obj.detach().cpu().numpy()
+    if isinstance(obj, np.ndarray):
+        h.update(f"array {obj.dtype} {obj.shape};".encode())
+        h.update(np.ascontiguousarray(obj).tobytes())
+    elif dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        h.update(f"{type(obj).__name__}(".encode())
+        for f in dataclasses.fields(obj):
+            if f.init:
+                h.update(f"{f.name}=".encode())
+                _token(getattr(obj, f.name), h)
+        h.update(b")")
+    elif isinstance(obj, (tuple, list)):
+        h.update(f"{type(obj).__name__}[{len(obj)}](".encode())
+        for x in obj:
+            _token(x, h)
+        h.update(b")")
+    else:
+        h.update(f"{type(obj).__name__}:{obj!r};".encode())
+
+
+def _delay_token(delay) -> bytes:
+    """Content fingerprint of a delay model or regime chain (frozen
+    dataclasses holding tensors): equal contents give equal tokens, on the
+    CPU and on the card alike."""
+    if delay is None:
+        return b"default"
+    h = hashlib.sha256()
+    _token(delay, h)
+    return h.digest()
+
+
+class EngineCache:
+    """Warm engine pool + result memo for a long-lived planner process.
+
+    ``score`` has the same semantics as ``frontier.score.score_systems``
+    (same arguments, same ``FrontierResult``, the same values) with three
+    additions: a per-``EngineKey`` ledger of queries vs launch plans built,
+    an ``engine_compiles`` attribute on the returned result (the
+    ``trace_total()`` delta this call caused), and an LRU memo of results
+    so a bit-identical repeat query skips the engine entirely (memo hits
+    report ``engine_compiles == 0`` without launching anything).
+    """
+
+    def __init__(self, memo_size: int = 64):
+        self.memo_size = memo_size
+        self.stats: Dict[EngineKey, Dict[str, int]] = {}
+        self._memo: "OrderedDict[bytes, object]" = OrderedDict()
+        self.memo_hits = 0
+        self.memo_misses = 0
+
+    # -- introspection -----------------------------------------------------
+    def warm(self, key: EngineKey) -> bool:
+        """Has this geometry been scored (hence planned) before?"""
+        return key in self.stats
+
+    @property
+    def total_compiles(self) -> int:
+        return sum(s["compiles"] for s in self.stats.values())
+
+    def stats_dict(self) -> Dict[str, float]:
+        return {"engine_keys": float(len(self.stats)),
+                "engine_compiles": float(self.total_compiles),
+                "memo_hits": float(self.memo_hits),
+                "memo_misses": float(self.memo_misses)}
+
+    # -- the one entry point ----------------------------------------------
+    def score(self, systems: Sequence, *, trials: int,
+              n: Optional[int] = None, k_proposers: int = 2,
+              delta_ms: Optional[float] = None, delay=None,
+              chunk: Optional[int] = None, precision: Optional[float] = None,
+              k_max="auto", seed: int = 0, regimes=None,
+              recovery: str = "coordinated", axes=None, device=None):
+        """``score_systems`` on ``device`` (``None`` = the CUDA card)."""
+        from repro_torch.frontier import score as fscore
+        from repro_torch.montecarlo.regimes import MarkovRegimes
+
+        dev = device_mod.resolve(device)
+        delta_ms = (fscore.DEFAULT_DELTA_MS if delta_ms is None
+                    else delta_ms)
+        chunk = fscore.DEFAULT_CHUNK if chunk is None else chunk
+        precision = (streaming.DEFAULT_PRECISION if precision is None
+                     else precision)
+
+        masks, _, n = fscore._as_masks(list(systems), n)
+        if isinstance(regimes, dict):        # serialized chain: resolve once
+            regimes = MarkovRegimes.from_config(regimes, n)
+        table = engine.build_mask_table(masks, device=dev)
+        key = engine_key(table, n=n, k_proposers=k_proposers, trials=trials,
+                         chunk=chunk, precision=precision, k_max=k_max,
+                         regimes=regimes, recovery=recovery)
+        labels = tuple(m.label or f"system{i}" for i, m in enumerate(masks))
+        fp = self._fingerprint(table, key, labels=labels, trials=trials,
+                               seed=seed, delta_ms=delta_ms, delay=delay,
+                               regimes=regimes, axes=axes)
+        st = self.stats.setdefault(key, {"queries": 0, "compiles": 0})
+        st["queries"] += 1
+        hit = self._memo.get(fp)
+        if hit is not None:
+            self._memo.move_to_end(fp)
+            self.memo_hits += 1
+            out = replace(hit)                  # fresh wrapper, shared arrays
+            out.engine_compiles = 0
+            return out
+        self.memo_misses += 1
+
+        before = trace_total()
+        result = fscore.score_systems(
+            list(systems), trials=trials, n=n, k_proposers=k_proposers,
+            delta_ms=delta_ms, delay=delay, chunk=chunk, precision=precision,
+            k_max=k_max, seed=seed, regimes=regimes, recovery=recovery,
+            axes=axes, device=dev)
+        compiles = trace_total() - before
+        st["compiles"] += compiles
+        result.engine_compiles = compiles
+
+        self._memo[fp] = result
+        while len(self._memo) > self.memo_size:
+            self._memo.popitem(last=False)
+        return result
+
+    # -- internals ---------------------------------------------------------
+    def _fingerprint(self, table: Dict, key: EngineKey, *,
+                     labels: Tuple[str, ...], trials: int, seed: int,
+                     delta_ms: float, delay, axes, regimes=None) -> bytes:
+        h = hashlib.sha256(repr(key).encode())
+        h.update(repr((labels, trials, seed, delta_ms)).encode())
+        for name in sorted(table):
+            h.update(name.encode())
+            h.update(table[name].cpu().numpy().tobytes())
+        h.update(_delay_token(delay))
+        h.update(_delay_token(regimes))
+        h.update(repr(tuple(axes) if axes is not None else None).encode())
+        return h.digest()

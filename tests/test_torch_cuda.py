@@ -999,3 +999,74 @@ def test_single_regime_stream_equals_iid_on_card(cuda, path, masked):
               "max_ms"):
         assert torch.equal(getattr(plain, f), getattr(mod, f)), f
     assert torch.allclose(plain.mean_ms, mod.mean_ms, rtol=1e-5, atol=0.0)
+
+
+# ---------------------------------------------------------------------------
+# The planner on the card.
+# ---------------------------------------------------------------------------
+
+def test_planner_warm_repeat_builds_no_plan_and_launches_nothing(cuda):
+    """A cold search builds the launch plans its survivor batches need
+    (``engine_compiles`` counts them); a repeat of the same geometry under
+    another fault budget and objective is answered from the cached search:
+    no plan built, no quorum kernel launched."""
+    from repro_torch.planner import Planner
+    planner = Planner(device=cuda)
+    q = dict(n=11, family="cardinality", trials=60_000,
+             schedule=((6_000, 1.0), (60_000, 1.0)), chunk=16_384, seed=3)
+    plans0 = ops.launch_plans()
+    ops.reset_launches()
+    r1 = planner.plan(dict(q, faults={"classic": 1}))
+    assert r1.ok and r1.cold
+    assert r1.engine_compiles == ops.launch_plans() - plans0 >= 0
+    # rung 0 materializes (tally_decide), rung 1 streams (race_card_hist)
+    assert ops.LAUNCHES["tally_decide"] == 1
+    assert ops.LAUNCHES["race_card_hist"] == 4
+    plans1 = ops.launch_plans()
+    assert plans1 >= 1                     # the library, at least
+    ops.reset_launches()
+    r2 = planner.plan(dict(q, faults={"fast": 1, "phase1": 1},
+                           objective="fast_p50_ms"))
+    torch.cuda.synchronize()
+    assert r2.ok and not r2.cold and r2.engine_compiles == 0
+    assert ops.launch_plans() == plans1
+    assert not any(ops.LAUNCHES.values())
+    assert planner.stats()["trace_counts"] == {"launch_plans": plans1}
+
+
+@pytest.mark.parametrize("family,kernel_name", [
+    ("cardinality", "race_card_hist"), ("all", "stream_tally_decide_hist")])
+def test_survivor_subset_scores_equal_the_full_batch(cuda, family,
+                                                     kernel_name):
+    """A system's integer-derived axes (and its race stream's counts,
+    histogram and maximum) do not depend on which systems share its batch,
+    though the kernel's launch plan does (systems or pairs a block)."""
+    from repro_torch.frontier import families, score_systems
+    members = (families.cardinality_family(11) if family == "cardinality"
+               else families.all_families(9))
+    # every third member, and every grid / weighted one, so that the
+    # subset's table stays masked where the full one is
+    sub = [m for i, m in enumerate(members)
+           if i % 3 == 0 or m.masks().cardinality_q() is None]
+    kw = dict(trials=40_000, chunk=16_384, seed=5, device=cuda)
+    ops.reset_launches()
+    full = score_systems(members, **kw)
+    assert ops.LAUNCHES[kernel_name] == 3
+    part = score_systems(sub, **kw)
+    idx = [full.labels.index(m.label) for m in sub]
+    np.testing.assert_array_equal(part.values, full.values[idx])
+    for f in ("n_trials", "n_fast", "n_recovery", "n_undecided", "hist",
+              "max_ms"):
+        a = getattr(part.streams["race"], f)
+        b = getattr(full.streams["race"], f)[idx]
+        assert torch.equal(a, b), f
+
+
+def test_delay_token_equal_on_cpu_and_card(cuda):
+    from repro_torch.montecarlo import latency, regimes
+    from repro_torch.planner.cache import _delay_token
+    for d in (latency.WanDelay.symmetric(30.0, 11, 2, 3),
+              latency.CrashedDelay(latency.ShiftedLognormalDelay(),
+                                   latency.crash_mask(11, [0, 4])),
+              regimes.gray_failure(11)):
+        assert _delay_token(latency.to_device(d, cuda)) == _delay_token(d)

@@ -313,10 +313,15 @@ def test_guardrails():
 
 
 def test_plan_is_not_ported():
-    exp = api.Experiment(systems=systems(pq))
-    for fn in (exp.plan, api.plan, api.experiment.default_planner):
-        with pytest.raises(NotImplementedError, match="planner"):
-            fn()
+    """The planner's three entry points answer on the experiment's device
+    (before the planner was ported they raised NotImplementedError; the
+    test keeps its name).  tests/test_torch_planner.py holds them to JAX."""
+    from repro_torch.planner import PlanResult, Planner
+    exp = api.Experiment(systems=systems(pq), chunk=1_024, device="cpu")
+    for r in (exp.plan(trials=3_000),
+              api.plan(n=5, trials=3_000, chunk=1_024, device="cpu")):
+        assert isinstance(r, PlanResult) and r.ok and r.frontier_labels
+    assert isinstance(api.experiment.default_planner("cpu"), Planner)
 
 
 def test_frontier_runs_with_regimes_on_cpu():

@@ -45,7 +45,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "repro_torch.core.model_check",
                  "repro_torch.montecarlo.traces",
                  "repro_torch.montecarlo.regimes",
-                 "repro_torch.montecarlo.scenarios"):
+                 "repro_torch.montecarlo.scenarios",
+                 "repro_torch.planner", "repro_torch.planner.search",
+                 "repro_torch.planner.cache", "repro_torch.planner.service",
+                 "repro_torch.planner.__main__", "repro_torch.cluster",
+                 "repro_torch.cluster.coordinator",
+                 "repro_torch.cluster.membership",
+                 "repro_torch.cluster.failure"):
         assert name in names
     code = f"""
 import importlib, sys
@@ -72,8 +78,11 @@ from repro_torch.montecarlo import engine
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.launch import serve
 from repro_torch.models.model import DecoderLM
-from repro_torch.api import Experiment, Workload, frontier
+from repro_torch.api import Experiment, Workload, frontier, plan
+from repro_torch.api import default_planner
 from repro_torch.api.__main__ import main as api_main
+from repro_torch.planner import Planner, PlannerServer
+from repro_torch.planner.__main__ import main as planner_main
 cfg = reduced_config(get_config("mamba2_130m"))
 exp = Experiment(systems=[QuorumSpec(3, 2, 2, 3)],
                  workload=Workload.race(k=2))
@@ -83,6 +92,12 @@ for fn in (lambda: score_systems(cardinality_family(3), trials=10),
                "examples/scenarios/trace_replay.json").run("montecarlo"),
            lambda: exp.frontier(trials=10),
            lambda: frontier([QuorumSpec(3, 2, 2, 3)], trials=10),
+           lambda: exp.plan(trials=10),
+           lambda: plan(n=3, trials=10),
+           lambda: default_planner(),
+           lambda: Planner(),
+           lambda: PlannerServer(port=0),
+           lambda: planner_main(["plan", "--n", "3", "--trials", "10"]),
            lambda: api_main(["--smoke"]),
            lambda: run_sweep(quick=True),
            lambda: engine.build_mask_table([QuorumSpec(3, 2, 2, 3)]),
