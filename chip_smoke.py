@@ -1297,6 +1297,152 @@ def experiment_phase(dev, smi: str) -> dict:
     return {"card": smi, "rows": rows, "launches": launches}
 
 
+# The mesh phase: the sweep's race pass (271 n=11 systems, 10^7 trials,
+# chunk 16384) on 1 process x 4 domains in this process and on 2 x 2
+# through the launcher; JAX's fixed workload (2 systems, 50,011 trials,
+# chunk 2048) on 1 x 8 and 2 x 4; an explicit 1-domain mesh against the
+# unsharded stream, and 3 trials on 4 domains.
+MESH_TRIALS, MESH_CHUNK, MESH_DOMAINS = 10_000_000, 16_384, 4
+MESH_FIXED_TRIALS, MESH_FIXED_CHUNK = 50_011, 2_048
+MESH_ONE_TRIALS = 10_007
+MESH_TIMEOUT_S = 300
+
+
+def same_layout(a: dict, b: dict, what: str) -> bool:
+    """Two layouts' summaries (npz dicts): counts and histogram the same
+    bits, max_ms equal, mean_ms within 1e-5 relative.  Returns whether
+    the means are the same bits too."""
+    for f in ("n_trials", "n_fast", "n_recovery", "n_undecided", "hist",
+              "max_ms"):
+        if not np.array_equal(a[f], b[f]):
+            fail(f"{what}: {f} differs between layouts")
+    if not np.allclose(a["mean_ms"], b["mean_ms"], rtol=1e-5, atol=0.0):
+        fail(f"{what}: mean_ms off by more than 1e-5 relative")
+    return bool(np.array_equal(a["mean_ms"], b["mean_ms"]))
+
+
+def mesh_phase(dev, smi: str, compute_mode: str) -> dict:
+    """The multi-process trial mesh on the card (``repro_torch.parallel``,
+    the streams' ``shard=``): returns the rows and the 1 x 4 pass's
+    launches by kernel."""
+    import tempfile
+    from repro_torch.kernels.quorum_tally import ops
+    from repro_torch.montecarlo import streaming
+    from repro_torch.parallel import distributed, sharding
+
+    if compute_mode != "Default":
+        fail(f"compute mode {compute_mode!r}: two processes on one card "
+             f"need the Default mode")
+    rows = {"card": smi, "compute_mode": compute_mode}
+
+    def layout(procs, per, name, trials, chunk, td):
+        out = os.path.join(td, f"{name}_{procs}x{per}.npz")
+        t0 = time.perf_counter()
+        try:
+            got = distributed.run_stream_layout(
+                procs, per, out, trials=trials, chunk=chunk, name=name,
+                device="cuda", timeout_s=MESH_TIMEOUT_S)
+        except RuntimeError as e:
+            fail(f"mesh {name} {procs} x {per}: {e}")
+        got["launch_wall_s"] = time.perf_counter() - t0
+        return got
+
+    # (i) the sweep's race pass: 1 x 4 here, unsharded, 2 x 2 launched
+    key, table, offsets = distributed.workload("sweep", dev)
+    kw = dict(n=11, k_proposers=2, trials=MESH_TRIALS, chunk=MESH_CHUNK)
+    mesh = sharding.trial_mesh(dev, MESH_DOMAINS)
+    per_domain = -(-(-(-MESH_TRIALS // MESH_DOMAINS)) // MESH_CHUNK)
+    streaming.race_stream(key, table, offsets, shard=False,
+                          **dict(kw, trials=4 * MESH_CHUNK))   # warm
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    one = streaming.race_stream(key, table, offsets, shard=mesh, **kw)
+    torch.cuda.synchronize()
+    wall_one = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    if launches != only(race_card_hist=MESH_DOMAINS * per_domain):
+        fail(f"mesh 1 x {MESH_DOMAINS} launches {launches}")
+    t0 = time.perf_counter()
+    un = streaming.race_stream(key, table, offsets, shard=False, **kw)
+    torch.cuda.synchronize()
+    wall_un = time.perf_counter() - t0
+    one_np, un_np = one.to_numpy(), un.to_numpy()
+    if not ((one_np["n_trials"] == MESH_TRIALS).all()
+            and (un_np["n_trials"] == MESH_TRIALS).all()):
+        fail("mesh sweep: trial counts")
+    if not np.array_equal(one_np["hist"].sum(1),
+                          one_np["n_fast"] + one_np["n_recovery"]):
+        fail("mesh sweep: histogram mass != decided count")
+    p_one = one.quantile([0.5, 0.999]).cpu().numpy()
+    p_un = un.quantile([0.5, 0.999]).cpu().numpy()
+    if not (np.abs(p_one - p_un) <= 0.03 * p_un).all():
+        fail(f"mesh sweep: sharded p50 / p99.9 more than 3% from the "
+             f"unsharded pass's (max {np.max(np.abs(p_one - p_un) / p_un)})")
+    with tempfile.TemporaryDirectory() as td:
+        two = layout(2, 2, "sweep", MESH_TRIALS, MESH_CHUNK, td)
+        bits = same_layout(one_np, two, "mesh sweep 2 x 2 vs 1 x 4")
+        if int(two["race_card_hist_launches"]) != 2 * per_domain:
+            fail(f"mesh sweep 2 x 2: process 0 launched "
+                 f"{int(two['race_card_hist_launches'])} race_card_hist")
+        rows["sweep"] = dict(
+            systems=int(one_np["n_trials"].shape[0]), trials=MESH_TRIALS,
+            chunk=MESH_CHUNK, launches_1x4=launches,
+            launches_2x2_process0=int(two["race_card_hist_launches"]),
+            wall_s_1x4=wall_one, wall_s_unsharded=wall_un,
+            wall_s_2x2_stream=float(two["wall_s"]),
+            wall_s_2x2_launch=two["launch_wall_s"],
+            mean_same_bits_2x2=bits,
+            max_rel_p50_p999_vs_unsharded=float(
+                np.max(np.abs(p_one - p_un) / p_un)))
+
+        # (ii) JAX's fixed workload: 1 x 8 against 2 x 4
+        eight = layout(1, 8, "fixed", MESH_FIXED_TRIALS, MESH_FIXED_CHUNK,
+                       td)
+        four = layout(2, 4, "fixed", MESH_FIXED_TRIALS, MESH_FIXED_CHUNK,
+                      td)
+    bits = same_layout(eight, four, "mesh fixed 2 x 4 vs 1 x 8")
+    if int(eight["global_devices"]) != 8 or int(four["global_devices"]) != 8:
+        fail("mesh fixed: not 8 global domains")
+    if not (four["n_trials"] == MESH_FIXED_TRIALS).all():
+        fail("mesh fixed: trial counts")
+    rows["fixed"] = dict(
+        trials=MESH_FIXED_TRIALS, chunk=MESH_FIXED_CHUNK,
+        launches_1x8=int(eight["race_card_hist_launches"]),
+        launches_2x4_process0=int(four["race_card_hist_launches"]),
+        wall_s_1x8_stream=float(eight["wall_s"]),
+        wall_s_2x4_stream=float(four["wall_s"]),
+        wall_s_1x8_launch=eight["launch_wall_s"],
+        wall_s_2x4_launch=four["launch_wall_s"], mean_same_bits=bits,
+        p50_ms=four["p50_ms"].tolist(), p9999_ms=four["p9999_ms"].tolist())
+
+    # (iii) an explicit 1-domain mesh runs the sharded path (domain keys,
+    # other draws); 3 trials on 4 domains leave one empty
+    key, table, offsets = distributed.workload("fixed", dev)
+    kw = dict(n=11, k_proposers=2, trials=MESH_ONE_TRIALS,
+              chunk=MESH_FIXED_CHUNK)
+    st = streaming.race_stream(key, table, offsets,
+                               shard=sharding.trial_mesh(dev, 1), **kw)
+    un = streaming.race_stream(key, table, offsets, shard=False, **kw)
+    if st.n_trials.tolist() != un.n_trials.tolist() or \
+            st.n_trials.tolist() != [MESH_ONE_TRIALS] * 2:
+        fail("mesh 1-domain: trial totals")
+    if torch.equal(st.hist, un.hist):
+        fail("mesh 1-domain: the same draws as the unsharded stream")
+    rel = ((st.quantile(0.5) - un.quantile(0.5)).abs()
+           / un.quantile(0.5)).cpu()
+    if not bool((rel < 0.05).all()):
+        fail(f"mesh 1-domain: p50 {rel.tolist()} relative off")
+    few = streaming.fast_path_stream(key, table, n=11, trials=3, chunk=64,
+                                     shard=sharding.trial_mesh(dev, 4))
+    if few.n_trials.tolist() != [3, 3] or int(few.hist.sum()) != \
+            int(few.n_decided.sum()) or not bool(
+                torch.isfinite(few.max_ms).all()):
+        fail(f"mesh 3 trials on 4 domains: {few.n_trials.tolist()}")
+    rows["one_domain"] = dict(p50_rel_diff=rel.tolist(),
+                              three_on_four=few.n_fast.tolist())
+    return {"rows": rows, "launches": launches}
+
+
 # The planner phase: JAX's acceptance search (n=11, 10^6 final trials,
 # rungs of 10^5 and 10^6, chunk 16384, seed 0), its warm repeat, the
 # n=11 "all" family and a weighted search under diurnal_wan.json's regime
@@ -1642,7 +1788,11 @@ def main() -> None:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    emit("device", nvidia_smi=smi, kind=name,
+    compute_mode = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    emit("device", nvidia_smi=smi, compute_mode=compute_mode, kind=name,
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda, python=sys.version.split()[0])
 
@@ -2145,6 +2295,11 @@ def main() -> None:
     emit("planner", ok=True, card=smi, rows=plan["rows"],
          launches=plan["launches"])
 
+    # ---- the trial mesh (race_card_hist a domain chunk) ---------------------
+    mesh = mesh_phase(dev, smi, compute_mode)
+    emit("mesh", ok=True, card=smi, rows=mesh["rows"],
+         launches=mesh["launches"])
+
     # ---- the model paths ----------------------------------------------------
     # Every per-kernel timing runs before the serving traces (serve_profile).
     ssd_errs = ssd_phase(dev)
@@ -2177,6 +2332,9 @@ def main() -> None:
         by_path[k]["experiment"] = v
     for k, v in plan["launches"].items():
         by_path[k]["planner"] = v
+    for k, v in mesh["launches"].items():
+        if v:
+            by_path[k]["mesh"] = v
     for k, v in zamba["launches"].items():
         by_path[k] = {"serve_zamba2_2_7b": v}
     launches = {k: sum(v.values()) for k, v in by_path.items()}

@@ -60,15 +60,6 @@ _DES_GAP_MS = 50.0
 # skipped and Results.fault_tolerance is None.
 _FT_MAX_N = 14
 
-# Experiment fields of the JAX package that the port does not take: the
-# device picks every kernel, and the trial mesh is not ported yet.
-_DROPPED_KEYS = {
-    "use_kernel": "the port has no kernel switch: the device picks every "
-                  "kernel (CUDA kernels on the card, plain versions on the "
-                  "CPU)",
-    "shard": device_mod.SHARD_REFUSED,
-}
-
 
 # ---------------------------------------------------------------------------
 # Workload: backend-independent race geometry + delay model.
@@ -350,7 +341,12 @@ class Experiment:
     removes behaviours).  ``trials`` switches the montecarlo backend to the
     streams (a ``StreamSummary`` of ``precision`` relative quantile error,
     chunks of ``chunk`` trials, ``Results.raw`` None); otherwise it
-    materializes ``samples`` instances.  ``device`` is where the
+    materializes ``samples`` instances.  ``shard`` splits the streamed
+    trials over the trial mesh: ``True`` uses every domain of the global
+    mesh (every process's, once ``repro_torch.parallel.distributed.
+    initialize()`` has joined a grid; unsharded with a warning when there
+    is one), or pass an explicit ``parallel.sharding.TrialMesh`` to pin
+    the layout (honored even with one domain).  ``device`` is where the
     montecarlo backend runs (``None`` = the CUDA card)."""
 
     systems: Tuple
@@ -364,6 +360,7 @@ class Experiment:
     trials: Optional[int] = None   # streaming trial count (montecarlo)
     precision: float = streaming.DEFAULT_PRECISION
     chunk: int = streaming.DEFAULT_CHUNK
+    shard: object = True
     # "auto": sort-free streamed lowerings at the table's saturation
     # depths; None: the full-sort reference path; an int / 3-tuple pins the
     # depths.  Integer outputs are identical either way.
@@ -428,17 +425,15 @@ class Experiment:
         ``examples/scenarios/*.json`` schema): ``systems`` entries through
         ``system_from_config``, ``workload`` through ``Workload.from_dict``,
         every other key an ``Experiment`` field (``device``, when given,
-        overrides the config's).  ``use_kernel`` and ``shard``, fields of
-        the JAX package's Experiment, are refused."""
+        overrides the config's).  ``shard`` means what it means in the
+        JAX package; ``use_kernel``, the JAX package's kernel switch, is
+        taken and selects nothing (the device picks every kernel)."""
         cfg = path_or_dict
         if isinstance(cfg, (str, Path)):
             with open(cfg) as f:
                 cfg = json.load(f)
         cfg = dict(cfg)
-        for k, why in _DROPPED_KEYS.items():
-            if k in cfg:
-                raise ValueError(f"experiment config key {k!r} is not "
-                                 f"taken here: {why}")
+        cfg.pop("use_kernel", None)       # the device picks every kernel
         systems = [system_from_config(s) for s in cfg.pop("systems")]
         wl = cfg.pop("workload", None)
         workload = (Workload.from_dict(wl) if isinstance(wl, dict)
@@ -470,8 +465,8 @@ class Experiment:
                         faults=self.faults,
                         trials=trials if trials is not None else self.trials,
                         chunk=self.chunk, precision=self.precision,
-                        seed=self.seed, k_max=self.k_max, axes=axes,
-                        device=self.device)
+                        shard=self.shard, seed=self.seed, k_max=self.k_max,
+                        axes=axes, device=self.device)
 
     def plan(self, family: str = "cardinality", *,
              faults: Optional[Dict[str, int]] = None,
@@ -502,7 +497,7 @@ class Experiment:
                              else self.trials or 1_000_000),
                      objective=objective, chunk=self.chunk,
                      precision=self.precision, seed=self.seed,
-                     k_max=self.k_max, **query_kw)
+                     shard=self.shard, k_max=self.k_max, **query_kw)
         return plan(query, planner=planner, device=self.device)
 
     def _fault_tolerance(self) -> Optional[Tuple[Dict[str, int], ...]]:
@@ -522,8 +517,8 @@ class Experiment:
         if self.trials is not None:
             state = scen.with_spec(
                 trials=self.trials, chunk=self.chunk,
-                precision=self.precision, k_max=self.k_max).stream(
-                    key, table)
+                precision=self.precision, shard=self.shard,
+                k_max=self.k_max).stream(key, table)
             return Results(backend="montecarlo", labels=self.labels,
                            summary=state.summary(), stream=state,
                            fault_tolerance=self._fault_tolerance())
@@ -658,7 +653,8 @@ def frontier(systems: Sequence, workload: Optional[Workload] = None, *,
              n: Optional[int] = None, faults: Sequence[int] = (),
              trials: Optional[int] = None,
              chunk: Optional[int] = None, precision: Optional[float] = None,
-             seed: int = 0, k_max="auto", axes=None, device=None):
+             shard=True, seed: int = 0, k_max="auto", axes=None,
+             device=None):
     """One-call quorum-space Pareto frontier (``repro_torch.frontier``) on
     ``device`` (``None`` = the CUDA card).
 
@@ -667,7 +663,8 @@ def frontier(systems: Sequence, workload: Optional[Workload] = None, *,
     ``n``).  ``workload`` supplies the race geometry and delay model when
     it races; otherwise a 2-way race at 0.2 ms.  ``faults`` crashes the
     named acceptors for the whole run (the crash budgets on the ft axes
-    still describe the intact systems).  Returns a ``FrontierResult``."""
+    still describe the intact systems).  ``shard`` as in
+    ``score_systems``.  Returns a ``FrontierResult``."""
     from repro_torch.frontier import score as fscore
 
     systems = list(systems)          # may be a generator: consume once
@@ -688,8 +685,8 @@ def frontier(systems: Sequence, workload: Optional[Workload] = None, *,
         chunk=chunk if chunk is not None else fscore.DEFAULT_CHUNK,
         precision=(precision if precision is not None
                    else streaming.DEFAULT_PRECISION),
-        seed=seed, k_max=k_max, axes=axes, regimes=wl.regimes_for(n),
-        recovery=wl.recovery, device=device)
+        shard=shard, seed=seed, k_max=k_max, axes=axes,
+        regimes=wl.regimes_for(n), recovery=wl.recovery, device=device)
 
 
 # Process-wide planners behind ``plan()``, one per device: one engine pool

@@ -9,10 +9,6 @@ from __future__ import annotations
 
 import torch
 
-SHARD_REFUSED = ("the multi-process trial mesh is not ported yet (ROADMAP.md "
-                 "queue 1, the multi-process mesh item); a run uses one "
-                 "device")
-
 
 def resolve(device=None) -> torch.device:
     """``None`` -> ``cuda`` (raises ``RuntimeError`` when CUDA is absent);
@@ -25,9 +21,3 @@ def resolve(device=None) -> torch.device:
         return torch.device("cuda")
     return torch.device(device)
 
-
-def refuse_shard(shard) -> None:
-    """``shard`` other than False / None raises: one device a run."""
-    if shard is not False and shard is not None:
-        raise ValueError(f"shard={shard!r} is not taken here: "
-                         f"{SHARD_REFUSED}")

@@ -15,8 +15,17 @@ the six frontier axes.  The sweep checks itself against independent code:
 both collision-recovery rules, and checks that the fast path and
 P(recovery) do not depend on the rule.
 
+``--shard`` joins the process grid of ``REPRO_COORDINATOR`` /
+``REPRO_NUM_PROCESSES`` / ``REPRO_PROCESS_ID`` (``repro_torch.parallel.
+distributed``; without them, this process alone) and sweeps on the
+explicit global trial mesh, honored even with one domain; process 0
+prints the rows.
+
 Usage:  PYTHONPATH=src python -m repro_torch.frontier [--smoke] [--relaxed]
-                                                      [--device cpu]
+                                                      [--shard] [--device cpu]
+        python -m repro_torch.parallel.distributed launch --processes 2 \
+            --devices-per-process 2 -- python -m repro_torch.frontier \
+            --smoke --shard --device cpu
 """
 from __future__ import annotations
 
@@ -89,9 +98,11 @@ def minimal_frontier(specs: List[QuorumSpec]) -> List[QuorumSpec]:
     return keep
 
 
-def run_sweep(quick: bool = False, seed: int = 0, device=None) -> Dict:
+def run_sweep(quick: bool = False, seed: int = 0, device=None,
+              shard=True) -> Dict:
     """The n=11 sweep with its checks; raises AssertionError on a failed
-    check.  Returns the result, the CSV rows and the per-pass rates."""
+    check.  Returns the result, the CSV rows and the per-pass rates.
+    ``shard`` as in ``score_systems``."""
     dev = device_mod.resolve(device)
     trials = TRIALS_SMOKE if quick else TRIALS
     legacy_samples = 5_000 if quick else LEGACY_SAMPLES
@@ -102,7 +113,8 @@ def run_sweep(quick: bool = False, seed: int = 0, device=None) -> Dict:
         raise AssertionError("cardinality_family differs from the "
                              "brute-force enumeration")
     result = score_systems(members, trials=trials, chunk=CHUNK,
-                           delta_ms=DELTA_MS, seed=seed, device=dev)
+                           delta_ms=DELTA_MS, seed=seed, shard=shard,
+                           device=dev)
     rows = [("sweep.n_valid_configs", len(members)),
             ("sweep.trials", trials),
             ("sweep.fast_trials_per_sec", trials / result.wall_s["fast"]),
@@ -148,22 +160,24 @@ def run_sweep(quick: bool = False, seed: int = 0, device=None) -> Dict:
     return {"result": result, "rows": rows, "trials": trials}
 
 
-def run_relaxed(quick: bool = False, seed: int = 0, device=None) -> Dict:
+def run_relaxed(quick: bool = False, seed: int = 0, device=None,
+                shard=True) -> Dict:
     """Joint FFP + Relaxed frontier under both collision-recovery rules."""
     dev = device_mod.resolve(device)
     trials = TRIALS_SMOKE if quick else TRIALS
     ffp = cardinality_family(N)
     members = ffp + relaxed_family(N)
     coord = score_systems(members, trials=trials, chunk=CHUNK,
-                          delta_ms=DELTA_MS, seed=seed, device=dev)
+                          delta_ms=DELTA_MS, seed=seed, shard=shard,
+                          device=dev)
     front = coord.frontier_indices
     on_front = [i for i in front if i >= len(ffp)]
     if not on_front:
         raise AssertionError("no relaxed-valid/FFP-invalid system on the "
                              "joint frontier")
     uncoord = score_systems(members, trials=trials, chunk=CHUNK,
-                            delta_ms=DELTA_MS, seed=seed, device=dev,
-                            recovery="uncoordinated")
+                            delta_ms=DELTA_MS, seed=seed, shard=shard,
+                            device=dev, recovery="uncoordinated")
     cv, uv = np.asarray(coord.values), np.asarray(uncoord.values)
     for a in ("fast_p50_ms", "p_recovery"):
         k = AXIS_NAMES.index(a)
@@ -188,16 +202,27 @@ def main(argv=None) -> None:
     ap.add_argument("--relaxed", action="store_true",
                     help="also run the joint FFP + Relaxed Paxos frontier "
                          "under both collision-recovery rules")
+    ap.add_argument("--shard", action="store_true",
+                    help="join the process grid of the REPRO_* environment "
+                         "(repro_torch.parallel.distributed; none: this "
+                         "process) and sweep on the explicit global trial "
+                         "mesh, honored even with one domain")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)
-    out = run_sweep(quick=args.smoke, device=args.device)
+    shard, first = True, True
+    if args.shard:
+        from repro_torch.parallel import distributed, sharding
+        first = distributed.initialize(device=args.device).process_index == 0
+        shard = sharding.trial_mesh(args.device)
+    out = run_sweep(quick=args.smoke, device=args.device, shard=shard)
     rows = out["rows"]
     if args.relaxed:
-        rows = rows + run_relaxed(quick=args.smoke,
-                                  device=args.device)["rows"]
-    for name, val in rows:
-        print(f"{name},{val:.6g}")
+        rows = rows + run_relaxed(quick=args.smoke, device=args.device,
+                                  shard=shard)["rows"]
+    if first:
+        for name, val in rows:
+            print(f"{name},{val:.6g}")
 
 
 if __name__ == "__main__":

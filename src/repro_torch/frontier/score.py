@@ -92,6 +92,7 @@ def score_systems(systems: Sequence, *,
                   delay=None,
                   chunk: int = DEFAULT_CHUNK,
                   precision: float = streaming.DEFAULT_PRECISION,
+                  shard=True,
                   k_max="auto",
                   seed: int = 0,
                   regimes=None,
@@ -105,7 +106,8 @@ def score_systems(systems: Sequence, *,
     ``QuorumMasks``; smaller systems embed into the largest n present (or
     ``n``).  The batch streams through ``fast_path_stream`` and
     ``race_stream`` at ``trials`` trials each, on the keys of passes
-    ``FAST_PASS`` / ``RACE_PASS`` under ``rng.root(seed)``.  ``k_max`` as in
+    ``FAST_PASS`` / ``RACE_PASS`` under ``rng.root(seed)``, their trials
+    split over the trial mesh by ``shard``.  ``shard`` and ``k_max`` as in
     ``race_stream``; ``regimes`` (a ``MarkovRegimes`` or its config)
     modulates both passes through failure epochs, and the axes then read
     the regime-merged totals; ``recovery`` picks the collision-recovery
@@ -126,14 +128,14 @@ def score_systems(systems: Sequence, *,
     t0 = time.perf_counter()
     fast = streaming.fast_path_stream(k_fast, table, delay, n=n,
                                       trials=trials, chunk=chunk,
-                                      precision=precision, k_max=k_max,
-                                      regimes=regimes)
+                                      precision=precision, shard=shard,
+                                      k_max=k_max, regimes=regimes)
     _sync(dev)
     t1 = time.perf_counter()
     race = streaming.race_stream(k_race, table, offsets, delay, n=n,
                                  k_proposers=k_proposers, trials=trials,
                                  chunk=chunk, precision=precision,
-                                 k_max=k_max, regimes=regimes,
+                                 shard=shard, k_max=k_max, regimes=regimes,
                                  recovery=recovery)
     _sync(dev)
     t2 = time.perf_counter()

@@ -9,7 +9,7 @@ for any indices (a collision needs a 63-bit hash collision).  The domains:
   ``SPLIT_DOMAIN``        a scenario's racing and conflict-free parts
                           (``RACE_SPLIT`` / ``FREE_SPLIT``; JAX splits the
                           key in two there)
-  ``DEVICE_FOLD_DOMAIN``  per-device keys of a sharded stream (later slice)
+  ``DEVICE_FOLD_DOMAIN``  domain d's key in a sharded stream (``shard=``)
   ``REGIME_FOLD_DOMAIN``  epoch e of the Markov regime chain (``uniform``)
 
 The last two keep the JAX package's tag values (``streaming.py:75``,

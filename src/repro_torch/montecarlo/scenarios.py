@@ -40,15 +40,18 @@ class RunSpec:
 
     ``samples`` sizes materializing runs (``run``/``summary``), ``trials``
     streamed ones; ``chunk``/``precision`` default to the streaming
-    module's when None.  ``faults`` crashes those acceptor ids for the run;
-    ``regimes`` Markov-modulates a streamed run; ``recovery`` picks the
-    collision-recovery rule (``engine.RECOVERY_MODES``).  The device picks
-    every kernel, so there is no kernel switch."""
+    module's when None.  ``shard`` splits a streamed run's trials over the
+    trial mesh (``streaming.race_stream``).  ``faults`` crashes those
+    acceptor ids for the run; ``regimes`` Markov-modulates a streamed run;
+    ``recovery`` picks the collision-recovery rule
+    (``engine.RECOVERY_MODES``).  The device picks every kernel, so there
+    is no kernel switch."""
 
     samples: int = 20000
     trials: int = 1_000_000
     chunk: Optional[int] = None
     precision: Optional[float] = None
+    shard: object = True
     k_max: object = "auto"
     faults: Tuple[int, ...] = ()
     regimes: Optional[object] = None
@@ -147,7 +150,7 @@ class Scenario:
                    else spec.chunk),
             precision=(streaming.DEFAULT_PRECISION if spec.precision is None
                        else spec.precision),
-            k_max=spec.k_max, regimes=spec.regimes)
+            shard=spec.shard, k_max=spec.k_max, regimes=spec.regimes)
         if self.k_proposers == 1 or self.conflict_frac == 0.0:
             return streaming.fast_path_stream(key, table, scen.delay,
                                               n=self.n, trials=trials, **kw)

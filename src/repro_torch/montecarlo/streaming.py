@@ -26,6 +26,14 @@ Per chunk, the loop picks one lowering from what it can observe:
 Decide bits, counts, histograms and maxima are identical across lowerings;
 only the f32 latency sum (hence the mean) accumulates in another order.
 
+``shard=`` splits the trials over a trial mesh (``parallel.sharding``),
+as JAX's per-device body does: domain d of D streams ``T // D + (d < T %
+D)`` trials under key ``rng.derive(key, DEVICE_FOLD_DOMAIN, d)`` (never
+the materializing shortcut; an empty domain launches nothing), and the
+domains merge as JAX's ``axis_merge`` does (``_mesh_merge``), across
+processes over gloo.  Everything derives from the global domain index, so
+any process layout of the same D gives the same summary, bit for bit.
+
 ``regimes=`` (a ``regimes.MarkovRegimes`` or its config) Markov-modulates
 a stream through failure epochs and returns a ``RegimeStreamSummary``.
 Such a run mixes environments within a chunk, which the card and fused
@@ -39,13 +47,15 @@ in trial-index space, so occupancy does not depend on ``chunk``; even
 from __future__ import annotations
 
 import math
+import warnings
 from dataclasses import dataclass, replace
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.kernels.quorum_tally import ops as qt_ops
+from repro_torch.parallel import sharding as psharding
 
 from . import engine, rng
 from . import latency as lat_mod
@@ -505,9 +515,66 @@ def _resolve_k_sat(table, k_max, n: int):
     return tuple(min(n, max(1, k)) for k in ks)
 
 
+def _resolve_mesh(shard, device) -> Optional[psharding.TrialMesh]:
+    """``shard=True`` -> the global trial mesh on ``device`` when it has
+    more than one domain, else unsharded with a ``UserWarning`` (so a
+    launch script that forgot ``distributed.initialize()`` or the domain
+    count fails loudly rather than quietly running on one); ``False`` /
+    ``None`` -> unsharded, silently; an explicit ``TrialMesh`` is honored
+    as it is, 1-domain included."""
+    if shard is False or shard is None:
+        return None
+    if shard is True:
+        mesh = psharding.trial_mesh(device)
+        if mesh.size > 1:
+            return mesh
+        warnings.warn(
+            f"shard=True but only {mesh.size} device is visible - running "
+            f"unsharded. For a multi-process grid call "
+            f"repro_torch.parallel.distributed.initialize() before any CUDA "
+            f"work; for several domains a process set "
+            f"{psharding.ENV_DOMAINS_PER_PROCESS}; pass shard=False to "
+            f"silence.", UserWarning, stacklevel=4)
+        return None
+    if isinstance(shard, psharding.TrialMesh):
+        return shard
+    raise TypeError(f"shard must be a bool, None or a TrialMesh, got "
+                    f"{type(shard).__name__}")
+
+
+def _mesh_merge(parts, mesh: psharding.TrialMesh, device) -> StreamSummary:
+    """The cross-domain merge of JAX's ``axis_merge``: counts and the
+    histogram by SUM, ``max_ms`` by MAX, the mean as the SUM of
+    ``mean * n`` over the SUM of ``n`` (0 where nothing decided).
+    ``parts`` are this process's domain summaries in global order; the
+    per-domain products are summed in global domain order on every
+    process, so any process layout of the same D merges to the same
+    bits."""
+    parts = [replace(p, **{f: getattr(p, f).to(device) for f in _FIELDS})
+             for p in parts]
+    out = {f: psharding.all_reduce(
+        torch.stack([getattr(p, f) for p in parts]).sum(0, dtype=torch.int32),
+        mesh, "sum")
+        for f in ("n_trials", "n_fast", "n_recovery", "n_undecided", "hist")}
+    out["max_ms"] = psharding.all_reduce(
+        torch.stack([p.max_ms for p in parts]).amax(0), mesh, "max")
+    rows = torch.zeros((2, mesh.size) + tuple(parts[0].mean_ms.shape),
+                       dtype=torch.float32, device=device)
+    for (g, _), p in zip(mesh.domains, parts):
+        n_dec = p.n_decided.to(torch.float32)
+        rows[0, g] = p.mean_ms * n_dec
+        rows[1, g] = n_dec
+    rows = psharding.all_reduce(rows, mesh, "sum")   # one term a row: exact
+    wsum, tot = rows[0, 0], rows[1, 0]
+    for g in range(1, mesh.size):
+        wsum, tot = wsum + rows[0, g], tot + rows[1, g]
+    out["mean_ms"] = torch.where(tot > 0, wsum / tot.clamp(min=1.0), 0.0)
+    return replace(parts[0], **out)
+
+
 def _stream_entry(path: str, key: int, table, delay, offsets, *, n,
-                  k_proposers, trials, chunk, precision, k_max="auto",
-                  regimes=None, recovery="coordinated"):
+                  k_proposers, trials, chunk, precision, shard=True,
+                  k_max="auto", regimes=None, recovery="coordinated"):
     engine._check_mask_table(table, n)
     engine._check_recovery(recovery)
     if trials < 1:
@@ -521,12 +588,52 @@ def _stream_entry(path: str, key: int, table, delay, offsets, *, n,
             regimes = MarkovRegimes.from_config(regimes, n)
         regimes = regimes.validate().bound(
             delay if delay is not None else default_delay())
+    mesh = _resolve_mesh(shard, dev)
+    kw = dict(n=n, k_proposers=k_proposers, chunk=chunk, precision=precision,
+              k_max=k_max, regimes=regimes, recovery=recovery)
+    if mesh is None:
+        return _domain_stream(path, key, table, delay, offsets, trials=trials,
+                              materialize=True, **kw)
+    # JAX's per-device body: domain d of D streams its own share of the
+    # trials under its own key; an empty domain is the merge identity and
+    # launches nothing.
+    m = table["p1_w"].shape[0]
+    parts = []
+    for g, ddev in mesh.domains:
+        t_d = trials // mesh.size + (1 if g < trials % mesh.size else 0)
+        if t_d == 0:
+            parts.append(StreamSummary.zeros(m, precision, dev)
+                         if regimes is None
+                         else _regime_zeros(regimes, m, precision, dev))
+            continue
+        parts.append(_domain_stream(
+            path, rng.derive(key, rng.DEVICE_FOLD_DOMAIN, g),
+            {k: v.to(ddev) for k, v in table.items()}, delay, offsets,
+            trials=t_d, materialize=False, **kw))
+    if regimes is None:
+        return _mesh_merge(parts, mesh, dev)
+    occ = psharding.all_reduce(
+        torch.stack([p.occupancy.to(dev) for p in parts]).sum(
+            0, dtype=torch.int32), mesh, "sum")
+    return RegimeStreamSummary(
+        names=regimes.names, occupancy=occ,
+        by_regime=_mesh_merge([p.by_regime for p in parts], mesh, dev))
+
+
+def _domain_stream(path: str, key: int, table, delay, offsets, *, n,
+                   k_proposers, trials, chunk, precision, k_max, regimes,
+                   recovery, materialize: bool):
+    """One domain's stream of ``trials`` on ``key``, on the table's device.
+    ``materialize`` (unsharded runs only, as in JAX) lets ``trials <=
+    chunk`` take the engine's materializing entry point."""
+    dev = engine._table_device(table)
+    if regimes is not None:
         return _regime_stream(path, key, table, engine._offsets(offsets, dev),
                               regimes, n=n, k_proposers=k_proposers,
                               trials=trials, chunk=chunk, precision=precision,
                               k_sat=_resolve_k_sat(table, k_max, n),
                               recovery=recovery)
-    if trials <= chunk:
+    if materialize and trials <= chunk:
         # the materializing path is the T <= chunk case, on the same key.
         if path == "race":
             out = engine.race(key, table, offsets, delay, n=n,
@@ -584,36 +691,43 @@ def _stream_entry(path: str, key: int, table, delay, offsets, *, n,
 
 def race_stream(key: int, table, offsets, delay=None, *, n: int,
                 k_proposers: int, trials: int, chunk: int = DEFAULT_CHUNK,
-                precision: float = DEFAULT_PRECISION, k_max="auto",
-                regimes=None, recovery: str = "coordinated"):
+                precision: float = DEFAULT_PRECISION, shard=True,
+                k_max="auto", regimes=None, recovery: str = "coordinated"):
     """``engine.race`` at any trial count in fixed memory, reduced into a
-    ``StreamSummary`` on the table's device.  ``k_max`` ("auto" by default)
-    selects the sort-free lowerings; ``None`` keeps the full-sort reference
-    path.  Integer outputs are identical across settings.  ``regimes`` (a
-    ``MarkovRegimes`` or its config) returns a ``RegimeStreamSummary``."""
+    ``StreamSummary`` on the table's device.  ``shard`` splits the trials
+    over the trial mesh's domains (``True``: the global mesh, unsharded
+    with a warning when it has one domain; ``False`` / ``None``:
+    unsharded; or an explicit ``parallel.sharding.TrialMesh``).  ``k_max``
+    ("auto" by default) selects the sort-free lowerings; ``None`` keeps the
+    full-sort reference path.  Integer outputs are identical across
+    settings.  ``regimes`` (a ``MarkovRegimes`` or its config) returns a
+    ``RegimeStreamSummary``."""
     return _stream_entry("race", key, table, delay, offsets, n=n,
                          k_proposers=k_proposers, trials=trials, chunk=chunk,
-                         precision=precision, k_max=k_max, regimes=regimes,
-                         recovery=recovery)
+                         precision=precision, shard=shard, k_max=k_max,
+                         regimes=regimes, recovery=recovery)
 
 
 def fast_path_stream(key: int, table, delay=None, *, n: int, trials: int,
                      chunk: int = DEFAULT_CHUNK,
                      precision: float = DEFAULT_PRECISION,
-                     k_max="auto", regimes=None):
+                     shard=True, k_max="auto", regimes=None):
     """Streamed conflict-free fast path: decided instances count as fast
-    commits, lost ones as undecided.  ``regimes`` as in ``race_stream``."""
+    commits, lost ones as undecided.  ``shard`` and ``regimes`` as in
+    ``race_stream``."""
     return _stream_entry("fast_path", key, table, delay, None, n=n,
                          k_proposers=1, trials=trials, chunk=chunk,
-                         precision=precision, k_max=k_max, regimes=regimes)
+                         precision=precision, shard=shard, k_max=k_max,
+                         regimes=regimes)
 
 
 def classic_path_stream(key: int, table, delay=None, *, n: int, trials: int,
                         chunk: int = DEFAULT_CHUNK,
                         precision: float = DEFAULT_PRECISION,
-                        k_max="auto", regimes=None):
+                        shard=True, k_max="auto", regimes=None):
     """Streamed leader-relayed classic path: decided instances count as
-    recoveries.  ``regimes`` as in ``race_stream``."""
+    recoveries.  ``shard`` and ``regimes`` as in ``race_stream``."""
     return _stream_entry("classic_path", key, table, delay, None, n=n,
                          k_proposers=1, trials=trials, chunk=chunk,
-                         precision=precision, k_max=k_max, regimes=regimes)
+                         precision=precision, shard=shard, k_max=k_max,
+                         regimes=regimes)

@@ -37,6 +37,7 @@ import torch
 from repro_torch import device as device_mod
 from repro_torch.kernels.quorum_tally import ops as qt_ops
 from repro_torch.montecarlo import engine, streaming
+from repro_torch.parallel import sharding as psharding
 
 
 def trace_total() -> int:
@@ -52,10 +53,10 @@ class EngineKey:
 
     The JAX package's fields in its order, but for ``device`` (``"cuda"``
     or ``"cpu"``: the device picks the kernels, where the JAX key holds
-    ``use_kernel``) and ``ndev``, always 1 (the trial mesh is not
-    ported).  The materializing T <= chunk path runs on ``samples``
-    instead of a chunk count, so ``mode`` + ``n_chunks`` carries either
-    geometry.
+    ``use_kernel``).  ``ndev`` is the trial-mesh domain count the query
+    runs on, and a sharded key counts one domain's chunks.  The
+    materializing T <= chunk path runs on ``samples`` instead of a chunk
+    count, so ``mode`` + ``n_chunks`` carries either geometry.
     """
 
     table_sig: Tuple[Tuple[str, Tuple[int, ...], str], ...]
@@ -77,17 +78,38 @@ class EngineKey:
     recovery: str = "coordinated"
 
 
+def _resolve_ndev(shard, device) -> int:
+    """Domain count a ``shard`` setting will run on for work on ``device``
+    (without the single-domain warning: computing a key is not a run)."""
+    if shard is False or shard is None:
+        return 1
+    if shard is True:
+        return psharding.trial_mesh(device).size
+    return shard.shape[psharding.TRIAL_AXIS]
+
+
+def shard_token(shard, device) -> Optional[int]:
+    """What a ``shard`` setting runs as on ``device``: None unsharded, else
+    the domain count (domain keys, other draws).  An explicit mesh shards
+    even with one domain; ``shard=True`` only with several."""
+    ndev = _resolve_ndev(shard, device)
+    if shard is False or shard is None or (shard is True and ndev == 1):
+        return None
+    return ndev
+
+
 def engine_key(table: Dict, *, n: int, k_proposers: int, trials: int,
                chunk: int, precision: float, shard=False, k_max,
                regimes=None, recovery: str = "coordinated") -> EngineKey:
     """Compute the warm-pool key for one scoring query, host-side.
     ``table_sig`` spells dtypes as numpy does (``"float32"``)."""
-    device_mod.refuse_shard(shard)
     sig = tuple(sorted((k, tuple(v.shape),
                         str(v.dtype).removeprefix("torch."))
                        for k, v in table.items()))
-    dev = engine._table_device(table).type
-    if regimes is None and trials <= chunk:
+    dev = engine._table_device(table)
+    ndev = _resolve_ndev(shard, dev)
+    dev = dev.type
+    if regimes is None and ndev == 1 and trials <= chunk:
         # materializing path: ``samples`` itself is the geometry
         return EngineKey(sig, 0, n, k_proposers, chunk, trials,
                          "materialize", precision, None, dev, 1,
@@ -100,11 +122,12 @@ def engine_key(table: Dict, *, n: int, k_proposers: int, trials: int,
         cols = [0, 1] if recovery == "coordinated" else [0, 2]
         pairs = int(np.unique(table["q"].cpu().numpy()[:, cols],
                               axis=0).shape[0])
-    n_chunks = -(-trials // chunk)
+    per_device = -(-trials // ndev)
+    n_chunks = -(-per_device // chunk)
     rsig = (None if regimes is None
             else (len(regimes.names), int(regimes.epoch_trials)))
     return EngineKey(sig, pairs, n, k_proposers, chunk, n_chunks, "stream",
-                     precision, k_sat, dev, 1, rsig, recovery)
+                     precision, k_sat, dev, ndev, rsig, recovery)
 
 
 def _token(obj, h) -> None:
@@ -184,7 +207,7 @@ class EngineCache:
               n: Optional[int] = None, k_proposers: int = 2,
               delta_ms: Optional[float] = None, delay=None,
               chunk: Optional[int] = None, precision: Optional[float] = None,
-              k_max="auto", seed: int = 0, regimes=None,
+              shard=False, k_max="auto", seed: int = 0, regimes=None,
               recovery: str = "coordinated", axes=None, device=None):
         """``score_systems`` on ``device`` (``None`` = the CUDA card)."""
         from repro_torch.frontier import score as fscore
@@ -202,12 +225,13 @@ class EngineCache:
             regimes = MarkovRegimes.from_config(regimes, n)
         table = engine.build_mask_table(masks, device=dev)
         key = engine_key(table, n=n, k_proposers=k_proposers, trials=trials,
-                         chunk=chunk, precision=precision, k_max=k_max,
-                         regimes=regimes, recovery=recovery)
+                         chunk=chunk, precision=precision, shard=shard,
+                         k_max=k_max, regimes=regimes, recovery=recovery)
         labels = tuple(m.label or f"system{i}" for i, m in enumerate(masks))
         fp = self._fingerprint(table, key, labels=labels, trials=trials,
                                seed=seed, delta_ms=delta_ms, delay=delay,
-                               regimes=regimes, axes=axes)
+                               regimes=regimes, axes=axes,
+                               domains=shard_token(shard, dev))
         st = self.stats.setdefault(key, {"queries": 0, "compiles": 0})
         st["queries"] += 1
         hit = self._memo.get(fp)
@@ -223,8 +247,8 @@ class EngineCache:
         result = fscore.score_systems(
             list(systems), trials=trials, n=n, k_proposers=k_proposers,
             delta_ms=delta_ms, delay=delay, chunk=chunk, precision=precision,
-            k_max=k_max, seed=seed, regimes=regimes, recovery=recovery,
-            axes=axes, device=dev)
+            shard=shard, k_max=k_max, seed=seed, regimes=regimes,
+            recovery=recovery, axes=axes, device=dev)
         compiles = trace_total() - before
         st["compiles"] += compiles
         result.engine_compiles = compiles
@@ -237,9 +261,10 @@ class EngineCache:
     # -- internals ---------------------------------------------------------
     def _fingerprint(self, table: Dict, key: EngineKey, *,
                      labels: Tuple[str, ...], trials: int, seed: int,
-                     delta_ms: float, delay, axes, regimes=None) -> bytes:
+                     delta_ms: float, delay, axes, regimes=None,
+                     domains: Optional[int] = None) -> bytes:
         h = hashlib.sha256(repr(key).encode())
-        h.update(repr((labels, trials, seed, delta_ms)).encode())
+        h.update(repr((labels, trials, seed, delta_ms, domains)).encode())
         for name in sorted(table):
             h.update(name.encode())
             h.update(table[name].cpu().numpy().tobytes())

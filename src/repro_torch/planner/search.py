@@ -334,9 +334,10 @@ def search(systems: Sequence, *, final_trials: int = 1_000_000,
            n: Optional[int] = None, k_proposers: int = 2,
            delta_ms: Optional[float] = None, delay=None,
            chunk: Optional[int] = None, precision: Optional[float] = None,
-           k_max="auto", seed: int = 0, slack: float = DEFAULT_SLACK,
-           regimes=None, recovery: str = "coordinated",
-           cache=None, device=None) -> SearchResult:
+           shard=False, k_max="auto", seed: int = 0,
+           slack: float = DEFAULT_SLACK, regimes=None,
+           recovery: str = "coordinated", cache=None,
+           device=None) -> SearchResult:
     """Successive-halving search through the streamed scorer, on
     ``device`` (``None`` = the CUDA card; ``"cpu"`` runs the kernels'
     plain versions).
@@ -363,8 +364,8 @@ def search(systems: Sequence, *, final_trials: int = 1_000_000,
                   else fscore.DEFAULT_DELTA_MS),
         delay=delay,
         chunk=chunk if chunk is not None else fscore.DEFAULT_CHUNK,
-        precision=precision, k_max=k_max, seed=seed, regimes=regimes,
-        recovery=recovery, device=device)
+        precision=precision, shard=shard, k_max=k_max, seed=seed,
+        regimes=regimes, recovery=recovery, device=device)
     scorer = lambda members, trials: cache.score(members, trials=trials,
                                                  **kwargs)
     return successive_halving(list(systems), schedule, scorer)

@@ -48,7 +48,7 @@ import numpy as np
 from repro_torch import device as device_mod
 from repro_torch.core.quorum import QuorumSpec
 
-from .cache import EngineCache, _delay_token, trace_total
+from .cache import EngineCache, _delay_token, shard_token, trace_total
 from .search import (DEFAULT_SLACK, Rung, SearchResult, default_schedule,
                      search)
 
@@ -86,10 +86,11 @@ class PlanQuery:
     the schedule below it is derived (``search.default_schedule``) unless
     ``schedule`` pins explicit ``[trials, slack]`` rungs.  The query
     names no device: the planner that answers it runs on its own.
-    ``shard`` and ``use_kernel`` are the JAX package's fields, kept so
-    that its requests parse: ``shard=True`` is refused (the trial mesh is
-    not ported), and ``use_kernel`` selects nothing (the planner's device
-    picks every kernel).
+    ``shard`` splits each rung's trials over the trial mesh, as in
+    ``streaming.race_stream`` (on the wire a bool; in process also a
+    ``parallel.sharding.TrialMesh``).  ``use_kernel``, the JAX package's
+    kernel switch, is kept so that its requests parse and selects nothing
+    (the planner's device picks every kernel).
     """
 
     n: int = 11
@@ -119,7 +120,6 @@ class PlanQuery:
         if unknown:
             raise ValueError(f"unknown fault-budget keys {sorted(unknown)}; "
                              f"use fast/phase1/classic")
-        device_mod.refuse_shard(self.shard)
         if self.schedule is not None:
             object.__setattr__(self, "schedule", tuple(
                 (int(t), float(s)) for t, s in self.schedule))
@@ -246,7 +246,8 @@ class Planner:
                 _delay_token(wl.delay_for(q.n)),
                 _delay_token(wl.regimes_for(q.n)),
                 q.trials, q.schedule,
-                chunk, precision, q.seed, repr(q.k_max), q.slack,
+                chunk, precision, q.seed,
+                shard_token(q.shard, self.device), repr(q.k_max), q.slack,
                 wl.recovery)
 
     # -- planning ----------------------------------------------------------
@@ -305,7 +306,7 @@ class Planner:
             k_proposers=wl.k_proposers if racing else 2,
             delta_ms=wl.delta_ms if racing else fscore.DEFAULT_DELTA_MS,
             delay=wl.delay_for(q.n), chunk=q.chunk, precision=q.precision,
-            k_max=q.k_max, seed=q.seed, slack=q.slack,
+            shard=q.shard, k_max=q.k_max, seed=q.seed, slack=q.slack,
             regimes=wl.regimes_for(q.n), recovery=wl.recovery,
             cache=self.engines, device=self.device)
         self._searches[gkey] = sr

@@ -20,6 +20,8 @@ each times max(1, |plain|) (outputs reach about 20, where one bf16 ulp is
 0.125).  The tests of the tensor-core instances check their own launch
 counters.
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -1070,3 +1072,63 @@ def test_delay_token_equal_on_cpu_and_card(cuda):
                                    latency.crash_mask(11, [0, 4])),
               regimes.gray_failure(11)):
         assert _delay_token(latency.to_device(d, cuda)) == _delay_token(d)
+
+
+# ---------------------------------------------------------------------------
+# The trial mesh on the card.
+# ---------------------------------------------------------------------------
+
+MESH_TRIALS, MESH_CHUNK = 200_003, 16_384
+
+
+@pytest.mark.parametrize("kind", ["race", "regimes"])
+def test_sharded_stream_equals_plain_versions_on_card(cuda, kind):
+    """A 1 x 4 sharded stream on the card (race_card_hist a domain chunk on
+    the race; tally_decide on the regime stream) launches its kernel
+    4 x ceil(T / 4 / chunk) times and no other, and equals the same mesh
+    on the plain versions: integers and maxima equal, means to 1e-5."""
+    from chip_smoke import plain_quorum_kernels, same_stream
+    from repro_torch.frontier import cardinality_family
+    from repro_torch.montecarlo import engine, regimes, rng
+    from repro_torch.parallel.sharding import trial_mesh
+    table = engine.build_mask_table(
+        [m.masks() for m in cardinality_family(11)], device=cuda)
+    reg = (regimes.gray_failure(11, epoch_trials=4_096, p_fail=0.1,
+                                p_recover=0.3) if kind == "regimes" else None)
+    run = lambda: streaming.race_stream(
+        rng.root(8), table, [0.0, 0.2], n=11, k_proposers=2,
+        trials=MESH_TRIALS, chunk=MESH_CHUNK, shard=trial_mesh(cuda, 4),
+        regimes=reg)
+    ops.reset_launches()
+    got = run()
+    torch.cuda.synchronize()
+    kern = "tally_decide" if reg is not None else "race_card_hist"
+    per = -(-(-(-MESH_TRIALS // 4)) // MESH_CHUNK)
+    assert ops.LAUNCHES == {k: 4 * per if k == kern else 0
+                            for k in ops.LAUNCHES}
+    assert got.n_trials.tolist() == [MESH_TRIALS] * 271
+    with plain_quorum_kernels():
+        want = run()
+    same_stream(got, want, f"sharded {kind}")
+
+
+@pytest.mark.skipif(os.environ.get("REPRO_GIGATRIAL") != "1",
+                    reason="10^9 trials take minutes; set REPRO_GIGATRIAL=1")
+def test_gigatrial_race_stream_fixed_memory_p9999(cuda):
+    """The twin of tests/test_multihost.py:85: a 10^9-trial race_stream
+    completes in fixed memory with the p99.99 tail populated, on whatever
+    domains are visible (shard=True; one card warns and streams
+    unsharded)."""
+    from repro_torch.core.quorum import QuorumSpec
+    from repro_torch.montecarlo import engine, rng
+    table = engine.build_mask_table([QuorumSpec.paper_headline(11)],
+                                    device=cuda)
+    torch.cuda.reset_peak_memory_stats(cuda)
+    state = streaming.race_stream(rng.root(0), table, [0.0, 0.2], n=11,
+                                  k_proposers=2, trials=1_000_000_000,
+                                  chunk=262_144)
+    assert int(state.n_trials[0]) == 1_000_000_000
+    s = state.summary()
+    assert np.isfinite(float(s["p9999_ms"][0]))
+    assert float(s["p9999_ms"][0]) >= float(s["p999_ms"][0]) > 0
+    assert torch.cuda.max_memory_allocated(cuda) < 2 * 2 ** 30

@@ -16,11 +16,13 @@ import json
 import os
 import subprocess
 import sys
+import warnings
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro import api as japi
 from repro.core import quorum as jq
@@ -119,15 +121,30 @@ def test_committed_configs_load_unchanged_and_stream(name):
     assert all(isinstance(x, float) for x in r.to_dict().values())
 
 
-def test_from_config_refuses_the_dropped_keys():
+def test_from_config_takes_shard_and_use_kernel():
+    """Both keys of the JAX package's Experiment load, with either value,
+    in both packages; on one domain the run equals the one without the
+    key (``shard=True`` warns there and streams unsharded, as in JAX)."""
     base = {"systems": [{"kind": "cardinality", "n": 5, "q1": 4, "q2c": 2,
-                         "q2f": 4}]}
-    for key, why in (("use_kernel", "device picks"), ("shard", "mesh")):
-        with pytest.raises(ValueError, match=why):
-            api.Experiment.from_config({**base, key: True}, device="cpu")
-    exp = api.Experiment.from_config({**base, "samples": 500, "seed": 3},
-                                     device="cpu")
-    assert exp.run("montecarlo").summary["p50_ms"].shape == (1,)
+                         "q2f": 4}], "trials": 3_000, "chunk": 1_024,
+            "seed": 3}
+    plain = api.Experiment.from_config(base, device="cpu")
+    assert plain.shard is True
+    with pytest.warns(UserWarning, match="only 1 device"):
+        want = plain.run("montecarlo").stream
+    for key in ("use_kernel", "shard"):
+        for val in (False, True):
+            cfg = {**base, key: val}
+            exp = api.Experiment.from_config(cfg, device="cpu")
+            assert getattr(japi.Experiment.from_config(cfg), key) is val
+            if key == "shard":
+                assert exp.shard is val
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", UserWarning)
+                got = exp.run("montecarlo").stream
+            for f in ("n_trials", "n_fast", "n_recovery", "n_undecided",
+                      "hist", "max_ms", "mean_ms"):
+                assert torch.equal(getattr(got, f), getattr(want, f)), f
 
 
 def test_system_from_config_equals_jax():
@@ -312,10 +329,9 @@ def test_guardrails():
     assert len(set(dup.labels)) == 2
 
 
-def test_plan_is_not_ported():
-    """The planner's three entry points answer on the experiment's device
-    (before the planner was ported they raised NotImplementedError; the
-    test keeps its name).  tests/test_torch_planner.py holds them to JAX."""
+def test_plan_answers_on_the_cpu():
+    """The planner's three entry points answer on the experiment's device.
+    tests/test_torch_planner.py holds them to JAX."""
     from repro_torch.planner import PlanResult, Planner
     exp = api.Experiment(systems=systems(pq), chunk=1_024, device="cpu")
     for r in (exp.plan(trials=3_000),

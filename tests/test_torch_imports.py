@@ -51,7 +51,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "repro_torch.planner.__main__", "repro_torch.cluster",
                  "repro_torch.cluster.coordinator",
                  "repro_torch.cluster.membership",
-                 "repro_torch.cluster.failure"):
+                 "repro_torch.cluster.failure",
+                 "repro_torch.parallel", "repro_torch.parallel.sharding",
+                 "repro_torch.parallel.distributed"):
         assert name in names
     code = f"""
 import importlib, sys
@@ -83,6 +85,7 @@ from repro_torch.api import default_planner
 from repro_torch.api.__main__ import main as api_main
 from repro_torch.planner import Planner, PlannerServer
 from repro_torch.planner.__main__ import main as planner_main
+from repro_torch.parallel import distributed, sharding
 cfg = reduced_config(get_config("mamba2_130m"))
 exp = Experiment(systems=[QuorumSpec(3, 2, 2, 3)],
                  workload=Workload.race(k=2))
@@ -100,6 +103,8 @@ for fn in (lambda: score_systems(cardinality_family(3), trials=10),
            lambda: planner_main(["plan", "--n", "3", "--trials", "10"]),
            lambda: api_main(["--smoke"]),
            lambda: run_sweep(quick=True),
+           lambda: sharding.trial_mesh(),
+           lambda: distributed.selftest(),
            lambda: engine.build_mask_table([QuorumSpec(3, 2, 2, 3)]),
            lambda: serve.main(["--arch", "mamba2_130m", "--smoke"]),
            lambda: serve.main(["--arch", "zamba2_2_7b", "--smoke"]),

@@ -45,6 +45,7 @@ from repro_torch.planner import (EngineCache, PlanQuery, Planner,
                                  engine_key, prune_survivors, search,
                                  successive_halving)
 from repro_torch.planner import cache
+from repro_torch.parallel.sharding import trial_mesh
 
 # the packages export a function ``search`` that shadows the module's name
 jsearch = importlib.import_module("repro.planner.search")
@@ -255,8 +256,26 @@ def test_engine_key_modes_and_shared_chunk_count():
     assert engine_key(table, trials=52_000, **kw) == streamed
     assert streamed.table_sig[0] == ("p1_t", (len(families.family(
         "cardinality", 7)), 1), "float32")
-    with pytest.raises(ValueError, match="mesh"):
-        engine_key(table, trials=50_000, shard=True, **kw)
+    # shard: ndev is the domain count the query runs on (1 on one domain,
+    # D on an explicit D-domain mesh), a sharded key counts one domain's
+    # chunks and never materializes -- JAX's key, mesh for mesh.
+    j_table = _tables("cardinality", 7)[1]
+    jkw = dict(kw, use_kernel=False)
+    for shard, ndev in ((True, 1), (trial_mesh(CPU, domains=3), 3),
+                        (trial_mesh(CPU, domains=1), 1)):
+        for trials in (50_000, 1_000):
+            got = engine_key(table, trials=trials, shard=shard, **kw)
+            want = jcache.engine_key(j_table, trials=trials, shard=shard,
+                                     **jkw)
+            assert got.ndev == ndev
+            for f in dataclasses.fields(got):
+                if f.name != "device":
+                    assert getattr(got, f.name) == getattr(want, f.name)
+    sharded = engine_key(table, trials=50_000,
+                         shard=trial_mesh(CPU, domains=3), **kw)
+    assert sharded.n_chunks == -(-(-(-50_000 // 3)) // 4_096)
+    assert engine_key(table, trials=1_000, shard=trial_mesh(
+        CPU, domains=3), **kw).mode == "stream"
 
 
 def _delay_pairs(n: int = 7):
@@ -463,8 +482,8 @@ def test_query_validation():
         PlanQuery.from_dict({"nope": 1})
     with pytest.raises(ValueError):
         PlanQuery(trials=0)
-    with pytest.raises(ValueError, match="mesh"):
-        PlanQuery(shard=True)
+    assert PlanQuery(shard=True).shard is True
+    assert PlanQuery(shard=trial_mesh(CPU, domains=2)).shard.size == 2
     PlanQuery(use_kernel=True, shard=False)      # JAX-shaped fields parse
 
 
@@ -531,8 +550,12 @@ def test_jax_client_against_port_server():
         assert stats["trace_counts"] == {"launch_plans": 0}
         bad = ask({"op": "plan", "objective": "nope"})
         assert not bad["ok"] and "objective" in bad["error"]
+        # shard=True on the server's one domain runs unsharded (with JAX's
+        # warning): the same search, answered from the cache
         shard = ask(dict(q, shard=True))
-        assert not shard["ok"] and "mesh" in shard["error"]
+        assert shard["ok"] and not shard["cold"]
+        for k in ("recommended", "frontier_labels", "predicted_ms"):
+            assert shard[k] == r1[k], k
         assert ask({"op": "bogus"})["ok"] is False
     finally:
         srv.shutdown()

@@ -1,6 +1,8 @@
 """The port's attention serving path against the JAX package's, on the CPU:
 zamba2 (Mamba2 + one weight-shared attention block), and the dense
-"global" (deepseek_7b, GQA) and "local" (gemma3_12b, window 32) kinds.
+"global" (deepseek_7b, GQA) and "local" (gemma3_12b, window 32) kinds;
+the f32 forward also for olmo_1b (non-parametric LayerNorm) and
+nemotron_4_15b (squared-ReLU MLP).
 
 Each reduced configuration is built by JAX's ``DecoderLM.init``;
 ``params_from_jax`` carries its params (zamba2's unstacked ``shared.*``
@@ -72,7 +74,7 @@ def f32(monkeypatch):
 
 @pytest.mark.parametrize("arch,use_ssd_kernel", [
     ("zamba2_2_7b", False), ("zamba2_2_7b", True), ("deepseek_7b", False),
-    ("gemma3_12b", False)])
+    ("gemma3_12b", False), ("olmo_1b", False), ("nemotron_4_15b", False)])
 def test_forward_matches_jax_in_f32(pairs, f32, monkeypatch, arch,
                                     use_ssd_kernel):
     cfg, mj, params, mt = _pair(pairs, arch)
