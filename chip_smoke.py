@@ -108,6 +108,28 @@ Phases, one JSON line each:
               with the strides decode hands them); event, device, plain and
               library times (scaled_dot_product_attention, rms_norm) and
               bounds there
+  train       training on the card (``repro_torch.training``,
+              ``repro_torch.launch.train``; the models' plain code under
+              autograd): (a) mamba2_130m at full width, AdamW with the JAX
+              launcher's schedule, 4 x 1024 tokens a step, checkpoints
+              through ControlPlane(QuorumSpec.paper_headline(11)) every 5
+              steps, preempted at step 13 and restored into a fresh trainer
+              at step 10 (step, cursor, every param and moment the same
+              bits as step 10's), on to step 20 with the loss 0.5 nat under
+              step 1's; one step of 2 microbatches against 1 (loss to 1e-2
+              relative, params to 2e-2); (b) zamba2_2_7b at full width
+              through the launcher, 5 steps, the loss falling; (c) reduced
+              olmo_1b with int8 and top-k compression and with Adafactor,
+              10 steps each, the loss 0.4 nat under step 1's; (d) no kernel
+              of the four libraries launched by any train step, and a model
+              built with kernels raising under grad; (e) both last
+              checkpoints restored into fresh models with kernels and
+              prefilled (4 x 1024) through make_prefill: SSD 24 / 54, flash
+              0 / 9, RMSNorm 49 / 127 launches, the logits (f32 and bf16
+              compute) the trained models' bit for bit, the kernel path
+              held to the plain path as the serve phases hold it.  Step ms,
+              tokens/s, peak memory, a traced step's card busy time and
+              idle share, the phase's wall
   the kernels line: all eight kernels' launches on their main paths
               (summed; ``launches_by_path`` names each path's), error,
               times, bounds
@@ -933,6 +955,73 @@ def model_kernel_phase(dev, captured, cfg) -> dict:
     return out
 
 
+def prefill_checks(arch, model, prompt, prefill, n_mamba: int,
+                   n_attn: int, per_pass: int) -> dict:
+    """The kernel path against the plain path for one prefill of
+    ``prompt`` (SERVE_BATCH x SERVE_PROMPT) through ``prefill(cache,
+    batch)``: the prefill logits, every superblock's first SSM state and
+    attention cache, with f32 compute to SERVE_F32_TOL and as served (bf16)
+    within SERVE_BF16_FLOOR_FACTOR times the bf16 floor; each prefill with
+    the kernels launches SSD ``n_mamba``, flash ``n_attn`` and RMSNorm
+    ``per_pass`` times, all on the tensor-core instances in bf16, and the
+    plain path none.  Fails on a miss; returns the checks."""
+    def prefill_once(kernel, dtype, floor=False):
+        with variant(model, kernel, dtype, floor), torch.inference_mode():
+            reset_model_launches()
+            c, lg = prefill(model.init_cache(SERVE_BATCH, SERVE_PROMPT),
+                            {"tokens": prompt})
+            torch.cuda.synchronize()
+            want = ({"ssd": n_mamba, "flash_attention": n_attn,
+                     "rmsnorm": per_pass} if kernel
+                    else dict.fromkeys(("ssd", "flash_attention",
+                                        "rmsnorm"), 0))
+            tc_on = kernel and dtype == torch.bfloat16
+            want_tc = {"ssd": n_mamba * tc_on,
+                       "flash_attention": n_attn * tc_on}
+            if model_launches() != want \
+                    or tensor_core_launches() != want_tc:
+                fail(f"{arch} prefill kernel={kernel} {dtype}: "
+                     f"{model_launches()}, tensor-core instances "
+                     f"{tensor_core_launches()}")
+        states = []
+        for sb in c["layers"]:
+            for key, cc in sorted(sb.items()):
+                if key == "mamba_0":
+                    states.append(cc["state"])
+                elif "k" in cc:
+                    states.append(cc["k"].float())
+        return states, lg[:, -1].float()
+
+    def diff(a, b):
+        return (float((a[1] - b[1]).abs().max()),
+                [float((x - y).abs().max()) / max(float(y.abs().max()),
+                                                  1e-30)
+                 for x, y in zip(a[0], b[0])])
+
+    f32 = torch.float32
+    checks = {}
+    checks["prefill f32 kernel vs plain"] = diff(prefill_once(True, f32),
+                                                 prefill_once(False, f32))
+    lg_err, st_err = checks["prefill f32 kernel vs plain"]
+    if lg_err >= SERVE_F32_TOL or max(st_err) >= SERVE_F32_TOL:
+        fail(f"{arch} f32 prefill kernel vs plain: logits off by {lg_err}, "
+             f"states and caches by {max(st_err)} relative")
+    plain = prefill_once(False, torch.bfloat16)
+    checks["prefill bf16 kernel vs plain"] = diff(
+        prefill_once(True, torch.bfloat16), plain)
+    checks["prefill bf16 plain floor lowering vs plain"] = diff(
+        prefill_once(False, torch.bfloat16, floor=True), plain)
+    (lg_k, st_k), (lg_f, st_f) = (
+        checks["prefill bf16 kernel vs plain"],
+        checks["prefill bf16 plain floor lowering vs plain"])
+    if lg_k > SERVE_BF16_FLOOR_FACTOR * lg_f \
+            or max(st_k) > SERVE_BF16_FLOOR_FACTOR * max(st_f):
+        fail(f"{arch} bf16 prefill kernel vs plain: logits off by {lg_k}, "
+             f"states by {max(st_k)} relative; two plain lowerings differ "
+             f"by {lg_f} and {max(st_f)}")
+    return checks
+
+
 def serve_phase(arch: str, dev, n_tokens: int) -> dict:
     """Serve ``arch`` at full width, seeded weights, SERVE_BATCH requests of
     SERVE_PROMPT tokens then ``n_tokens`` greedy decode steps, through
@@ -987,62 +1076,13 @@ def serve_phase(arch: str, dev, n_tokens: int) -> dict:
     if any(not torch.equal(r["tokens"], toks) for r in runs[1:]):
         fail(f"{arch} serving is not deterministic across runs")
 
-    # (a) kernel vs plain path: prefill logits, every Mamba2 layer 0's state
-    # and every attention cache, with f32 compute and as served (bf16),
-    # against the bf16 floor
-    def prefill_once(kernel, dtype, floor=False):
-        with variant(model, kernel, dtype, floor), torch.inference_mode():
-            reset_model_launches()
-            c, lg = model.prefill({"tokens": prompt}, model.init_cache(
-                SERVE_BATCH, SERVE_PROMPT))
-            torch.cuda.synchronize()
-            want = ({"ssd": n_mamba, "flash_attention": n_attn,
-                     "rmsnorm": per_pass} if kernel
-                    else dict.fromkeys(per_run, 0))
-            tc_on = kernel and dtype == torch.bfloat16
-            want_tc = {"ssd": n_mamba * tc_on,
-                       "flash_attention": n_attn * tc_on}
-            if model_launches() != want \
-                    or tensor_core_launches() != want_tc:
-                fail(f"{arch} prefill kernel={kernel} {dtype}: "
-                     f"{model_launches()}, tensor-core instances "
-                     f"{tensor_core_launches()}")
-        states = []
-        for sb in c["layers"]:
-            for key, cc in sorted(sb.items()):
-                if key == "mamba_0":
-                    states.append(cc["state"])
-                elif "k" in cc:
-                    states.append(cc["k"].float())
-        return states, lg[:, -1].float()
+    # (a) kernel vs plain path
+    def prefill(cache, batch):
+        with torch.inference_mode():
+            return model.prefill(batch, cache)
 
-    def diff(a, b):
-        return (float((a[1] - b[1]).abs().max()),
-                [float((x - y).abs().max()) / max(float(y.abs().max()),
-                                                  1e-30)
-                 for x, y in zip(a[0], b[0])])
-
-    f32 = torch.float32
-    checks = {}
-    checks["prefill f32 kernel vs plain"] = diff(prefill_once(True, f32),
-                                                 prefill_once(False, f32))
-    lg_err, st_err = checks["prefill f32 kernel vs plain"]
-    if lg_err >= SERVE_F32_TOL or max(st_err) >= SERVE_F32_TOL:
-        fail(f"{arch} f32 prefill kernel vs plain: logits off by {lg_err}, "
-             f"states and caches by {max(st_err)} relative")
-    plain = prefill_once(False, torch.bfloat16)
-    checks["prefill bf16 kernel vs plain"] = diff(
-        prefill_once(True, torch.bfloat16), plain)
-    checks["prefill bf16 plain floor lowering vs plain"] = diff(
-        prefill_once(False, torch.bfloat16, floor=True), plain)
-    (lg_k, st_k), (lg_f, st_f) = (
-        checks["prefill bf16 kernel vs plain"],
-        checks["prefill bf16 plain floor lowering vs plain"])
-    if lg_k > SERVE_BF16_FLOOR_FACTOR * lg_f \
-            or max(st_k) > SERVE_BF16_FLOOR_FACTOR * max(st_f):
-        fail(f"{arch} bf16 prefill kernel vs plain: logits off by {lg_k}, "
-             f"states by {max(st_k)} relative; two plain lowerings differ "
-             f"by {lg_f} and {max(st_f)}")
+    checks = prefill_checks(arch, model, prompt, prefill, n_mamba, n_attn,
+                            per_pass)
 
     # the plain path end to end, for the tokens the two paths share
     with variant(model, False):
@@ -1063,6 +1103,7 @@ def serve_phase(arch: str, dev, n_tokens: int) -> dict:
         return (float((got - fwd[False]).abs().max()),
                 float((fwd[True] - fwd[False]).abs().max()))
 
+    f32 = torch.float32
     with variant(model, True, f32):
         run_f32 = serve.generate(model, prompt, n_tokens)
     dec_f32, _ = decode_vs_forward(run_f32, f32)
@@ -1767,6 +1808,357 @@ def serve_profile(res: dict) -> None:
 
 
 
+# ---------------------------------------------------------------------------
+# Training on the card: the models' plain code under autograd (no kernel
+# has a backward), checkpoints committed through the control plane, and the
+# trained checkpoints served through the kernels.
+# ---------------------------------------------------------------------------
+
+# (a) mamba2_130m at full width: AdamW with the JAX launcher's schedule,
+# batch 4 x seq 1024, checkpoints every 5 steps, preempted at step 13 and
+# resumed from step 10, on to step 20; the loss down by JAX's
+# test_loss_decreases margin.  (b) zamba2_2_7b at full width, 5 steps
+# through the launcher.  (c) reduced olmo_1b with int8 and top-k
+# compression and with Adafactor, JAX's _mk_trainer sizes, 10 steps each,
+# the loss down by JAX's compressed-training margin.
+TRAIN_BATCH, TRAIN_SEQ = 4, 1024
+TRAIN_STEPS, TRAIN_RESUME_AT, TRAIN_PREEMPT_AT = 20, 10, 13
+TRAIN_CKPT_EVERY, TRAIN_LOSS_MARGIN = 5, 0.5
+ZAMBA_TRAIN_STEPS = 5
+SMALL_STEPS, SMALL_MARGIN = 10, 0.4
+CKPT_ROOT = os.path.join(ROOT, "build", "chip_smoke_ckpt")
+
+
+def kernel_counters() -> list:
+    """The launch counters of all four kernel libraries."""
+    from repro_torch.kernels.quorum_tally import ops as qt_ops
+    return [qt_ops.LAUNCHES] + [m.LAUNCHES
+                                for m, _ in model_kernels().values()]
+
+
+def reset_all_launches() -> None:
+    for counter in kernel_counters():
+        for k in counter:
+            counter[k] = 0
+
+
+def launched() -> dict:
+    """Every counter that is not 0."""
+    return {k: v for c in kernel_counters() for k, v in c.items() if v}
+
+
+def launcher_optimizer():
+    """JAX's launch/train.py optimizer: AdamW, lr 1e-3, cosine schedule
+    (warm-up 10, total 1000)."""
+    from repro_torch.training.optimizer import adamw, cosine_schedule
+    return adamw(lr=1e-3, schedule=cosine_schedule(warmup=10, total=1000))
+
+
+def train_state(tr) -> dict:
+    """A copy of a trainer's params and optimizer state, on the card."""
+    return {"params": {k: v.detach().clone() for k, v in tr.params.items()},
+            "opt": {k: ({n: t.clone() for n, t in v.items()}
+                        if isinstance(v, dict) else v.clone())
+                    for k, v in tr.opt_state.items()}}
+
+
+def state_equal(tr, state) -> bool:
+    """Every param and optimizer leaf of ``tr`` the same bits as
+    ``state``'s."""
+    now = train_state(tr)
+    return all(torch.equal(now["params"][k], v)
+               for k, v in state["params"].items()) and all(
+        torch.equal(now["opt"][k], v) if not isinstance(v, dict)
+        else all(torch.equal(now["opt"][k][n], t) for n, t in v.items())
+        for k, v in state["opt"].items())
+
+
+def load_state(tr, state) -> None:
+    with torch.no_grad():
+        for k, v in state["params"].items():
+            tr.params[k].copy_(v)
+        for k, v in state["opt"].items():
+            if isinstance(v, dict):
+                for n, t in v.items():
+                    tr.opt_state[k][n].copy_(t)
+            else:
+                tr.opt_state[k].copy_(v)
+
+
+def trained_logits(model, prompt) -> dict:
+    """The last-position prefill logits of ``prompt`` through the kernels,
+    with f32 compute and as served (bf16), as f32."""
+    from repro_torch.training.trainer import make_prefill
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        with variant(model, True, dtype):
+            _, lg = make_prefill(model)(model.init_cache(
+                SERVE_BATCH, SERVE_PROMPT), {"tokens": prompt})
+        out[str(dtype)] = lg[:, -1].float()
+    return out
+
+
+def profile_step(tr) -> dict:
+    """One more train step traced: the card's busy time and the busiest
+    kernels."""
+    prof = device_profile(lambda: tr.run(1), top=6)
+    return {"busy_ms": prof["device_busy_s"] * 1e3,
+            "traced_wall_ms": prof["wall_s"] * 1e3,
+            "device_launches": sum(prof["by_kernel_n"].values()),
+            "top_ms": prof["top"]}
+
+
+def serve_trained(arch, cfg, dev, ckpt_dir, plane, reference, prompt,
+                  want_step) -> dict:
+    """(e) Restore ``arch``'s last checkpoint into a fresh DecoderLM(cfg)
+    (kernels on, its memory left unset until the restore fills it; the
+    optimizer state checked against the digest, not loaded), check its
+    step and (d) that a forward under grad raises, prefill SERVE_BATCH x
+    SERVE_PROMPT through make_prefill with the serve phases' launch
+    counts, its logits the trained model's bit for bit, and hold the
+    kernels to the plain path as serve_phase does."""
+    from repro_torch.models.model import DecoderLM
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training.trainer import make_prefill
+    t0 = time.perf_counter()
+    model = DecoderLM(cfg, device="meta").to_empty(device=dev)
+    params = dict(model.named_parameters())
+    # the optimizer state's template on the meta device: checked, not loaded
+    opt_state = launcher_optimizer().init(
+        {k: torch.empty_like(p, device="meta") for k, p in params.items()})
+    _, step, cursor = ckpt.restore({"params": params, "opt": opt_state},
+                                   ckpt.latest_manifest(ckpt_dir, plane))
+    if (step, cursor) != (want_step, want_step):
+        fail(f"{arch}: restored step {step} cursor {cursor}, expected "
+             f"{want_step}")
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    # (d) a model built with kernels raises under grad
+    try:
+        model({"tokens": prompt[:, :16]})
+    except RuntimeError as e:
+        if "no backward" not in str(e):
+            raise
+        refused = str(e)
+    else:
+        fail(f"{arch}: a forward under grad with kernels did not raise")
+    n_mamba = cfg.pattern.count("mamba") * cfg.n_superblocks
+    n_attn = (len(cfg.pattern) - cfg.pattern.count("mamba")) \
+        * cfg.n_superblocks
+    per_pass = 2 * (n_mamba + n_attn) + 1
+    reset_model_launches()
+    _, lg = make_prefill(model)(model.init_cache(SERVE_BATCH, SERVE_PROMPT),
+                                {"tokens": prompt})
+    torch.cuda.synchronize()
+    launches = model_launches()
+    want = {"ssd": n_mamba, "flash_attention": n_attn, "rmsnorm": per_pass}
+    if launches != want:
+        fail(f"{arch}: the trained checkpoint's prefill launched "
+             f"{launches}, expected {want}")
+    if not bool(torch.isfinite(lg.float()).all()):
+        fail(f"{arch}: the trained checkpoint's logits are not finite")
+    got = trained_logits(model, prompt)
+    for k, v in reference.items():
+        if not torch.equal(got[k], v):
+            fail(f"{arch}: the restored model's {k} logits differ from the "
+                 f"trained model's by {float((got[k] - v).abs().max())}")
+    checks = prefill_checks(arch, model, prompt, make_prefill(model),
+                            n_mamba, n_attn, per_pass)
+    return {"restore_s": restore_s, "kernels_under_grad": refused,
+            "launches_per_prefill": launches, "logits_equal_trained": True,
+            "checks": checks}
+
+
+def train_phase(dev, smi: str) -> dict:
+    """Train on the card (see TRAIN_*): (a) mamba2_130m, (b) zamba2_2_7b,
+    (c) reduced olmo_1b compressed and with Adafactor; (d) no kernel
+    launched by any train step, and a model with kernels raising under
+    grad; (e) both trained checkpoints served through the kernels."""
+    from repro_torch.cluster.coordinator import ControlPlane
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.core.quorum import QuorumSpec
+    from repro_torch.launch import serve, train as launch_train
+    from repro_torch.models.model import DecoderLM
+    from repro_torch.training.data import DataConfig, SyntheticPipeline
+    from repro_torch.training.optimizer import adafactor, adamw
+    from repro_torch.training.trainer import (Trainer, TrainerConfig,
+                                              make_train_step)
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    out = {"card": smi}
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+
+    # ---- (a) mamba2_130m ---------------------------------------------------
+    arch = "mamba2_130m"
+    cfg = get_config(arch)
+    ckpt_dir = os.path.join(CKPT_ROOT, arch)
+    plane = ControlPlane(QuorumSpec.paper_headline(11))
+    pipe = SyntheticPipeline(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                        global_batch=TRAIN_BATCH))
+
+    def trainer(seed):
+        model = DecoderLM(cfg, device=dev, seed=seed, use_kernels=False)
+        tr = Trainer(model, launcher_optimizer(), pipe,
+                     TrainerConfig(ckpt_dir=ckpt_dir,
+                                   ckpt_every=TRAIN_CKPT_EVERY),
+                     plane=plane)
+        tr.init()
+        return tr
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    t1 = trainer(0)
+    t1.run(TRAIN_RESUME_AT)
+    at_resume = train_state(t1)
+    t1.run(TRAIN_PREEMPT_AT - TRAIN_RESUME_AT)        # lost to preemption
+    t2 = trainer(1)
+    if not t2.try_restore() or (t2.step, t2.cursor) != (TRAIN_RESUME_AT,
+                                                        TRAIN_RESUME_AT):
+        fail(f"{arch}: resumed at step {t2.step} cursor {t2.cursor}, "
+             f"expected {TRAIN_RESUME_AT}")
+    if not state_equal(t2, at_resume):
+        fail(f"{arch}: the resumed params and moments differ from step "
+             f"{TRAIN_RESUME_AT}'s")
+    del at_resume
+    t2.run(TRAIN_STEPS - TRAIN_RESUME_AT)
+    # steps 1-10 of the preempted run, 11-20 of the resumed one
+    hist = t1.history[:TRAIN_RESUME_AT] + t2.history
+    del t1
+    if hist[-1]["loss"] > hist[0]["loss"] - TRAIN_LOSS_MARGIN:
+        fail(f"{arch}: loss {hist[0]['loss']} at step 1, "
+             f"{hist[-1]['loss']} at step {TRAIN_STEPS}")
+    # one step with 2 microbatches against 1, from step 20's state
+    at_end = train_state(t2)
+    batch = {k: v.to(dev) for k, v in pipe.batch_at(t2.cursor).items()}
+    micro = {}
+    for nm in (1, 2):
+        b = batch if nm == 1 else {
+            k: v.reshape((nm, v.shape[0] // nm) + v.shape[1:])
+            for k, v in batch.items()}
+        _, m = make_train_step(t2.model, t2.opt, n_microbatches=nm)(
+            t2.opt_state, None, b)
+        micro[nm] = (float(m["loss"]), {k: v.detach().clone()
+                                        for k, v in t2.params.items()})
+        load_state(t2, at_end)
+    param_diff = max(float((micro[1][1][k] - micro[2][1][k]).abs().max())
+                     for k in micro[1][1])
+    loss_rel = abs(micro[1][0] - micro[2][0]) / abs(micro[1][0])
+    del micro
+    if loss_rel > 1e-2 or param_diff >= 2e-2:
+        fail(f"{arch}: 2 microbatches against 1: loss off by {loss_rel} "
+             f"relative, params by {param_diff}")
+    prof_a = profile_step(t2)
+    load_state(t2, at_end)
+    memory_a = torch.cuda.max_memory_allocated() / 1e9
+    if launched():
+        fail(f"{arch}: train steps launched kernels: {launched()}")
+    step_s = [h["step_s"] for h in hist]
+    out[arch] = dict(
+        params=sum(p.numel() for p in t2.model.parameters()),
+        steps=TRAIN_STEPS, loss=[h["loss"] for h in hist],
+        grad_norm=[h["grad_norm"] for h in hist],
+        step_ms=[x * 1e3 for x in step_s],
+        median_step_ms=statistics.median(step_s[1:]) * 1e3,
+        tokens_per_s=tokens / statistics.median(step_s[1:]),
+        resumed_at=TRAIN_RESUME_AT, preempted_at=TRAIN_PREEMPT_AT,
+        resume_bit_identical=True, microbatch_loss_rel=loss_rel,
+        microbatch_param_diff=param_diff,
+        committed_steps=[r["step"] for r in plane.history()
+                         if r["kind"] == "checkpoint"],
+        max_memory_gb=memory_a, profile=prof_a)
+    out[arch]["idle_share"] = 1.0 - prof_a["busy_ms"] \
+        / out[arch]["median_step_ms"]
+
+    t2.model.use_kernels = True
+    prompt = serve.prompt_batch(cfg.vocab, SERVE_BATCH, SERVE_PROMPT, dev)
+    trained = [(arch, cfg, ckpt_dir, plane, trained_logits(t2.model, prompt),
+                prompt, TRAIN_STEPS)]
+    del t2, at_end, batch
+    torch.cuda.empty_cache()
+
+    # ---- (b) zamba2_2_7b through the launcher -------------------------------
+    arch = "zamba2_2_7b"
+    ckpt_dir = os.path.join(CKPT_ROOT, arch)
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    tr = launch_train.main(["--arch", arch, "--steps",
+                            str(ZAMBA_TRAIN_STEPS), "--seq", str(TRAIN_SEQ),
+                            "--batch", str(TRAIN_BATCH), "--ckpt-dir",
+                            ckpt_dir])
+    torch.cuda.synchronize()
+    memory_b = torch.cuda.max_memory_allocated() / 1e9
+    if launched():
+        fail(f"{arch}: train steps launched kernels: {launched()}")
+    hist = list(tr.history)
+    if hist[-1]["loss"] >= hist[0]["loss"]:
+        fail(f"{arch}: loss {hist[0]['loss']} at step 1, "
+             f"{hist[-1]['loss']} at step {ZAMBA_TRAIN_STEPS}")
+    cfg = tr.model.cfg
+    step_s = [h["step_s"] for h in hist]
+    tr.model.use_kernels = True
+    prompt = serve.prompt_batch(cfg.vocab, SERVE_BATCH, SERVE_PROMPT, dev)
+    trained.append((arch, cfg, ckpt_dir, tr.plane,
+                    trained_logits(tr.model, prompt), prompt,
+                    ZAMBA_TRAIN_STEPS))
+    tr.model.use_kernels = False
+    reset_all_launches()
+    prof_b = profile_step(tr)
+    if launched():
+        fail(f"{arch}: the traced train step launched kernels: "
+             f"{launched()}")
+    out[arch] = dict(
+        params=sum(p.numel() for p in tr.model.parameters()),
+        steps=ZAMBA_TRAIN_STEPS, loss=[h["loss"] for h in hist],
+        grad_norm=[h["grad_norm"] for h in hist],
+        step_ms=[x * 1e3 for x in step_s],
+        median_step_ms=statistics.median(step_s[1:]) * 1e3,
+        tokens_per_s=tokens / statistics.median(step_s[1:]),
+        max_memory_gb=memory_b, profile=prof_b)
+    out[arch]["idle_share"] = 1.0 - prof_b["busy_ms"] \
+        / out[arch]["median_step_ms"]
+    del tr
+    torch.cuda.empty_cache()
+
+    # ---- (c) reduced olmo_1b: int8, top-k, Adafactor -----------------------
+    small = reduced_config(get_config("olmo_1b"))
+    reset_all_launches()
+    out["olmo_1b_reduced"] = {}
+    for name, opt, compression in (("int8", adamw(lr=3e-3), "int8"),
+                                   ("topk", adamw(lr=3e-3), "topk"),
+                                   ("adafactor", adafactor(), None)):
+        tr = Trainer(DecoderLM(small, device=dev, seed=0, use_kernels=False),
+                     opt, SyntheticPipeline(DataConfig(
+                         vocab=small.vocab, seq_len=32, global_batch=8)),
+                     TrainerConfig(ckpt_dir=os.path.join(CKPT_ROOT, name),
+                                   ckpt_every=0, compression=compression))
+        tr.init()
+        tr.run(SMALL_STEPS)
+        first, last = tr.history[0]["loss"], tr.history[-1]["loss"]
+        out["olmo_1b_reduced"][name] = {"loss_first": first,
+                                        "loss_last": last}
+        if last >= first - SMALL_MARGIN:
+            fail(f"reduced olmo_1b {name}: loss {first} at step 1, {last} "
+                 f"at step {SMALL_STEPS}")
+    if launched():
+        fail(f"reduced olmo_1b train steps launched kernels: {launched()}")
+    out["train_step_launches"] = 0
+
+    # ---- (e) serve the trained checkpoints through the kernels -------------
+    launches = dict.fromkeys(("ssd", "flash_attention", "rmsnorm"), 0)
+    for arch, cfg, ckpt_dir, plane, reference, prompt, step in trained:
+        res = serve_trained(arch, cfg, dev, ckpt_dir, plane, reference,
+                            prompt, step)
+        out[arch]["served"] = res
+        for k, v in res["launches_per_prefill"].items():
+            launches[k] += v
+        torch.cuda.empty_cache()
+    shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    out["launches"] = launches
+    out["wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("CUDA is not available")
@@ -2318,6 +2710,14 @@ def main() -> None:
     serve_profile(mamba)
     del mamba
     serve_profile(zamba)
+    zamba_launches = zamba["launches"]
+    del zamba
+    torch.cuda.empty_cache()
+
+    # ---- training (no kernel under grad; the trained checkpoints served
+    # through ssd, flash_attention and rmsnorm) ------------------------------
+    train = train_phase(dev, smi)
+    emit("train", ok=True, **train)
 
     # ---- the kernels line ---------------------------------------------------
     by_path = {"tally_votes": {"quorum_reached":
@@ -2335,8 +2735,10 @@ def main() -> None:
     for k, v in mesh["launches"].items():
         if v:
             by_path[k]["mesh"] = v
-    for k, v in zamba["launches"].items():
+    for k, v in zamba_launches.items():
         by_path[k] = {"serve_zamba2_2_7b": v}
+    for k in by_path:
+        by_path[k]["train"] = train["launches"].get(k, 0)
     launches = {k: sum(v.values()) for k, v in by_path.items()}
     model_stats = {
         "ssd": dict(ssd_zamba, max_abs_err=ssd_err, library_ms=None),

@@ -1,1 +1,3 @@
-"""Launchers of the port: ``serve`` (prefill + batched greedy decode)."""
+"""Launchers of the port: ``serve`` (prefill + batched greedy decode) and
+``train`` (the training loop with checkpoints through the control
+plane)."""

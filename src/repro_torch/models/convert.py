@@ -1,13 +1,23 @@
-"""Carry the JAX package's params over to the port's ``DecoderLM``.
+"""Carry trees between the JAX package's layout and the port's ``DecoderLM``.
 
 ``params_from_jax(cfg, tree)`` takes the param pytree of ``repro.models.
-model.DecoderLM.init`` with its leaves as numpy arrays (the caller converts
-them; this module imports no JAX) and returns the port's ``state_dict``.
+model.DecoderLM.init`` -- or any tree shaped like it: gradients, AdamW's
+``mu``/``nu``, Adafactor's ``vr``/``vc`` with their reduced trailing axes --
+with its leaves as numpy arrays (the caller converts them; this module
+imports no JAX) and returns it keyed by the port's ``state_dict`` names.
 JAX stacks each block kind's params over superblocks on a leading axis; the
 port keeps one module per superblock, so ``blocks/<key>/<name>`` of shape
 (n_superblocks, ...) becomes ``blocks.<i>.<key>.<name>`` for each i.  Every
 other leaf -- ``embed``, ``head``, ``final_norm`` and zamba2's unstacked
 weight-shared block ``shared/...`` -- keeps its name with dots.
+``params_to_jax(cfg, sd)`` is the inverse: it stacks the superblocks again
+and nests the names, numpy leaves out.
+
+JAX's Adafactor factors a stacked leaf as one tensor, so for a leaf that is
+1-D a superblock its ``vr`` is (n_superblocks,) and its ``vc`` (d,): that
+state has no counterpart a superblock (the ``vr`` would split into scalars,
+the ``vc`` raises ``ValueError``); the port's Adafactor factors each
+superblock's own tensor.
 """
 from __future__ import annotations
 
@@ -31,7 +41,8 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
 
 
 def params_from_jax(cfg: ArchConfig, tree: Mapping) -> Dict[str, torch.Tensor]:
-    """JAX param pytree (numpy leaves) -> the port's ``state_dict`` (f32)."""
+    """JAX param-shaped pytree (numpy leaves) -> the port's ``state_dict``
+    names, f32 tensors."""
     n_sb = cfg.n_superblocks
     sd: Dict[str, torch.Tensor] = {}
     for name, arr in _flatten(tree).items():
@@ -40,9 +51,38 @@ def params_from_jax(cfg: ArchConfig, tree: Mapping) -> Dict[str, torch.Tensor]:
             sd[name] = t
             continue
         _, rest = name.split(".", 1)
-        if t.shape[0] != n_sb:
-            raise ValueError(f"{name}: leading axis {t.shape[0]} is not the "
-                             f"{n_sb} superblocks of {cfg.name}")
+        if t.ndim == 0 or t.shape[0] != n_sb:
+            raise ValueError(f"{name}: leading axis {tuple(t.shape[:1])} is "
+                             f"not the {n_sb} superblocks of {cfg.name}")
         for i in range(n_sb):
             sd[f"blocks.{i}.{rest}"] = t[i].clone()
     return sd
+
+
+def params_to_jax(cfg: ArchConfig, sd: Mapping[str, torch.Tensor]
+                  ) -> Dict[str, object]:
+    """The port's ``state_dict``-named tensors -> JAX's nested pytree with
+    each block kind's leaves stacked over superblocks (numpy leaves)."""
+    n_sb = cfg.n_superblocks
+    flat: Dict[str, np.ndarray] = {}
+    stacked: Dict[str, list] = {}
+    for name, t in sd.items():
+        arr = t.detach().cpu().numpy()
+        if name.startswith("blocks."):
+            _, i, rest = name.split(".", 2)
+            stacked.setdefault(f"blocks.{rest}", [None] * n_sb)[int(i)] = arr
+        else:
+            flat[name] = arr
+    for name, arrs in stacked.items():
+        if any(a is None for a in arrs):
+            raise ValueError(f"{name}: not every one of the {n_sb} "
+                             f"superblocks of {cfg.name} is given")
+        flat[name] = np.stack(arrs)
+    tree: Dict[str, object] = {}
+    for name, arr in flat.items():
+        *path, leaf = name.split(".")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = arr
+    return tree

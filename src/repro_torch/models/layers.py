@@ -4,15 +4,21 @@ the weight initialiser (``dense_init`` :76), the norms (``init_norm`` :89,
 :138, ``attention`` :170, ``project_kv`` :264) and the MLPs (``init_mlp`` /
 ``apply_mlp`` :367-393).  MLA and MoE wait for ROADMAP.md queue 1 item 10d.
 
-Two kernels run here, picked by the tensors' device (``ops`` modules):
+Two kernels run here when the caller asks for them (``use_kernel=True``,
+the serving default), picked by the tensors' device (``ops`` modules):
 RMSNorm (``Norm`` with ``norm == "rmsnorm"``) and, for attention with no
-cache read (forward and prefill, S > 1), flash attention.  Attention over a
-cache (decode) is plain torch on every device, as in the JAX package: the
-flash kernel's mask is positional and cannot express ring-buffer slots with
-stored positions.  The flash path follows the TPU kernel, not JAX's jnp
-path: scores in f32 scaled after the product, softmax weights kept in f32
-on the card.  In f32 the two agree to float rounding; in bf16 they differ
-by bf16 rounding.
+cache read (forward and prefill, S > 1), flash attention.  The flash path
+follows the TPU kernel: scores in f32 scaled after the product, softmax
+weights kept in f32 on the card.  ``use_kernel=False`` runs the JAX
+package's own plain code instead, which autograd differentiates (the
+kernels have no backward): ``apply_norm``'s expression and JAX's q-chunked
+attention (``attention`` :170-262, the 1/sqrt(hd) scale folded into q,
+softmax weights cast to the compute dtype, every chunk under
+checkpoint).  Attention over a cache (decode) is that jnp path on every
+device, as in the JAX package: the flash kernel's mask is positional and
+cannot express ring-buffer slots with stored positions.  In f32 the two
+attention paths agree to float rounding; in bf16 they differ by bf16
+rounding.
 """
 from __future__ import annotations
 
@@ -23,12 +29,26 @@ import torch
 from torch import nn
 
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.rmsnorm import ops as rmsnorm_ops
 
 NEG_INF = -2.0e38
+Q_CHUNK = 1024       # JAX's query chunk of the plain attention path
+
+
+def remat(fn, *args):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` when autograd records
+    (the counterpart of ``jax.checkpoint``: the backward recomputes fn's
+    internals instead of keeping them).  Without grad it is a plain call, so
+    serving is unchanged.  Nothing here draws random numbers, so no RNG
+    state is stashed."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
 
 
 def dense_init(shape, generator: Optional[torch.Generator], device,
@@ -49,9 +69,19 @@ def normal(shape, generator: Optional[torch.Generator],
                        device=generator.device).to(device)
 
 
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """``apply_norm``'s RMSNorm as a plain expression: statistics in f32,
+    ``xf * rsqrt(mean(xf^2) + eps) * scale``, the result in x's dtype."""
+    xf = x.float()
+    ms = xf.square().mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps) * scale).to(x.dtype)
+
+
 class Norm(nn.Module):
     """``init_norm`` + ``apply_norm``: RMSNorm with an f32 scale (ones), or
-    the parameter-free LayerNorm (``cfg.norm == "nonparam_ln"``)."""
+    the parameter-free LayerNorm (``cfg.norm == "nonparam_ln"``).  RMSNorm
+    runs the kernel's op with ``use_kernel``, else ``rms_norm``."""
 
     def __init__(self, cfg: ArchConfig, device):
         super().__init__()
@@ -61,9 +91,12 @@ class Norm(nn.Module):
                                                  dtype=torch.float32,
                                                  device=device))
 
-    def forward(self, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, use_kernel: bool = True,
+                eps: float = 1e-6) -> torch.Tensor:
         if self.kind != "nonparam_ln":
-            return rmsnorm_ops.rmsnorm(x, self.scale, eps)
+            if use_kernel:
+                return rmsnorm_ops.rmsnorm(x, self.scale, eps)
+            return rms_norm(x, self.scale, eps)
         xf = x.float()
         mu = xf.mean(-1, keepdim=True)
         var = xf.var(-1, keepdim=True, unbiased=False)
@@ -129,33 +162,77 @@ def _attn_mask(q_pos: torch.Tensor, k_pos: torch.Tensor,
 def attention(cfg: ArchConfig, p: Attention, x: torch.Tensor,
               k: torch.Tensor, v: torch.Tensor, q_pos: torch.Tensor,
               k_pos: torch.Tensor, window: Optional[int] = None,
-              k_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+              k_valid: Optional[torch.Tensor] = None,
+              use_kernel: bool = True) -> torch.Tensor:
     """Core attention: x (B,S,D) queries against k/v (B,T,KV,hd).
 
-    ``k_valid=None`` is self-attention over the current tokens (forward and
-    prefill: k_pos is q_pos): ``flash_ops.attention``, causal, with
-    ``window``; the kernel on the card, its plain version on the CPU.
-    Otherwise the keys are a cache read (decode): JAX's jnp path, with the
-    1/sqrt(hd) scale folded into q in x's dtype, f32 scores masked by
-    position, window and ``k_valid``, softmax weights cast to x's dtype."""
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    ``k_valid=None`` with ``use_kernel`` is self-attention over the current
+    tokens (forward and prefill: k_pos is q_pos): ``flash_ops.attention``,
+    causal, with ``window``; the kernel on the card, its plain version on
+    the CPU.  Otherwise (a cache read, or ``use_kernel=False``) JAX's jnp
+    path, ``plain_attention``."""
     dt = x.dtype
     q = torch.einsum("bsd,dhk->bshk", x, p.wq.to(dt))
-    sin, cos = rope_tables(q_pos, hd, cfg.rope_theta)
+    sin, cos = rope_tables(q_pos, cfg.hd, cfg.rope_theta)
     q = apply_rope(q, sin, cos)
-    if k_valid is None:
+    if k_valid is None and use_kernel:
         o = flash_ops.attention(q.transpose(1, 2), k.transpose(1, 2),
                                 v.transpose(1, 2), causal=True,
                                 window=window).transpose(1, 2)
     else:
-        q = q * torch.tensor(1.0 / math.sqrt(hd), dtype=dt)
-        kf = k.repeat_interleave(H // KV, dim=2)
-        vf = v.repeat_interleave(H // KV, dim=2)
-        s = torch.einsum("bshk,bthk->bhst", q.float(), kf.float())
-        s = s + _attn_mask(q_pos, k_pos, window, k_valid)
-        w = torch.softmax(s, dim=-1).to(dt)
-        o = torch.einsum("bhst,bthk->bshk", w, vf)
+        o = plain_attention(q, k, v, q_pos, k_pos, window, k_valid)
     return torch.einsum("bshk,hkd->bsd", o, p.wo.to(dt))
+
+
+def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    q_pos: torch.Tensor, k_pos: torch.Tensor,
+                    window: Optional[int] = None,
+                    k_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """JAX's q-chunked attention (``layers.py:185-258``): q (B,S,H,hd) after
+    RoPE, k/v (B,T,KV,hd) -> (B,S,H,hd) in q's dtype.  The 1/sqrt(hd) scale
+    is folded into q in q's dtype; each chunk's scores are f32, masked by
+    position, window and ``k_valid``, and its softmax weights cast to q's
+    dtype before they multiply v; each chunk runs under ``remat``.  S <=
+    ``Q_CHUNK`` is one chunk; otherwise S must be a multiple of it: up to 8
+    chunks each attend their static causal (and, with a window, banded)
+    slice of keys, more chunks attend all T keys (uniform chunks) or, with a
+    window narrower than T - Q_CHUNK, a band of Q_CHUNK + window keys."""
+    _, S, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    dt = q.dtype
+    q = q * torch.tensor(1.0 / math.sqrt(hd), dtype=dt)
+    kf = k.repeat_interleave(H // KV, dim=2)
+    vf = v.repeat_interleave(H // KV, dim=2)
+
+    def chunk_attn(qc, qp, kc, vc, kp, kval):
+        s = torch.einsum("bshk,bthk->bhst", qc.float(), kc.float())
+        s = s + _attn_mask(qp, kp, window, kval)
+        w = torch.softmax(s, dim=-1).to(dt)
+        return torch.einsum("bhst,bthk->bshk", w, vc)
+
+    def sl(t, lo, hi):
+        return None if t is None else t[lo:hi]
+
+    C = Q_CHUNK
+    if S <= C:
+        return remat(chunk_attn, q, q_pos, kf, vf, k_pos, k_valid)
+    if S % C:
+        raise ValueError(f"attention: seq {S} must be divisible by {C}")
+    nc = S // C
+    outs = []
+    for i in range(nc):
+        qs = slice(i * C, (i + 1) * C)
+        hi = T - S + (i + 1) * C
+        if nc <= 8:
+            lo = 0 if window is None else max(0, hi - C - window)
+        elif window is not None and C + window < T:
+            lo = max(hi - C - window, 0)              # the banded branch
+            hi = lo + C + window
+        else:
+            lo, hi = 0, T
+        outs.append(remat(chunk_attn, q[:, qs], q_pos[qs], kf[:, lo:hi],
+                          vf[:, lo:hi], k_pos[lo:hi], sl(k_valid, lo, hi)))
+    return torch.cat(outs, dim=1)
 
 
 def project_kv(cfg: ArchConfig, p: Attention, x: torch.Tensor,

@@ -12,6 +12,7 @@ frontends raise ``NotImplementedError`` (ROADMAP.md queue 1 item 10d).
 
 Entry points, as in the JAX package:
   forward(batch)                 -> logits (scoring path, no cache)
+  loss(batch)                    -> mean next-token cross-entropy (training)
   prefill(batch, cache)          -> (cache, logits of the last position)
   decode_step(cache, tokens)     -> (logits, cache)
 
@@ -22,13 +23,22 @@ flash kernel on the card); decode attends over (ring buffer ++ current
 k/v) with ``valid = k_pos >= 0`` in plain torch.
 
 Params are f32; compute runs in ``COMPUTE_DTYPE`` (bf16), with weights cast
-at use.  The device decides every kernel: on the card a prefill or forward
-runs the SSD kernel in every Mamba2 layer, flash attention in every
+at use.  ``use_kernels`` (default True, the serving path) runs the kernels'
+ops, and then the device decides every kernel: on the card a prefill or
+forward runs the SSD kernel in every Mamba2 layer, flash attention in every
 attention block and the RMSNorm kernel in every norm; on the CPU each runs
-its plain version (``kernels/*/ops``).  The model is built on the card
-unless ``device="cpu"`` (or ``"meta"``, which allocates nothing and draws
-no weights) is given; weights come from a CPU ``torch.Generator`` seeded
-with ``seed``, so a seed gives the same weights on every device.
+its plain version (``kernels/*/ops``).  The kernels have no backward and
+raise under autograd (``kernels.refuse_grad``).  ``use_kernels=False`` --
+the counterpart of JAX's default ``use_ssd_kernel=False``, which training
+uses -- runs the model's own plain code in every block on every device
+(``layers.rms_norm``, ``layers.plain_attention``, ``ssm.mamba_block``'s
+plain branch), which autograd differentiates.  ``remat`` puts each block
+under ``torch.utils.checkpoint`` when autograd records, as JAX's per-block
+``jax.checkpoint`` (``models/model.py:211-216``); without grad it changes
+nothing.  The model is built on the card unless ``device="cpu"`` (or
+``"meta"``, which allocates nothing and draws no weights) is given; weights
+come from a CPU ``torch.Generator`` seeded with ``seed``, so a seed gives
+the same weights on every device.
 """
 from __future__ import annotations
 
@@ -76,7 +86,8 @@ PORTED_KINDS = {"mamba", "global", "local", "shared_attn"}
 
 
 class DecoderLM(nn.Module):
-    def __init__(self, cfg: ArchConfig, device=None, seed: int = 0):
+    def __init__(self, cfg: ArchConfig, device=None, seed: int = 0,
+                 remat: bool = True, use_kernels: bool = True):
         super().__init__()
         device = device_mod.resolve(device)
         unported = sorted(set(cfg.pattern) - PORTED_KINDS)
@@ -88,6 +99,8 @@ class DecoderLM(nn.Module):
                 f"frontends and other block kinds wait for ROADMAP.md "
                 f"queue 1 item 10d")
         self.cfg = cfg
+        self.remat = remat
+        self.use_kernels = use_kernels
         gen = (None if device.type == "meta"
                else torch.Generator().manual_seed(seed))
         self.embed = nn.Parameter(
@@ -115,16 +128,17 @@ class DecoderLM(nn.Module):
                      ) -> Tuple[torch.Tensor, Optional[Cache]]:
         """One block on x (B,S,D) at positions pos0.. ; returns (x,
         new_cache_slice).  ``kind`` is "mamba", "global" or "local"."""
-        cfg = self.cfg
+        cfg, kern = self.cfg, self.use_kernels
         if kind == "mamba":
-            h = p.ln(x)
-            y, nc = ssm_mod.mamba_block(cfg, p.mamba, h, cache=cache)
+            h = p.ln(x, kern)
+            y, nc = ssm_mod.mamba_block(cfg, p.mamba, h, cache=cache,
+                                        use_kernel=kern)
             return x + y, nc
 
         S = x.shape[1]
         window = cfg.window if kind == "local" else None
         q_pos = pos0 + torch.arange(S, dtype=torch.int32, device=x.device)
-        h = p.ln1(x)
+        h = p.ln1(x, kern)
         # Decode (S == 1) attends over (prior ring buffer ++ current k/v);
         # prefill attends over the prompt's own k/v only.  The write to the
         # ring buffer is separate and goes to new_cache.
@@ -137,12 +151,12 @@ class DecoderLM(nn.Module):
             k_pos = torch.cat([cache["k_pos"], q_pos])
             y = layers.attention(cfg, p.attn, h, k_all, v_all, q_pos,
                                  k_pos.clamp_min(0), window=window,
-                                 k_valid=k_pos >= 0)
+                                 k_valid=k_pos >= 0, use_kernel=kern)
         else:
             y = layers.attention(cfg, p.attn, h, k, v, q_pos, q_pos,
-                                 window=window)
+                                 window=window, use_kernel=kern)
         x = x + y
-        return x + layers.apply_mlp(cfg, p.ffn, p.ln2(x)), new_cache
+        return x + layers.apply_mlp(cfg, p.ffn, p.ln2(x, kern)), new_cache
 
     def _run_blocks(self, x: torch.Tensor, cache: Optional[List[Cache]],
                     pos0: int = 0
@@ -157,14 +171,18 @@ class DecoderLM(nn.Module):
                     p_j, kind = self.shared, "global"
                 else:
                     p_j = sb[key]
-                x, nc = self._apply_block(kind, p_j, x, c_j, pos0)
+                if self.remat:
+                    x, nc = layers.remat(self._apply_block, kind, p_j, x,
+                                         c_j, pos0)
+                else:
+                    x, nc = self._apply_block(kind, p_j, x, c_j, pos0)
                 if nc is not None:
                     new_sb[key] = nc
             new_cache.append(new_sb)
         return x, (new_cache if cache is not None else None)
 
     def _head(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.final_norm(x)
+        x = self.final_norm(x, self.use_kernels)
         return x @ self.head.to(x.dtype)
 
     # ------------------------------------------------------------------ api
@@ -173,6 +191,38 @@ class DecoderLM(nn.Module):
         x = self.embed_inputs(batch)
         x, _ = self._run_blocks(x, None)
         return self._head(x)
+
+    def loss(self, batch: Dict[str, torch.Tensor],
+             chunk_tokens: int = 4096) -> torch.Tensor:
+        """Chunked cross-entropy (JAX ``model.py:263-309``): the (tokens,
+        vocab) logits are never all materialised -- the head product and
+        the f32 logsumexp run per chunk of tokens under ``remat`` (the
+        backward recomputes each chunk's logits).  ``n_chunks`` is
+        ``B*S // chunk_tokens`` lowered until it divides B*S; the result
+        is the sum of the chunks' summed NLL over B*S, an f32 scalar."""
+        x = self.embed_inputs(batch)
+        x, _ = self._run_blocks(x, None)
+        x = self.final_norm(x, self.use_kernels)
+        B, S, D = x.shape
+        n = B * S
+        xt = x.reshape(n, D)
+        lt = batch["labels"].reshape(n)
+        n_chunks = max(1, n // max(chunk_tokens, 1))
+        while n % n_chunks:
+            n_chunks -= 1
+        head = self.head
+
+        def chunk_nll(xc, lc):
+            lf = (xc @ head.to(xc.dtype)).float()
+            ll = torch.gather(lf, -1, lc[:, None])[:, 0]
+            return (torch.logsumexp(lf, dim=-1) - ll).sum()
+
+        per = n // n_chunks
+        total = torch.stack([
+            layers.remat(chunk_nll, xt[i * per:(i + 1) * per],
+                         lt[i * per:(i + 1) * per])
+            for i in range(n_chunks)]).sum()
+        return total / n
 
     # -- serving ----------------------------------------------------------
     def init_cache(self, batch: int, max_len: int) -> Cache:
@@ -245,6 +295,18 @@ def _ring_write(buf: torch.Tensor, new: torch.Tensor, pos_buf: torch.Tensor,
     idx = (q_pos[0].long() % T + torch.arange(S, device=buf.device)) % T
     return (buf.index_copy(axis, idx, new.to(buf.dtype)),
             pos_buf.index_copy(0, idx, q_pos.to(pos_buf.dtype)))
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token NLL of ``logits`` (..., V) at ``labels`` (...), in
+    f32; with ``mask`` (...), the masked mean (JAX ``model.py:446``)."""
+    lf = logits.float()
+    ll = torch.gather(lf, -1, labels[..., None])[..., 0]
+    nll = torch.logsumexp(lf, dim=-1) - ll
+    if mask is not None:
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1)
+    return nll.mean()
 
 
 def _cache_write_kv(cache: Cache, k: torch.Tensor, v: torch.Tensor,

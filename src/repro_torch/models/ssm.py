@@ -29,7 +29,7 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.rmsnorm import ops as rmsnorm_ops
 
-from .layers import dense_init, normal
+from .layers import dense_init, normal, rms_norm
 
 
 class Mamba(nn.Module):
@@ -151,12 +151,17 @@ def ssd_reference(xw, da, Bm, Cm, init_state=None):
 
 
 def mamba_block(cfg: ArchConfig, p: Mamba, x: torch.Tensor,
-                cache: Optional[Dict] = None
+                cache: Optional[Dict] = None, use_kernel: bool = True
                 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Full Mamba2 block.  x (B,S,D).
 
     cache = {"conv": (B, W-1, di+2ds), "state": (B,nh,hd,ds)}; pass a cache
     dict for decode/prefill-with-state; returns (y, new_cache or None).
+    ``use_kernel`` runs the SSD scan and the gated RMSNorm through their
+    kernels' ops; ``use_kernel=False`` runs JAX's plain branch
+    (``ssm.py:193-200``: the sequence padded to whole chunks,
+    ``ssd_chunked``) and the gated norm's plain expression, which autograd
+    differentiates.
     """
     s = cfg.ssm
     D = cfg.d_model
@@ -190,24 +195,28 @@ def mamba_block(cfg: ArchConfig, p: Mamba, x: torch.Tensor,
         # decode: one recurrence step, no chunking
         y, final = ssd_reference(xw, da, Bm, Cm, init_state)
     else:
-        # The tensor's device picks the kernel (CUDA) or ssd_chunked (CPU).
-        # A prompt longer than a chunk is padded to whole chunks: da = 0 and
-        # xw = B = C = 0 leave the state as it was.
+        # With use_kernel the tensor's device picks the kernel (CUDA) or
+        # ssd_chunked (CPU), and a prompt longer than a chunk is padded to
+        # whole chunks; JAX's plain branch (use_kernel=False) pads whenever
+        # S is not a whole number of chunks.  da = 0 and xw = B = C = 0
+        # leave the state as it was.
         from repro_torch.kernels.ssd_scan import ops as ssd_ops
-        pad = (-S) % s.chunk if S > s.chunk else 0
+        pad = (-S) % s.chunk if S > s.chunk or not use_kernel else 0
         if pad:
             xw = F.pad(xw, (0, 0, 0, 0, 0, pad))
             da = F.pad(da, (0, 0, 0, pad))
             Bm = F.pad(Bm, (0, 0, 0, pad))
             Cm = F.pad(Cm, (0, 0, 0, pad))
-        y, final = ssd_ops.ssd(xw, da, Bm, Cm, s.chunk, init_state)
+        scan = ssd_ops.ssd if use_kernel else ssd_chunked
+        y, final = scan(xw, da, Bm, Cm, s.chunk, init_state)
         y = y[:, :S]
 
     y = y + xh * p.Dskip[:, None].to(xh.dtype)
     y = y.reshape(B, S, di)
     # gated RMSNorm (the RMSNorm kernel on the card: f32 statistics, eps
     # 1e-6, the result in g's dtype) then out-projection
-    g = rmsnorm_ops.rmsnorm(y * F.silu(z), p.norm_scale, 1e-6)
+    norm = rmsnorm_ops.rmsnorm if use_kernel else rms_norm
+    g = norm(y * F.silu(z), p.norm_scale, 1e-6)
     out = g @ p.wo.to(dt_)
 
     new_cache = None

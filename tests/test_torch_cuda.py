@@ -915,6 +915,108 @@ def test_forward_under_autograd_raises_on_the_card(cuda):
 
 
 # ---------------------------------------------------------------------------
+# Training on the card: the plain code under autograd, no kernel.
+# ---------------------------------------------------------------------------
+
+def _all_launches():
+    return {k: v for c in (ops.LAUNCHES, ssd_ops.LAUNCHES, fa_ops.LAUNCHES,
+                           rn_ops.LAUNCHES) for k, v in c.items() if v}
+
+
+def _reset_all_launches():
+    for m in (kernel, ssd_ops, fa_ops, rn_ops):
+        m.reset_launches()
+
+
+def test_full_width_mamba2_train_step_launches_no_kernel(cuda):
+    """One AdamW step of full-width mamba2_130m (batch 2 x seq 512) on the
+    card: a finite loss and norms, the parameters moved, and no kernel of
+    the four libraries launched."""
+    from repro_torch.training.data import DataConfig, SyntheticPipeline
+    from repro_torch.training.optimizer import adamw
+    from repro_torch.training.trainer import Trainer, TrainerConfig
+    cfg = get_config("mamba2_130m")
+    m = model_mod.DecoderLM(cfg, device=cuda, seed=0, use_kernels=False)
+    before = m.head.detach().clone()
+    tr = Trainer(m, adamw(lr=1e-3), SyntheticPipeline(DataConfig(
+        vocab=cfg.vocab, seq_len=512, global_batch=2)),
+        TrainerConfig(ckpt_dir="unused", ckpt_every=0))
+    tr.init()
+    _reset_all_launches()
+    out = tr.run(1)
+    assert _all_launches() == {}
+    assert all(np.isfinite(out[k]) for k in ("loss", "grad_norm",
+                                              "update_norm"))
+    assert 10.0 < out["loss"] < 12.5       # about ln(50280) at random init
+    assert not torch.equal(m.head.detach(), before)
+
+
+def test_use_kernels_model_raises_under_grad_and_plain_does_not(cuda):
+    """DecoderLM(use_kernels=True) under grad raises refuse_grad's error
+    at its first kernel; the same weights with use_kernels=False
+    differentiate and launch nothing."""
+    cfg = reduced_config(get_config("zamba2_2_7b"))
+    toks = torch.zeros((2, 40), dtype=torch.long, device=cuda)
+    batch = {"tokens": toks, "labels": toks}
+    m = model_mod.DecoderLM(cfg, device=cuda, seed=0, use_kernels=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        m.loss(batch)
+    m.use_kernels = False
+    _reset_all_launches()
+    loss = m.loss(batch)
+    loss.backward()
+    torch.cuda.synchronize()
+    assert _all_launches() == {}
+    assert all(p.grad is not None and bool(torch.isfinite(p.grad).all())
+               for p in m.parameters())
+
+
+def test_restored_checkpoint_prefills_through_the_kernels(cuda, tmp_path):
+    """Reduced zamba2 trained two steps on the card and checkpointed
+    through the control plane; a fresh model with kernels restored from it
+    prefills through SSD, flash and RMSNorm, with the trained model's
+    logits bit for bit."""
+    from repro_torch.cluster.coordinator import ControlPlane
+    from repro_torch.core.quorum import QuorumSpec
+    from repro_torch.training.data import DataConfig, SyntheticPipeline
+    from repro_torch.training.optimizer import adamw
+    from repro_torch.training.trainer import (Trainer, TrainerConfig,
+                                              make_prefill)
+    cfg = reduced_config(get_config("zamba2_2_7b"))
+    plane = ControlPlane(QuorumSpec.paper_headline(11))
+    pipe = SyntheticPipeline(DataConfig(vocab=cfg.vocab, seq_len=64,
+                                        global_batch=2))
+
+    def trainer(model):
+        tr = Trainer(model, adamw(lr=1e-3), pipe,
+                     TrainerConfig(ckpt_dir=str(tmp_path), ckpt_every=2),
+                     plane=plane)
+        tr.init()
+        return tr
+
+    trained = trainer(model_mod.DecoderLM(cfg, device=cuda, seed=0,
+                                          use_kernels=False))
+    trained.run(2)
+    fresh = trainer(model_mod.DecoderLM(cfg, device=cuda, seed=1))
+    assert fresh.try_restore() and fresh.step == 2
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 70))).to(cuda)
+    trained.model.use_kernels = True
+    _, want = make_prefill(trained.model)(trained.model.init_cache(2, 70),
+                                          {"tokens": toks})
+    for m in (ssd_ops, fa_ops, rn_ops):
+        m.reset_launches()
+    _, got = make_prefill(fresh.model)(fresh.model.init_cache(2, 70),
+                                       {"tokens": toks})
+    torch.cuda.synchronize()
+    assert ssd_ops.LAUNCHES["ssd"] == cfg.n_layers
+    assert fa_ops.LAUNCHES["flash_attention"] == cfg.n_superblocks
+    assert rn_ops.LAUNCHES["rmsnorm"] == 2 * (cfg.n_layers
+                                              + cfg.n_superblocks) + 1
+    assert torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------------
 # The Experiment API on the card.
 # ---------------------------------------------------------------------------
 

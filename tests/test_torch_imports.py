@@ -53,7 +53,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "repro_torch.cluster.membership",
                  "repro_torch.cluster.failure",
                  "repro_torch.parallel", "repro_torch.parallel.sharding",
-                 "repro_torch.parallel.distributed"):
+                 "repro_torch.parallel.distributed",
+                 "repro_torch.training", "repro_torch.training.optimizer",
+                 "repro_torch.training.trainer", "repro_torch.training.data",
+                 "repro_torch.training.checkpoint",
+                 "repro_torch.training.compress",
+                 "repro_torch.launch.train"):
         assert name in names
     code = f"""
 import importlib, sys
@@ -86,6 +91,7 @@ from repro_torch.api.__main__ import main as api_main
 from repro_torch.planner import Planner, PlannerServer
 from repro_torch.planner.__main__ import main as planner_main
 from repro_torch.parallel import distributed, sharding
+from repro_torch.launch import train as launch_train
 cfg = reduced_config(get_config("mamba2_130m"))
 exp = Experiment(systems=[QuorumSpec(3, 2, 2, 3)],
                  workload=Workload.race(k=2))
@@ -108,7 +114,8 @@ for fn in (lambda: score_systems(cardinality_family(3), trials=10),
            lambda: engine.build_mask_table([QuorumSpec(3, 2, 2, 3)]),
            lambda: serve.main(["--arch", "mamba2_130m", "--smoke"]),
            lambda: serve.main(["--arch", "zamba2_2_7b", "--smoke"]),
-           lambda: DecoderLM(cfg)):
+           lambda: DecoderLM(cfg),
+           lambda: launch_train.main(["--arch", "olmo_1b", "--smoke"])):
     try:
         fn()
     except RuntimeError as e:
@@ -119,6 +126,19 @@ print("OK")
 """
     proc = _run(code, CUDA_VISIBLE_DEVICES="")
     assert proc.returncode == 0 and "OK" in proc.stdout, proc.stderr
+
+
+def test_train_launcher_without_device_refuses_to_run_on_cpu():
+    """``python -m repro_torch.launch.train`` without ``--device cpu``
+    trains on the card or not at all."""
+    env = dict(os.environ, PYTHONPATH=SRC, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                           "--arch", "olmo_1b", "--smoke", "--steps", "1"],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode != 0
+    assert "[train]" not in proc.stdout
+    assert "device='cpu'" in proc.stderr
 
 
 def test_chip_smoke_fails_without_cuda_and_prints_no_result():
