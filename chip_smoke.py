@@ -92,6 +92,36 @@ Phases, one JSON line each:
               launches, 127 RMSNorm launches per decode step; served in
               bf16, every SSD and flash call is the tensor-core instance's
               (its own counters), with f32 compute none is
+  serve_musicgen_medium / serve_internvl2_26b   the stub frontends, the
+              same traffic and checks: musicgen at full size (48 layers,
+              d_model 1536, hd 64, H = KV = 24, 1.36 G params; 1024 bf16
+              frame embeddings a request, decode embedding each token
+              through head.T): 48 flash and 97 RMSNorm launches a prefill;
+              internvl2 at full width cut to 8 of its 48 layers
+              (INTERNVL_LAYERS; d_model 6144, hd 128, GQA 48:8, 4.26 G
+              params; 1024 bf16 patch embeddings + 1024 tokens, flash at
+              S = 2048): 8 flash and 17 RMSNorm launches.  The plain
+              forward that decode is held to reads what decode consumed
+              (musicgen: frame_emb ++ head.T[generated])
+  serve_deepseek_v2_lite_16b   at full width and depth (27 MLA + MoE
+              layers, 64 experts top-6 + 2 shared, d_model 2048, vocab
+              102400, 16.2 G params), built after the other models are
+              freed, the same traffic: 55 RMSNorm launches a prefill and a
+              decode step, no flash (MLA is plain products, as in the JAX
+              package), no SSD.  MoE capacity is computed from a call's
+              tokens, so decode is held to decode with the plain versions
+              on the same tokens, not to a forward; the kernel and floor
+              runs replay the plain run's routing (``routing``: equal in
+              exact arithmetic), and the routing flips of the kernel runs
+              routing themselves are counted.  The floor lowering keeps
+              MLA's softmax weights in f32.  (c) layer 0's MoE block twice,
+              the same bits, its combine the bits of an expert-order
+              index_add_
+  deepseek_mla   (a) a 4-layer full-width deepseek with moe=None: MLA
+              decode against a forward, f32 to 1e-3; (b) absorbed_decode
+              against the decompressing branch, f32 to 1e-3
+  arctic_meta   arctic_480b built on the meta device: cfg.param_count()
+              plus the norms (476.85 G), no weights drawn
   ssd_kernel  the SSD-scan kernel against its plain versions (the chunked
               scan ``ssd_chunked`` and the recurrence ``ref.ssd``): JAX's
               kernel-test shapes, a 13-token single chunk, mamba2's
@@ -102,12 +132,13 @@ Phases, one JSON line each:
               event and device times (the two launches of the tensor-core
               instance summed) at both serving shapes
   model_kernels   flash attention and RMSNorm against their plain versions:
-              JAX's kernel-test shapes and the zamba2 serving path's own
-              inputs in bf16 and as f32 (flash 2e-5 / 2e-2, RMSNorm 1e-5 /
-              5e-2, see close()): prefill's and a decode step's (4 rows,
-              with the strides decode hands them); event, device, plain and
-              library times (scaled_dot_product_attention, rms_norm) and
-              bounds there
+              JAX's kernel-test shapes and the zamba2, musicgen and
+              internvl2 serving paths' own inputs in bf16 and as f32
+              (flash 2e-5 / 2e-2, RMSNorm 1e-5 / 5e-2, see close()):
+              prefill's and a decode step's (4 rows, with the strides
+              decode hands them), and RMSNorm at deepseek's d_model 2048
+              (drawn); event, device, plain and library times
+              (scaled_dot_product_attention, rms_norm) and bounds there
   train       training on the card (``repro_torch.training``,
               ``repro_torch.launch.train``; the models' plain code under
               autograd): (a) mamba2_130m at full width, AdamW with the JAX
@@ -130,6 +161,7 @@ Phases, one JSON line each:
               held to the plain path as the serve phases hold it.  Step ms,
               tokens/s, peak memory, a traced step's card busy time and
               idle share, the phase's wall
+  script      the script's wall seconds
   the kernels line: all eight kernels' launches on their main paths
               (summed; ``launches_by_path`` names each path's), error,
               times, bounds
@@ -156,6 +188,7 @@ import time
 import numpy as np
 import torch
 
+T_START = time.perf_counter()
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 FP32_OPS_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
@@ -185,6 +218,9 @@ QUORUM_KERNELS = ("tally_votes", "tally_decide", "masked_tally",
 # three carried-state hand-offs a Mamba2 layer), then 32 greedy decode
 # steps.
 SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS = 4, 1024, 32
+# The serve phases trace a prefill and a run of 4 decode steps (a trace of
+# all 32 took 24-112 s a model, most of the script's model time).
+SERVE_PROFILE_TOKENS = 4
 # JAX's kernel-test shapes (tests/test_kernels.py): attention as (B, H, KV,
 # S, T, hd, causal, window, dtype), RMSNorm as (shape, dtype).
 ATTN_CASES = [
@@ -229,14 +265,24 @@ TENSOR_CORE_SYMBOLS = ("flash_tc_kernel", "ssd_tc_states", "ssd_tc_out")
 # kernels may differ from the plain path by at most twice what two plain
 # lowerings equal in exact arithmetic differ by (SSD chunks of 256 and of
 # 128; attention with its softmax weights cast to bf16 before P.V, as the
-# JAX oracle does, and kept in f32, as the kernel does).
+# JAX oracle does, and kept in f32, as the kernel does; MLA's likewise).
+# MoE routing is a step function of values that two lowerings round
+# differently, so with MoE the kernel and floor runs replay the plain run's
+# routing (``routing``), as exact arithmetic would route them.
 SERVE_F32_TOL = 1e-3
-# The norms whose inputs model_kernel_phase takes from the zamba2 serving
-# path (capture_inputs): prefill's 4096 rows and a decode step's 4.
+# The norms whose inputs model_kernel_phase takes from the serving paths
+# (capture_inputs): prefill's rows and a decode step's 4 (the gated ones
+# only where there is a Mamba2 layer).
 NORM_KEYS = ("rmsnorm", "gated_rmsnorm", "rmsnorm decode",
              "gated_rmsnorm decode")
 SERVE_BF16_FLOOR_FACTOR = 2.0
 SERVE_FLOOR_CHUNK = 128
+# internvl2_26b's f32 weights (19.9 G params with the vision stub's embed
+# table) do not fit the card whole: it is served at full width with the
+# first 8 of its 48 layers (4.26 G params).  deepseek_v2_lite_16b's norms
+# are timed at its d_model, drawn, before its model is built.
+INTERNVL_LAYERS = 8
+DEEPSEEK_D_MODEL = 2048
 SWEEP_RACE_CHUNKS = -(-10_000_000 // 16_384)
 MIXED_RACE_CHUNKS = -(-2_000_000 // 8_192)
 # race_card_hist at the sweep chunk's shape (the n=11 sweep's 271-system
@@ -299,7 +345,9 @@ def only(**launches) -> dict:
 
 
 def emit(phase: str, **kw) -> None:
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One phase's JSON line, with the script's seconds so far."""
+    print(json.dumps({"phase": phase, "at_s": time.perf_counter() - T_START,
+                      **kw}), flush=True)
 
 
 def fail(msg: str) -> None:
@@ -314,15 +362,21 @@ def kernel_device_us(fn, symbol, reps: int = 10) -> tuple:
     is divided by the launches of it the trace recorded, and a call's time
     is the sum over its symbols: on the H100 short traces have dropped some
     kernel records (6 of 10 launches recorded), and dividing by ``reps``
-    would then undercount."""
-    prof = device_profile(lambda: [fn() for _ in range(reps)])
-    per, n_all = {}, 0
-    for sym in ((symbol,) if isinstance(symbol, str) else symbol):
-        t = sum(v for k, v in prof["by_kernel_s"].items() if sym in k)
-        n = sum(v for k, v in prof["by_kernel_n"].items() if sym in k)
-        if n:
-            per[sym] = t * 1e6 / n
-            n_all += n
+    would then undercount; late in the script a trace has recorded none
+    of them at all, and is then taken again with 10x, then 100x the
+    calls."""
+    for attempt in range(3):  # a trace that recorded none: again, longer
+        prof = device_profile(
+            lambda: [fn() for _ in range(reps * 10 ** attempt)])
+        per, n_all = {}, 0
+        for sym in ((symbol,) if isinstance(symbol, str) else symbol):
+            t = sum(v for k, v in prof["by_kernel_s"].items() if sym in k)
+            n = sum(v for k, v in prof["by_kernel_n"].items() if sym in k)
+            if n:
+                per[sym] = t * 1e6 / n
+                n_all += n
+        if per:
+            break
     return (sum(per.values()) if per else float("nan")), n_all, per
 
 
@@ -590,8 +644,8 @@ def reset_model_launches() -> None:
 def plain_versions(floor: bool = False) -> dict:
     """The plain versions swapped in for the model's kernels.  ``floor``
     gives a second plain lowering, equal to the first in exact arithmetic:
-    attention with its softmax weights kept in f32 (the model's chunk is
-    changed by the caller)."""
+    attention with its softmax weights kept in f32 (the model's SSD chunk
+    and MLA's softmax weights are changed by ``variant``)."""
     from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.kernels.rmsnorm import ref as rn_ref
     from repro_torch.models.ssm import ssd_chunked
@@ -615,34 +669,77 @@ def variant(model, kernel: bool = True, dtype=torch.bfloat16,
             floor: bool = False):
     """The serving path with the kernels or, swapped in for their ops, the
     plain versions (``floor``: the second plain lowering, with the SSD
-    chunk SERVE_FLOOR_CHUNK); compute in ``dtype``."""
+    chunk SERVE_FLOOR_CHUNK and MLA's softmax weights kept in f32 before
+    they multiply V); compute in ``dtype``."""
+    import functools
+    from repro_torch.models import layers as layers_mod
     from repro_torch.models import model as model_mod
     mods = model_kernels()
     saved = ({k: getattr(m, a) for k, (m, a) in mods.items()}, model.cfg,
-             model_mod.COMPUTE_DTYPE)
+             model_mod.COMPUTE_DTYPE, layers_mod.mla_attention)
     model_mod.COMPUTE_DTYPE = dtype
     if not kernel:
         for k, fn in plain_versions(floor).items():
             setattr(mods[k][0], mods[k][1], fn)
     if floor:
         cfg = model.cfg
-        model.cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(
-            cfg.ssm, chunk=SERVE_FLOOR_CHUNK))
+        if cfg.ssm is not None:
+            model.cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(
+                cfg.ssm, chunk=SERVE_FLOOR_CHUNK))
+        layers_mod.mla_attention = functools.partial(
+            saved[3], weights_dtype=torch.float32)
     try:
         yield
     finally:
         for k, fn in saved[0].items():
             setattr(mods[k][0], mods[k][1], fn)
         model.cfg, model_mod.COMPUTE_DTYPE = saved[1], saved[2]
+        layers_mod.mla_attention = saved[3]
 
 
-def capture_inputs(fn, d_inner: int) -> dict:
+@contextlib.contextmanager
+def routing(mode=None, log=None):
+    """The MoE router's two selections (``moe.top_k``: a token's top-k
+    experts, an expert's top-C tokens), kept in ``log`` in call order
+    (``mode="record"``) or taken from it (``"replay"``: the recorded
+    indices, their values gathered from this call's input).  Routing is a
+    step function of values that two lowerings round differently; replayed,
+    two runs route the same tokens, as they do in exact arithmetic."""
+    from repro_torch.models import moe as moe_mod
+    real = moe_mod.top_k
+    if mode is None:
+        yield
+        return
+    it = iter(log)
+
+    def top_k(x, k):
+        if mode == "record":
+            v, i = real(x, k)
+            log.append(i)
+            return v, i
+        i = next(it)
+        return torch.gather(x, -1, i), i
+
+    moe_mod.top_k = top_k
+    try:
+        yield
+    finally:
+        moe_mod.top_k = real
+
+
+def routing_flips(a: list, b: list) -> int:
+    """Rows (a token's experts, an expert's tokens) chosen differently in
+    two recorded routings of the same calls."""
+    return sum(int((x != y).any(-1).sum()) for x, y in zip(a, b))
+
+
+def capture_inputs(fn, d_inner) -> dict:
     """Run ``fn`` with spies on the model's kernel ops; return the first
     arguments each was handed: "ssd", "flash_attention", "rmsnorm" (the
     first norm, d_model wide) and "gated_rmsnorm" (the first d_inner wide
-    one, Mamba2's gated norm), and of each norm the last call with
-    SERVE_BATCH rows (the last decode step's), "rmsnorm decode" and
-    "gated_rmsnorm decode"."""
+    one, Mamba2's gated norm; ``d_inner`` None: no such norm), and of each
+    norm the last call with SERVE_BATCH rows (the last decode step's),
+    "rmsnorm decode" and "gated_rmsnorm decode"."""
     got = {}
     mods = model_kernels()
     saved = {k: getattr(m, a) for k, (m, a) in mods.items()}
@@ -814,11 +911,15 @@ def attention_cost(q, k, causal, window) -> tuple:
     return nbytes, 4 * B * H * hd * pairs
 
 
-def model_kernel_phase(dev, captured, cfg) -> dict:
+def model_kernel_phase(dev, serving: dict) -> dict:
     """Phase 9: flash attention and RMSNorm against their plain versions on
-    the JAX kernel tests' shapes and at the zamba2 serving path's own
-    inputs (bf16, and those inputs as f32); times, bounds and the library
-    call's time there.  Returns the stats of each for the kernels line."""
+    the JAX kernel tests' shapes and at each served model's own inputs
+    (``serving``: arch -> its serve_phase result; bf16, and those inputs
+    as f32), and RMSNorm at deepseek_v2_lite_16b's serving shapes (drawn
+    here: that model is built after every per-kernel timing, see main);
+    times, bounds and the library call's time there.  Returns the stats of
+    each: zamba2's under the kernel's or norm's name, the others' with the
+    architecture after it; and "errors", every check's."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention import ref as fa_ref
@@ -872,33 +973,6 @@ def model_kernel_phase(dev, captured, cfg) -> dict:
         check("rmsnorm", f"jax {shape} {dt}", rn_kernel.rmsnorm(x, s),
               rn_ref.rmsnorm(x, s), rn_tol[dt])
 
-    (q, k, v), fkw = captured["flash_attention"]
-    causal, window = fkw.get("causal", True), fkw.get("window")
-    if q.dtype != bf16 or tuple(q.shape) != (
-            SERVE_BATCH, cfg.n_heads, SERVE_PROMPT, cfg.hd) \
-            or not q.transpose(1, 2).is_contiguous():
-        fail(f"serving flash inputs: {q.dtype} {tuple(q.shape)} strides "
-             f"{q.stride()}")
-    for dt in (bf16, f32):
-        qq, kk, vv = (x.to(dt) for x in (q, k, v))
-        flash_check(f"zamba2 serving {dt}", qq, kk, vv, causal, window)
-    norms = {}
-    for key in NORM_KEYS:
-        (x, s, *rest), _ = captured[key]
-        eps = rest[0] if rest else 1e-6
-        s = s.detach()
-        if x.dtype != bf16:
-            fail(f"serving {key} input: {x.dtype}")
-        # the path's own tensor, and as f32 with the same strides
-        xs = {bf16: x, f32: torch.empty_strided(
-            x.shape, x.stride(), dtype=f32, device=x.device).copy_(x)}
-        norms[key] = (xs, s, eps)
-        for dt in (bf16, f32):
-            check("rmsnorm", f"zamba2 serving {key} {tuple(x.shape)} "
-                  f"strides {x.stride()} {dt}",
-                  rn_kernel.rmsnorm(xs[dt], s, eps),
-                  rn_ref.rmsnorm(xs[dt], s, eps), rn_tol[dt])
-
     # times at the serving inputs; device time from the profiler, and for
     # RMSNorm also after a write of 64 MB between calls (L2 is 50 MB: the
     # 4096-row inputs are then read from device memory, not L2)
@@ -922,62 +996,141 @@ def model_kernel_phase(dev, captured, cfg) -> dict:
                     bytes=nbytes, operations=ops, bytes_ms=b_ms,
                     operations_ms=o_ms, **extra)
 
-    nbytes, ops = attention_cost(q, k, causal, window)
-    out = {"flash_attention": dict(
-        shape=list(q.shape), errors=errs["flash_attention"],
-        instance="tensor-core",
-        smem_bytes=fa_kernel._load().flash_smem(1, q.shape[-1]),
-        bound_rule="max(q, k, v, o bytes / 3.35 TB/s, the causal pairs' "
-                   "4*hd operations / 989 TFLOP/s bf16 tensor cores)",
-        **stats("flash_tc_kernel",
-                lambda: fa_kernel.attention(q, k, v, causal, window),
-                lambda: fa_ref.attention(q, k, v, causal, window),
-                lambda: F.scaled_dot_product_attention(
-                    q, k, v, is_causal=causal,
-                    enable_gqa=q.shape[1] != k.shape[1]),
-                nbytes, ops, BF16_TC_OPS_PER_S))}
-    for key in NORM_KEYS:
-        for dt in ((bf16,) if "decode" not in key else (bf16, f32)):
-            x, s, eps = norms[key][0][dt], norms[key][1], norms[key][2]
-            D = x.shape[-1]
-            name = key if dt == bf16 else f"{key} f32"
-            out[name] = dict(shape=list(x.shape), strides=list(x.stride()),
-                             dtype=str(dt), **stats(
-                "rmsnorm_kernel",
-                lambda: rn_kernel.rmsnorm(x, s, eps),
-                lambda: rn_ref.rmsnorm(x, s, eps),
-                lambda: F.rms_norm(x, (D,), s, eps),
-                2 * x.numel() * x.element_size() + 4 * D, 3 * x.numel(),
-                FP32_OPS_PER_S, flushed="decode" not in key))
-    out["rmsnorm"]["errors"] = errs["rmsnorm"]
-    if window is not None:
-        fail("the zamba2 shared block is global: no window expected")
+    def norm_stats(x, s, eps, flushed):
+        # either instance: rmsnorm_kernel, or rmsnorm_loop_kernel for rows
+        # of more than 10240 bf16 / 5120 f32 values
+        D = x.shape[-1]
+        return dict(shape=list(x.shape), strides=list(x.stride()),
+                    dtype=str(x.dtype), **stats(
+            "rmsnorm",
+            lambda: rn_kernel.rmsnorm(x, s, eps),
+            lambda: rn_ref.rmsnorm(x, s, eps),
+            lambda: F.rms_norm(x, (D,), s, eps),
+            2 * x.numel() * x.element_size() + 4 * D, 3 * x.numel(),
+            FP32_OPS_PER_S, flushed=flushed))
+
+    def norm_checks(tag, x, s, eps):
+        """The path's own tensor, and as f32 with the same strides."""
+        xs = {bf16: x, f32: torch.empty_strided(
+            x.shape, x.stride(), dtype=f32, device=x.device).copy_(x)}
+        for dt in (bf16, f32):
+            check("rmsnorm", f"{tag} {tuple(x.shape)} strides {x.stride()} "
+                  f"{dt}", rn_kernel.rmsnorm(xs[dt], s, eps),
+                  rn_ref.rmsnorm(xs[dt], s, eps), rn_tol[dt])
+        return xs
+
+    out = {}
+    for arch, res in serving.items():
+        captured, cfg = res["captured"], res["cfg"]
+        sfx = "" if arch == "zamba2_2_7b" else f" {arch}"
+        short = arch.split("_")[0]
+        L = res["phase"]["prefill_len"]
+        (q, k, v), fkw = captured["flash_attention"]
+        causal, window = fkw.get("causal", True), fkw.get("window")
+        if q.dtype != bf16 or tuple(q.shape) != (
+                SERVE_BATCH, cfg.n_heads, L, cfg.hd) \
+                or k.shape[1] != cfg.n_kv_heads \
+                or not q.transpose(1, 2).is_contiguous():
+            fail(f"{arch} serving flash inputs: {q.dtype} {tuple(q.shape)} "
+                 f"KV {k.shape[1]} strides {q.stride()}")
+        if window is not None:
+            fail(f"{arch}: global attention, no window expected")
+        for dt in (bf16, f32):
+            qq, kk, vv = (x.to(dt) for x in (q, k, v))
+            flash_check(f"{short} serving {dt}", qq, kk, vv, causal, window)
+        nbytes, ops = attention_cost(q, k, causal, window)
+        out["flash_attention" + sfx] = dict(
+            shape=list(q.shape), kv_heads=k.shape[1],
+            instance="tensor-core",
+            smem_bytes=fa_kernel._load().flash_smem(1, q.shape[-1]),
+            bound_rule="max(q, k, v, o bytes / 3.35 TB/s, the causal pairs' "
+                       "4*hd operations / 989 TFLOP/s bf16 tensor cores)",
+            **stats("flash_tc_kernel",
+                    lambda: fa_kernel.attention(q, k, v, causal, window),
+                    lambda: fa_ref.attention(q, k, v, causal, window),
+                    lambda: F.scaled_dot_product_attention(
+                        q, k, v, is_causal=causal,
+                        enable_gqa=q.shape[1] != k.shape[1]),
+                    nbytes, ops, BF16_TC_OPS_PER_S))
+        for key in NORM_KEYS:
+            if key not in captured:
+                continue
+            (x, s, *rest), _ = captured[key]
+            eps = rest[0] if rest else 1e-6
+            s = s.detach()
+            if x.dtype != bf16:
+                fail(f"{arch} serving {key} input: {x.dtype}")
+            xs = norm_checks(f"{short} serving {key}", x, s, eps)
+            for dt in ((bf16,) if "decode" not in key else (bf16, f32)):
+                out[key + (" f32" if dt == f32 else "") + sfx] = norm_stats(
+                    xs[dt], s, eps, flushed="decode" not in key)
+    # deepseek_v2_lite_16b's norms: prefill's 4096 rows and a decode
+    # step's 4, d_model 2048, drawn with the layout the path hands them
+    # (serve_deepseek_v2_lite_16b checks its own inputs have it)
+    D = DEEPSEEK_D_MODEL
+    g = torch.Generator(device=dev).manual_seed(12)
+    s = torch.randn(D, generator=g, device=dev)
+    for key, shape in (("rmsnorm", (SERVE_BATCH, SERVE_PROMPT, D)),
+                       ("rmsnorm decode", (SERVE_BATCH, 1, D))):
+        x = torch.randn(shape, generator=g, device=dev).to(bf16)
+        norm_checks(f"deepseek drawn {key}", x, s, 1e-6)
+        out[f"{key} deepseek_v2_lite_16b"] = norm_stats(
+            x, s, 1e-6, flushed="decode" not in key)
+    out["errors"] = errs
     return out
 
 
-def prefill_checks(arch, model, prompt, prefill, n_mamba: int,
-                   n_attn: int, per_pass: int) -> dict:
-    """The kernel path against the plain path for one prefill of
-    ``prompt`` (SERVE_BATCH x SERVE_PROMPT) through ``prefill(cache,
-    batch)``: the prefill logits, every superblock's first SSM state and
-    attention cache, with f32 compute to SERVE_F32_TOL and as served (bf16)
+def path_launches(cfg) -> tuple:
+    """(SSD, flash, RMSNorm) launches of one prefill of ``cfg`` with the
+    kernels: SSD a Mamba2 layer, flash a GQA attention block (MLA is plain
+    products), RMSNorm every norm and the head's."""
+    n_mamba = cfg.pattern.count("mamba") * cfg.n_superblocks
+    n_attn = (len(cfg.pattern) - cfg.pattern.count("mamba")) \
+        * cfg.n_superblocks
+    n_flash = 0 if cfg.mla is not None else n_attn
+    return n_mamba, n_flash, 2 * (n_mamba + n_attn) + 1
+
+
+def serve_config(arch: str, layers=None):
+    """``arch``'s configuration at full width, its depth cut to ``layers``
+    where given."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          n_layers=layers)
+
+
+def prefill_checks(arch, model, batch, prefill, n_mamba: int,
+                   n_flash: int, per_pass: int) -> dict:
+    """The kernel path against the plain path for one prefill of ``batch``
+    (SERVE_BATCH requests) through ``prefill(cache, batch)``: the prefill
+    logits, every superblock's first SSM state and attention cache (MLA:
+    its ckv), with f32 compute to SERVE_F32_TOL and as served (bf16)
     within SERVE_BF16_FLOOR_FACTOR times the bf16 floor; each prefill with
-    the kernels launches SSD ``n_mamba``, flash ``n_attn`` and RMSNorm
+    the kernels launches SSD ``n_mamba``, flash ``n_flash`` and RMSNorm
     ``per_pass`` times, all on the tensor-core instances in bf16, and the
-    plain path none.  Fails on a miss; returns the checks."""
-    def prefill_once(kernel, dtype, floor=False):
-        with variant(model, kernel, dtype, floor), torch.inference_mode():
+    plain path none.  With MoE the kernel and floor runs replay the plain
+    run's routing (``routing``), and the routing flips of the kernel runs
+    left to route themselves are counted.  Fails on a miss; returns the
+    checks."""
+    from repro_torch.launch import serve
+    L = serve.prefill_len(batch)
+    moe = model.cfg.moe is not None
+    logs = {}
+
+    def prefill_once(kernel, dtype, floor=False, mode=None, log=None):
+        with variant(model, kernel, dtype, floor), routing(mode, log), \
+                torch.inference_mode():
             reset_model_launches()
-            c, lg = prefill(model.init_cache(SERVE_BATCH, SERVE_PROMPT),
-                            {"tokens": prompt})
+            c, lg = prefill(model.init_cache(SERVE_BATCH, L), batch)
             torch.cuda.synchronize()
-            want = ({"ssd": n_mamba, "flash_attention": n_attn,
+            want = ({"ssd": n_mamba, "flash_attention": n_flash,
                      "rmsnorm": per_pass} if kernel
                     else dict.fromkeys(("ssd", "flash_attention",
                                         "rmsnorm"), 0))
             tc_on = kernel and dtype == torch.bfloat16
             want_tc = {"ssd": n_mamba * tc_on,
-                       "flash_attention": n_attn * tc_on}
+                       "flash_attention": n_flash * tc_on}
             if model_launches() != want \
                     or tensor_core_launches() != want_tc:
                 fail(f"{arch} prefill kernel={kernel} {dtype}: "
@@ -990,7 +1143,19 @@ def prefill_checks(arch, model, prompt, prefill, n_mamba: int,
                     states.append(cc["state"])
                 elif "k" in cc:
                     states.append(cc["k"].float())
+                elif "ckv" in cc:
+                    states.append(cc["ckv"].float())
         return states, lg[:, -1].float()
+
+    def run(kernel, dtype, floor=False):
+        """The plain run records its routing, the others replay it."""
+        if not moe:
+            return prefill_once(kernel, dtype, floor)
+        if not kernel and not floor:
+            logs[dtype] = []
+            return prefill_once(False, dtype, mode="record",
+                                log=logs[dtype])
+        return prefill_once(kernel, dtype, floor, "replay", logs[dtype])
 
     def diff(a, b):
         return (float((a[1] - b[1]).abs().max()),
@@ -998,68 +1163,164 @@ def prefill_checks(arch, model, prompt, prefill, n_mamba: int,
                                                   1e-30)
                  for x, y in zip(a[0], b[0])])
 
-    f32 = torch.float32
+    f32, bf16 = torch.float32, torch.bfloat16
     checks = {}
-    checks["prefill f32 kernel vs plain"] = diff(prefill_once(True, f32),
-                                                 prefill_once(False, f32))
+    plain32 = run(False, f32)
+    checks["prefill f32 kernel vs plain"] = diff(run(True, f32), plain32)
     lg_err, st_err = checks["prefill f32 kernel vs plain"]
     if lg_err >= SERVE_F32_TOL or max(st_err) >= SERVE_F32_TOL:
         fail(f"{arch} f32 prefill kernel vs plain: logits off by {lg_err}, "
              f"states and caches by {max(st_err)} relative")
-    plain = prefill_once(False, torch.bfloat16)
-    checks["prefill bf16 kernel vs plain"] = diff(
-        prefill_once(True, torch.bfloat16), plain)
+    plain = run(False, bf16)
+    checks["prefill bf16 kernel vs plain"] = diff(run(True, bf16), plain)
     checks["prefill bf16 plain floor lowering vs plain"] = diff(
-        prefill_once(False, torch.bfloat16, floor=True), plain)
+        run(False, bf16, floor=True), plain)
     (lg_k, st_k), (lg_f, st_f) = (
         checks["prefill bf16 kernel vs plain"],
         checks["prefill bf16 plain floor lowering vs plain"])
     if lg_k > SERVE_BF16_FLOOR_FACTOR * lg_f \
-            or max(st_k) > SERVE_BF16_FLOOR_FACTOR * max(st_f):
+            or max(st_k) > SERVE_BF16_FLOOR_FACTOR * max(st_f) \
+            or not (lg_f > 0 and max(st_f) > 0):
         fail(f"{arch} bf16 prefill kernel vs plain: logits off by {lg_k}, "
              f"states by {max(st_k)} relative; two plain lowerings differ "
              f"by {lg_f} and {max(st_f)}")
+    if moe:
+        for dtype in (f32, bf16):
+            own = []
+            prefill_once(True, dtype, mode="record", log=own)
+            checks[f"prefill {dtype} kernel routing flips vs plain "
+                   f"(rows of {sum(len(x) for x in own)})"] = \
+                routing_flips(own, logs[dtype])
     return checks
 
 
-def serve_phase(arch: str, dev, n_tokens: int) -> dict:
-    """Serve ``arch`` at full width, seeded weights, SERVE_BATCH requests of
-    SERVE_PROMPT tokens then ``n_tokens`` greedy decode steps, through
-    ``repro_torch.launch.serve``; hold the kernel path against the plain
-    path and decode against a plain forward (see SERVE_F32_TOL).  Returns
-    the model, its prompt, the launches of one serving run, the inputs the
-    path handed each kernel, and the phase's numbers so far, for
-    ``serve_profile`` to finish and emit."""
-    from repro_torch.configs import get_config
+def extended_batch(model, batch, gen, dtype) -> dict:
+    """``batch`` with the tokens ``gen`` (B, n) appended as decode consumed
+    them: as token ids, or for the audio stub as the rows of ``head.T``
+    after ``frame_emb``, in ``dtype``."""
+    if "frame_emb" in batch:
+        rows = model.head.detach().T[gen]
+        return {"frame_emb": torch.cat([batch["frame_emb"].to(dtype),
+                                        rows.to(dtype)], dim=1)}
+    out = dict(batch)
+    out["tokens"] = torch.cat([batch["tokens"], gen], dim=1)
+    return out
+
+
+def teacher_forced(model, batch, tokens, kernel, dtype, floor=False,
+                   mode=None, log=None) -> torch.Tensor:
+    """Prefill ``batch``, then a decode step a column of ``tokens`` (B, n):
+    the prefill's and each step's logits (B, n+1, V) as f32."""
+    from repro_torch.launch import serve
+    n = tokens.shape[1]
+    with variant(model, kernel, dtype, floor), routing(mode, log), \
+            torch.inference_mode():
+        c = model.init_cache(SERVE_BATCH, serve.prefill_len(batch) + n)
+        c, lg = model.prefill(batch, c)
+        out = [lg[:, -1]]
+        for i in range(n):
+            lg, c = model.decode_step(c, tokens[:, i:i + 1])
+            out.append(lg[:, -1])
+    return torch.stack(out, dim=1).float()
+
+
+def run_logits(run) -> torch.Tensor:
+    return torch.stack([run["prefill_logits"]] + run["step_logits"],
+                       dim=1).float()
+
+
+def decode_checks(arch, model, batch, run_bf16, run_f32, n_tokens) -> dict:
+    """Without MoE: decode's logits against a plain ``forward`` over the
+    prompt and the generated tokens (``extended_batch``).  With MoE, whose
+    capacity is computed from the tokens of a call (a forward's differs
+    from a decode step's), decode with the kernels against decode with the
+    plain versions, fed the same tokens (each run's greedy picks) and
+    replaying the plain run's routing.  f32 to SERVE_F32_TOL, bf16 within
+    SERVE_BF16_FLOOR_FACTOR times the floor lowering's difference."""
+    from repro_torch.launch import serve
+    L = serve.prefill_len(batch)
+    f32, bf16 = torch.float32, torch.bfloat16
+    checks, err = {}, {}
+    for dtype, run in ((f32, run_f32), (bf16, run_bf16)):
+        got = run_logits(run)
+        if not bool(torch.isfinite(got).all()):
+            fail(f"{arch} {dtype} serving logits not finite")
+        gen = run["tokens"][:, :n_tokens]
+        if model.cfg.moe is None:
+            ref = {}
+            for floor in (False, True):
+                with variant(model, False, dtype, floor), \
+                        torch.inference_mode():
+                    ref[floor] = model.forward(extended_batch(
+                        model, batch, gen, dtype))[:, L - 1:].float()
+            err[dtype] = (float((got - ref[False]).abs().max()),
+                          float((ref[True] - ref[False]).abs().max()))
+            checks[f"decode {dtype} vs plain forward"] = err[dtype][0]
+            if dtype == bf16:
+                checks["forward bf16 plain floor lowering vs plain"] = \
+                    err[dtype][1]
+            continue
+        log = []
+        plain = teacher_forced(model, batch, gen, False, dtype,
+                               mode="record", log=log)
+        kern = teacher_forced(model, batch, gen, True, dtype,
+                              mode="replay", log=log)
+        err[dtype] = (float((kern - plain).abs().max()), None)
+        checks[f"decode {dtype} kernel vs plain, same tokens and "
+               f"routing"] = err[dtype][0]
+        checks[f"decode {dtype} served run vs plain, own routing"] = float(
+            (got - plain).abs().max())
+        if dtype == bf16:
+            floor = teacher_forced(model, batch, gen, False, dtype, True,
+                                   mode="replay", log=log)
+            err[dtype] = (err[dtype][0], float((floor - plain).abs().max()))
+            checks["decode bf16 plain floor lowering vs plain"] = \
+                err[dtype][1]
+    if err[f32][0] >= SERVE_F32_TOL:
+        fail(f"{arch} f32 decode logits off by {err[f32][0]}")
+    if err[bf16][0] > SERVE_BF16_FLOOR_FACTOR * err[bf16][1] \
+            or not err[bf16][1] > 0:
+        fail(f"{arch} bf16 decode logits off by {err[bf16][0]}; two plain "
+             f"lowerings differ by {err[bf16][1]}")
+    return checks
+
+
+def serve_phase(arch: str, dev, n_tokens: int, layers=None) -> dict:
+    """Serve ``arch`` at full width (its depth cut to ``layers`` where
+    given), seeded weights, SERVE_BATCH requests of SERVE_PROMPT tokens
+    (frames; or patches and tokens) then ``n_tokens`` greedy decode steps,
+    through ``repro_torch.launch.serve``, three times (the same tokens);
+    hold the kernel path against the plain path (``prefill_checks``,
+    ``decode_checks``).  Returns the model, its batch, the launches of one
+    serving run, the inputs the path handed each kernel, and the phase's
+    numbers so far, for ``serve_profile`` to finish and emit."""
     from repro_torch.launch import serve
     from repro_torch.models.model import DecoderLM
 
-    cfg = get_config(arch)
+    cfg = serve_config(arch, layers)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = DecoderLM(cfg, device=dev, seed=0)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    walls = {}
     n_params = sum(p.numel() for p in model.parameters())
-    prompt = serve.prompt_batch(cfg.vocab, SERVE_BATCH, SERVE_PROMPT, dev)
-    n_mamba = cfg.pattern.count("mamba") * cfg.n_superblocks
-    n_attn = (len(cfg.pattern) - cfg.pattern.count("mamba")) \
-        * cfg.n_superblocks
-    per_pass = 2 * (n_mamba + n_attn) + 1          # every norm, and the head's
-    per_run = {"ssd": n_mamba, "flash_attention": n_attn,
+    batch = serve.prompt_batch(cfg, SERVE_BATCH, SERVE_PROMPT, dev)
+    n_mamba, n_flash, per_pass = path_launches(cfg)
+    per_run = {"ssd": n_mamba, "flash_attention": n_flash,
                "rmsnorm": per_pass * (1 + n_tokens)}
 
     # Warm-up run (not counted), which also captures the inputs the main
     # path hands each kernel.
-    d_inner = cfg.ssm.d_inner(cfg.d_model)
-    captured = capture_inputs(lambda: serve.generate(model, prompt, 2),
-                              d_inner)
+    captured = capture_inputs(
+        lambda: serve.generate(model, batch, 2),
+        cfg.ssm.d_inner(cfg.d_model) if cfg.ssm is not None else None)
 
     runs = []
-    tc_per_run = {"ssd": n_mamba, "flash_attention": n_attn}
+    tc_per_run = {"ssd": n_mamba, "flash_attention": n_flash}
     for _ in range(3):
         reset_model_launches()
-        out = serve.generate(model, prompt, n_tokens)
+        out = serve.generate(model, batch, n_tokens)
         torch.cuda.synchronize()
         launches, tc_launches = model_launches(), tensor_core_launches()
         if launches != per_run or tc_launches != tc_per_run:
@@ -1075,65 +1336,151 @@ def serve_phase(arch: str, dev, n_tokens: int) -> dict:
              f"[{int(toks.min())}, {int(toks.max())}]")
     if any(not torch.equal(r["tokens"], toks) for r in runs[1:]):
         fail(f"{arch} serving is not deterministic across runs")
+    walls["runs_s"] = time.perf_counter() - t0 - init_s
 
     # (a) kernel vs plain path
     def prefill(cache, batch):
         with torch.inference_mode():
             return model.prefill(batch, cache)
 
-    checks = prefill_checks(arch, model, prompt, prefill, n_mamba, n_attn,
+    checks = prefill_checks(arch, model, batch, prefill, n_mamba, n_flash,
                             per_pass)
 
     # the plain path end to end, for the tokens the two paths share
     with variant(model, False):
-        out_p = serve.generate(model, prompt, n_tokens)
+        out_p = serve.generate(model, batch, n_tokens)
 
-    # (c) decode logits vs a plain forward over prompt + generated tokens
-    def decode_vs_forward(run, dtype):
-        seq = torch.cat([prompt, run["tokens"][:, :n_tokens]], dim=1)
-        got = torch.stack([run["prefill_logits"]] + run["step_logits"],
-                          dim=1).float()
-        fwd = {}
-        for floor in (False, True):
-            with variant(model, False, dtype, floor), torch.inference_mode():
-                fwd[floor] = model.forward({"tokens": seq})[
-                    :, SERVE_PROMPT - 1:].float()
-        if not bool(torch.isfinite(got).all()):
-            fail(f"{arch} {dtype} serving logits not finite")
-        return (float((got - fwd[False]).abs().max()),
-                float((fwd[True] - fwd[False]).abs().max()))
-
-    f32 = torch.float32
-    with variant(model, True, f32):
-        run_f32 = serve.generate(model, prompt, n_tokens)
-    dec_f32, _ = decode_vs_forward(run_f32, f32)
-    dec_bf16, dec_floor = decode_vs_forward(out, torch.bfloat16)
-    checks["decode f32 vs plain forward"] = dec_f32
-    checks["decode bf16 vs plain forward"] = dec_bf16
-    checks["forward bf16 plain floor lowering vs plain"] = dec_floor
-    if dec_f32 >= SERVE_F32_TOL:
-        fail(f"{arch} f32 decode logits vs plain forward: off by {dec_f32}")
-    if dec_bf16 > SERVE_BF16_FLOOR_FACTOR * dec_floor:
-        fail(f"{arch} bf16 decode logits vs plain forward: off by "
-             f"{dec_bf16}; two plain lowerings differ by {dec_floor}")
+    # (c) decode against the plain path
+    with variant(model, True, torch.float32):
+        run_f32 = serve.generate(model, batch, n_tokens)
+    checks.update(decode_checks(arch, model, batch, out, run_f32, n_tokens))
+    walls["checks_s"] = time.perf_counter() - t0 - init_s - walls["runs_s"]
     same = (out_p["tokens"] == toks)
     first_diff = [int(torch.nonzero(~row)[0]) if not bool(row.all())
                   else None for row in same]
 
     phase = dict(
-        arch=cfg.name, params=n_params, param_count=cfg.param_count(),
-        init_s=init_s, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+        arch=cfg.name, n_layers=cfg.n_layers, params=n_params,
+        param_count=cfg.param_count(), init_s=init_s, batch=SERVE_BATCH,
+        prompt_len=SERVE_PROMPT, prefill_len=serve.prefill_len(batch),
         decode_tokens=n_tokens, launches_per_run=launches,
         tensor_core_launches_per_run=tc_launches,
-        launches_per_prefill={"ssd": n_mamba, "flash_attention": n_attn,
+        launches_per_prefill={"ssd": n_mamba, "flash_attention": n_flash,
                               "rmsnorm": per_pass},
         prefill_ms=[r["prefill_ms"] for r in runs],
         decode_s=[r["decode_s"] for r in runs], checks=checks,
         greedy_tokens_shared=int(same.sum()), greedy_tokens=same.numel(),
-        first_divergence=first_diff,
+        first_divergence=first_diff, walls=walls,
         max_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
     return {"launches": launches, "captured": captured, "cfg": cfg,
-            "model": model, "prompt": prompt, "phase": phase}
+            "model": model, "batch": batch, "phase": phase}
+
+
+def moe_combine_check(res) -> dict:
+    """(c) of the deepseek phase: layer 0's MoE block on the card at the
+    serving prefill's shape twice, the same bits, and its combine the bits
+    of one ``index_add_`` an expert in ascending expert order (JAX's
+    expert-major scatter-add); and the norms' inputs the path handed the
+    kernel, in the layout model_kernel_phase timed (drawn there) and
+    against the plain version."""
+    from repro_torch.kernels.rmsnorm import kernel as rn_kernel
+    from repro_torch.kernels.rmsnorm import ref as rn_ref
+    from repro_torch.models import moe as moe_mod
+    model, cfg, dev = res["model"], res["cfg"], res["batch"]["tokens"].device
+    g = torch.Generator(device=dev).manual_seed(13)
+    x = torch.randn((SERVE_BATCH, SERVE_PROMPT, cfg.d_model), generator=g,
+                    device=dev).to(torch.bfloat16)
+    p = model.blocks[0]["global_0"].ffn
+    seen, real = [], moe_mod.combine
+
+    def spy(*args):
+        seen.append(args)
+        return real(*args)
+
+    moe_mod.combine = spy
+    try:
+        with torch.inference_mode():
+            y1 = moe_mod.moe_block(cfg, p, x)
+            y2 = moe_mod.moe_block(cfg, p, x)
+    finally:
+        moe_mod.combine = real
+    torch.cuda.synchronize()
+    if not torch.equal(y1.view(torch.int16), y2.view(torch.int16)):
+        fail("deepseek MoE block: two calls differ")
+    yg, idx, valid, T, k = seen[0]
+    want = torch.zeros((T, yg.shape[-1]), dtype=yg.dtype, device=dev)
+    for e in range(yg.shape[0]):
+        want.index_add_(0, idx[e], yg[e])
+    got = real(yg, idx, valid, T, k)
+    if not torch.equal(got.view(torch.int16), want.view(torch.int16)):
+        fail("deepseek MoE combine differs from the expert-order "
+             "index_add_")
+    out = {"moe_block_repeat_bit_identical": True,
+           "combine_equals_expert_order_index_add": True,
+           "capacity": int(idx.shape[1]),
+           "dropped_routed_entries": int(
+               (T * k) - int(valid.sum()))}
+    for key in ("rmsnorm", "rmsnorm decode"):
+        (xn, s, *rest), _ = res["captured"][key]
+        want_shape = ((SERVE_BATCH, SERVE_PROMPT, cfg.d_model)
+                      if key == "rmsnorm" else (SERVE_BATCH, 1, cfg.d_model))
+        if tuple(xn.shape) != want_shape or not xn.is_contiguous():
+            fail(f"deepseek serving {key} input {tuple(xn.shape)} strides "
+                 f"{xn.stride()}, timed as {want_shape} contiguous")
+        err, mag, ratio = close(rn_kernel.rmsnorm(xn, s.detach()),
+                                rn_ref.rmsnorm(xn, s.detach()), 5e-2)
+        if not ratio < 1.0:
+            fail(f"deepseek serving {key}: error {err}, {ratio} of bound")
+        out[f"serving {key} err"] = err
+    return out
+
+
+def mla_checks(dev) -> dict:
+    """(a) and (b) of the deepseek phase, on a 4-layer full-width
+    deepseek_v2_lite_16b with a dense MLP (``moe=None``, seeded weights),
+    f32 compute, kernels on: a 1024-token prefill and 8 decode steps give
+    the logits of a forward over the same tokens to SERVE_F32_TOL (JAX's
+    ``test_mla_decode_exact_without_moe``), and ``absorbed_decode`` gives
+    those of the decompressing branch to 1e-3."""
+    from repro_torch.launch import serve
+    from repro_torch.models.model import DecoderLM
+    cfg = dataclasses.replace(serve_config("deepseek_v2_lite_16b", 4),
+                              moe=None, family="dense")
+    model = DecoderLM(cfg, device=dev, seed=0)
+    batch = serve.prompt_batch(cfg, SERVE_BATCH, SERVE_PROMPT + 8, dev)
+    toks = batch["tokens"]
+    prompt = {"tokens": toks[:, :SERVE_PROMPT]}
+    f32 = torch.float32
+    dec = teacher_forced(model, prompt, toks[:, SERVE_PROMPT:], True, f32)
+    with variant(model, True, f32), torch.inference_mode():
+        fwd = model.forward(batch)[:, SERVE_PROMPT - 1:].float()
+    model.cfg = dataclasses.replace(cfg, mla=dataclasses.replace(
+        cfg.mla, absorbed_decode=True))
+    absorbed = teacher_forced(model, prompt, toks[:, SERVE_PROMPT:], True,
+                              f32)
+    out = {"decode vs forward f32 (moe=None, 4 layers)":
+           float((dec - fwd).abs().max()),
+           "absorbed vs decompressing f32":
+           float((absorbed - dec).abs().max()),
+           "logits_max": float(fwd.abs().max())}
+    if out["decode vs forward f32 (moe=None, 4 layers)"] >= SERVE_F32_TOL:
+        fail(f"deepseek MLA decode vs forward: {out}")
+    if out["absorbed vs decompressing f32"] >= 1e-3:
+        fail(f"deepseek MLA absorbed vs decompressing: {out}")
+    return out
+
+
+def arctic_meta() -> dict:
+    """arctic_480b built on the meta device (no weights drawn): its
+    parameters are cfg.param_count() plus the norms' scales."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import DecoderLM
+    cfg = get_config("arctic_480b")
+    n = sum(p.numel() for p in DecoderLM(cfg, device="meta").parameters())
+    want = cfg.param_count() + (2 * cfg.n_layers + 1) * cfg.d_model
+    if n != want:
+        fail(f"arctic_480b on meta: {n} params, expected {want}")
+    return {"params": n, "param_count": cfg.param_count()}
 
 
 # ---------------------------------------------------------------------------
@@ -1775,25 +2122,28 @@ def planner_phase(dev) -> dict:
 
 
 def serve_profile(res: dict) -> None:
-    """Trace a prefill and a whole serving run of ``serve_phase``'s model
-    with torch.profiler (the card's busy and idle share, device time by
-    kernel) and emit the serving phase.  Runs after every per-kernel
-    timing: on the card, short traces taken after these long ones lost
-    kernel events."""
+    """Trace a prefill and a serving run of SERVE_PROFILE_TOKENS decode
+    steps of ``serve_phase``'s model with torch.profiler (the card's busy
+    and idle share against the untraced runs' median prefill and steps,
+    device time by kernel) and emit the serving phase.  Runs after every
+    per-kernel timing: on the card, short traces taken after these long
+    ones lost kernel events."""
     from repro_torch.launch import serve
-    model, prompt, ph = res["model"], res["prompt"], dict(res["phase"])
+    model, batch, ph = res["model"], res["batch"], dict(res["phase"])
     n_tokens = ph["decode_tokens"]
     prefill_ms, decode_s = ph["prefill_ms"], ph.pop("decode_s")
-    prof_pre = device_profile(lambda: serve.generate(model, prompt, 0), top=8)
+    t0 = time.perf_counter()
+    prof_pre = device_profile(lambda: serve.generate(model, batch, 0), top=8)
     prof_all = device_profile(
-        lambda: serve.generate(model, prompt, n_tokens), top=8)
+        lambda: serve.generate(model, batch, SERVE_PROFILE_TOKENS), top=8)
+    ph["walls"] = dict(ph["walls"], profile_s=time.perf_counter() - t0)
     def by_kernel(prof):
         return {k: sum(v for name, v in prof["by_kernel_s"].items()
                        if any(sym in name for sym in syms)) * 1e3
                 for k, syms in KERNEL_SYMBOLS.items()}
     med_pre = statistics.median(prefill_ms)
-    med_all = statistics.median(p * 1e-3 + d
-                                for p, d in zip(prefill_ms, decode_s))
+    med_all = (statistics.median(prefill_ms) * 1e-3 + SERVE_PROFILE_TOKENS
+               * statistics.median(decode_s) / n_tokens)
     emit(f"serve_{ph['arch']}", ok=True, **ph,
          decode_tok_per_s=[SERVE_BATCH * n_tokens / d for d in decode_s],
          decode_ms_per_step=[d * 1e3 / n_tokens for d in decode_s],
@@ -1801,6 +2151,7 @@ def serve_profile(res: dict) -> None:
          prefill_idle_share=1.0 - prof_pre["device_busy_s"] * 1e3 / med_pre,
          prefill_kernel_device_ms=by_kernel(prof_pre),
          prefill_top_ms=prof_pre["top"],
+         serve_traced_steps=SERVE_PROFILE_TOKENS,
          serve_busy_ms=prof_all["device_busy_s"] * 1e3,
          serve_kernel_device_ms=by_kernel(prof_all),
          serve_idle_share=1.0 - prof_all["device_busy_s"] / med_all,
@@ -1885,15 +2236,15 @@ def load_state(tr, state) -> None:
                 tr.opt_state[k].copy_(v)
 
 
-def trained_logits(model, prompt) -> dict:
-    """The last-position prefill logits of ``prompt`` through the kernels,
+def trained_logits(model, batch) -> dict:
+    """The last-position prefill logits of ``batch`` through the kernels,
     with f32 compute and as served (bf16), as f32."""
     from repro_torch.training.trainer import make_prefill
     out = {}
     for dtype in (torch.float32, torch.bfloat16):
         with variant(model, True, dtype):
             _, lg = make_prefill(model)(model.init_cache(
-                SERVE_BATCH, SERVE_PROMPT), {"tokens": prompt})
+                SERVE_BATCH, SERVE_PROMPT), batch)
         out[str(dtype)] = lg[:, -1].float()
     return out
 
@@ -1908,7 +2259,7 @@ def profile_step(tr) -> dict:
             "top_ms": prof["top"]}
 
 
-def serve_trained(arch, cfg, dev, ckpt_dir, plane, reference, prompt,
+def serve_trained(arch, cfg, dev, ckpt_dir, plane, reference, batch,
                   want_step) -> dict:
     """(e) Restore ``arch``'s last checkpoint into a fresh DecoderLM(cfg)
     (kernels on, its memory left unset until the restore fills it; the
@@ -1935,35 +2286,32 @@ def serve_trained(arch, cfg, dev, ckpt_dir, plane, reference, prompt,
     restore_s = time.perf_counter() - t0
     # (d) a model built with kernels raises under grad
     try:
-        model({"tokens": prompt[:, :16]})
+        model({"tokens": batch["tokens"][:, :16]})
     except RuntimeError as e:
         if "no backward" not in str(e):
             raise
         refused = str(e)
     else:
         fail(f"{arch}: a forward under grad with kernels did not raise")
-    n_mamba = cfg.pattern.count("mamba") * cfg.n_superblocks
-    n_attn = (len(cfg.pattern) - cfg.pattern.count("mamba")) \
-        * cfg.n_superblocks
-    per_pass = 2 * (n_mamba + n_attn) + 1
+    n_mamba, n_flash, per_pass = path_launches(cfg)
     reset_model_launches()
     _, lg = make_prefill(model)(model.init_cache(SERVE_BATCH, SERVE_PROMPT),
-                                {"tokens": prompt})
+                                batch)
     torch.cuda.synchronize()
     launches = model_launches()
-    want = {"ssd": n_mamba, "flash_attention": n_attn, "rmsnorm": per_pass}
+    want = {"ssd": n_mamba, "flash_attention": n_flash, "rmsnorm": per_pass}
     if launches != want:
         fail(f"{arch}: the trained checkpoint's prefill launched "
              f"{launches}, expected {want}")
     if not bool(torch.isfinite(lg.float()).all()):
         fail(f"{arch}: the trained checkpoint's logits are not finite")
-    got = trained_logits(model, prompt)
+    got = trained_logits(model, batch)
     for k, v in reference.items():
         if not torch.equal(got[k], v):
             fail(f"{arch}: the restored model's {k} logits differ from the "
                  f"trained model's by {float((got[k] - v).abs().max())}")
-    checks = prefill_checks(arch, model, prompt, make_prefill(model),
-                            n_mamba, n_attn, per_pass)
+    checks = prefill_checks(arch, model, batch, make_prefill(model),
+                            n_mamba, n_flash, per_pass)
     return {"restore_s": restore_s, "kernels_under_grad": refused,
             "launches_per_prefill": launches, "logits_equal_trained": True,
             "checks": checks}
@@ -2071,7 +2419,7 @@ def train_phase(dev, smi: str) -> dict:
         / out[arch]["median_step_ms"]
 
     t2.model.use_kernels = True
-    prompt = serve.prompt_batch(cfg.vocab, SERVE_BATCH, SERVE_PROMPT, dev)
+    prompt = serve.prompt_batch(cfg, SERVE_BATCH, SERVE_PROMPT, dev)
     trained = [(arch, cfg, ckpt_dir, plane, trained_logits(t2.model, prompt),
                 prompt, TRAIN_STEPS)]
     del t2, at_end, batch
@@ -2097,7 +2445,7 @@ def train_phase(dev, smi: str) -> dict:
     cfg = tr.model.cfg
     step_s = [h["step_s"] for h in hist]
     tr.model.use_kernels = True
-    prompt = serve.prompt_batch(cfg.vocab, SERVE_BATCH, SERVE_PROMPT, dev)
+    prompt = serve.prompt_batch(cfg, SERVE_BATCH, SERVE_PROMPT, dev)
     trained.append((arch, cfg, ckpt_dir, tr.plane,
                     trained_logits(tr.model, prompt), prompt,
                     ZAMBA_TRAIN_STEPS))
@@ -2697,6 +3045,9 @@ def main() -> None:
     ssd_errs = ssd_phase(dev)
     mamba = serve_phase("mamba2_130m", dev, SERVE_TOKENS)
     zamba = serve_phase("zamba2_2_7b", dev, SERVE_TOKENS)
+    musicgen = serve_phase("musicgen_medium", dev, SERVE_TOKENS)
+    internvl = serve_phase("internvl2_26b", dev, SERVE_TOKENS,
+                           layers=INTERNVL_LAYERS)
     ssd_mamba = serving_ssd(ssd_errs, "mamba2 serving", mamba["captured"],
                             mamba["cfg"], dev)
     ssd_zamba = serving_ssd(ssd_errs, "zamba2 serving", zamba["captured"],
@@ -2705,14 +3056,27 @@ def main() -> None:
                   if isinstance(e, dict))
     emit("ssd_kernel", ok=True, errors=ssd_errs, max_abs_err=ssd_err,
          mamba2_serving=ssd_mamba, zamba2_serving=ssd_zamba)
-    mk = model_kernel_phase(dev, zamba["captured"], zamba["cfg"])
+    mk = model_kernel_phase(dev, {r["cfg"].name: r
+                                  for r in (zamba, musicgen, internvl)})
     emit("model_kernels", ok=True, **mk)
-    serve_profile(mamba)
-    del mamba
-    serve_profile(zamba)
-    zamba_launches = zamba["launches"]
-    del zamba
+    serve_launches = {}
+    for res in (mamba, zamba, musicgen, internvl):
+        serve_profile(res)
+        serve_launches[f"serve_{res['cfg'].name}"] = res["launches"]
+    del mamba, zamba, musicgen, internvl, res
     torch.cuda.empty_cache()
+
+    # ---- deepseek_v2_lite_16b at full width and depth (MoE and MLA: RMSNorm
+    # the only kernel), then MLA's checks and arctic_480b on meta ----------
+    deepseek = serve_phase("deepseek_v2_lite_16b", dev, SERVE_TOKENS)
+    deepseek["phase"]["checks"].update(moe_combine_check(deepseek))
+    serve_profile(deepseek)
+    serve_launches["serve_deepseek_v2_lite_16b"] = deepseek["launches"]
+    del deepseek
+    torch.cuda.empty_cache()
+    emit("deepseek_mla", ok=True, **mla_checks(dev))
+    torch.cuda.empty_cache()
+    emit("arctic_meta", ok=True, **arctic_meta())
 
     # ---- training (no kernel under grad; the trained checkpoints served
     # through ssd, flash_attention and rmsnorm) ------------------------------
@@ -2735,8 +3099,12 @@ def main() -> None:
     for k, v in mesh["launches"].items():
         if v:
             by_path[k]["mesh"] = v
-    for k, v in zamba_launches.items():
-        by_path[k] = {"serve_zamba2_2_7b": v}
+    for path, counts in serve_launches.items():
+        if path == "serve_mamba2_130m":
+            continue
+        for k, v in counts.items():
+            if v:
+                by_path.setdefault(k, {})[path] = v
     for k in by_path:
         by_path[k]["train"] = train["launches"].get(k, 0)
     launches = {k: sum(v.values()) for k, v in by_path.items()}
@@ -2744,10 +3112,10 @@ def main() -> None:
         "ssd": dict(ssd_zamba, max_abs_err=ssd_err, library_ms=None),
         "flash_attention": dict(
             mk["flash_attention"], max_abs_err=max(
-                e["err"] for e in mk["flash_attention"]["errors"].values()
+                e["err"] for e in mk["errors"]["flash_attention"].values()
                 if isinstance(e, dict))),
         "rmsnorm": dict(mk["rmsnorm"], max_abs_err=max(
-            e["err"] for e in mk["rmsnorm"]["errors"].values())),
+            e["err"] for e in mk["errors"]["rmsnorm"].values())),
     }
     line = {"kernels": [
         {"name": k, "route": "cuda", "source": SOURCE,
@@ -2766,6 +3134,7 @@ def main() -> None:
         for k, st in model_stats.items()]}
     if any(k["launches"] <= 0 for k in line["kernels"]):
         fail(f"a kernel was not launched on its path: {launches}")
+    emit("script", seconds=time.perf_counter() - T_START)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

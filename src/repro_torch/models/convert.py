@@ -9,9 +9,11 @@ JAX stacks each block kind's params over superblocks on a leading axis; the
 port keeps one module per superblock, so ``blocks/<key>/<name>`` of shape
 (n_superblocks, ...) becomes ``blocks.<i>.<key>.<name>`` for each i.  Every
 other leaf -- ``embed``, ``head``, ``final_norm`` and zamba2's unstacked
-weight-shared block ``shared/...`` -- keeps its name with dots.
-``params_to_jax(cfg, sd)`` is the inverse: it stacks the superblocks again
-and nests the names, numpy leaves out.
+weight-shared block ``shared/...`` -- keeps its name with dots.  The
+MoE (``ffn/router``, ``ffn/wi``, ``ffn/shared/wi``, ...), MLA
+(``attn/wdkv``, ``attn/wuk``, ...) and audio-stub (no ``embed``) trees
+carry by the same rule.  ``params_to_jax(cfg, sd)`` is the inverse: it
+stacks the superblocks again and nests the names, numpy leaves out.
 
 JAX's Adafactor factors a stacked leaf as one tensor, so for a leaf that is
 1-D a superblock its ``vr`` is (n_superblocks,) and its ``vc`` (d,): that

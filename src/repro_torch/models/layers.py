@@ -1,8 +1,9 @@
 """Dense model building blocks of the port (``repro/models/layers.py``):
 the weight initialiser (``dense_init`` :76), the norms (``init_norm`` :89,
 ``apply_norm`` :96), RoPE (:116-131), GQA attention (``init_attention``
-:138, ``attention`` :170, ``project_kv`` :264) and the MLPs (``init_mlp`` /
-``apply_mlp`` :367-393).  MLA and MoE wait for ROADMAP.md queue 1 item 10d.
+:138, ``attention`` :170, ``project_kv`` :264), MLA (``init_mla`` :281,
+``mla_compress`` :296, ``mla_attention`` :308) and the MLPs (``init_mlp`` /
+``apply_mlp`` :367-393).
 
 Two kernels run here when the caller asks for them (``use_kernel=True``,
 the serving default), picked by the tensors' device (``ops`` modules):
@@ -18,7 +19,8 @@ checkpoint).  Attention over a cache (decode) is that jnp path on every
 device, as in the JAX package: the flash kernel's mask is positional and
 cannot express ring-buffer slots with stored positions.  In f32 the two
 attention paths agree to float rounding; in bf16 they differ by bf16
-rounding.
+rounding.  MLA is plain einsums in the JAX package (V's head dim differs
+from QK's), so it runs plain torch products on every device.
 """
 from __future__ import annotations
 
@@ -247,17 +249,91 @@ def project_kv(cfg: ArchConfig, p: Attention, x: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2 multi-head latent attention).
+# ---------------------------------------------------------------------------
+
+class MLA(nn.Module):
+    """The parameters of ``init_mla``: wq (D,H,dn+dr), wdkv (D,r+dr), wuk
+    (r,H,dn), wuv (r,H,dv), wo (H,dv,D) with fan-in H*dv, f32."""
+
+    def __init__(self, cfg: ArchConfig, generator: Optional[torch.Generator],
+                 device):
+        super().__init__()
+        m = cfg.mla
+        D, H = cfg.d_model, cfg.n_heads
+        dn, dr, dv, r = (m.qk_nope_dim, m.qk_rope_dim, m.v_head_dim,
+                         m.kv_lora_rank)
+        self.wq = dense_init((D, H, dn + dr), generator, device)
+        self.wdkv = dense_init((D, r + dr), generator, device)
+        self.wuk = dense_init((r, H, dn), generator, device)
+        self.wuv = dense_init((r, H, dv), generator, device)
+        self.wo = dense_init((H, dv, D), generator, device, fan_in=H * dv)
+
+
+def mla_compress(cfg: ArchConfig, p: MLA, x: torch.Tensor,
+                 k_pos: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B,T,D) -> (c_kv (B,T,r), k_rope (B,T,dr) after RoPE), in x's
+    dtype: this pair is the whole KV cache."""
+    r = cfg.mla.kv_lora_rank
+    ckr = x @ p.wdkv.to(x.dtype)
+    c_kv, k_rope = ckr[..., :r], ckr[..., r:]
+    sin, cos = rope_tables(k_pos, cfg.mla.qk_rope_dim, cfg.rope_theta)
+    return c_kv, apply_rope(k_rope[..., None, :], sin, cos)[..., 0, :]
+
+
+def mla_attention(cfg: ArchConfig, p: MLA, x: torch.Tensor,
+                  c_kv: torch.Tensor, k_rope: torch.Tensor,
+                  q_pos: torch.Tensor, k_pos: torch.Tensor,
+                  k_valid: Optional[torch.Tensor] = None,
+                  weights_dtype: Optional[torch.dtype] = None
+                  ) -> torch.Tensor:
+    """MLA attention of x (B,S,D) over the compressed cache c_kv (B,T,r),
+    k_rope (B,T,dr).  By default K and V are decompressed per head from
+    c_kv; ``cfg.mla.absorbed_decode`` absorbs wuk into the query and wuv
+    into the output so that attention runs in the rank-r latent space.
+    Scores are f32 products scaled by 1/sqrt(dn+dr) after the sum, masked
+    as ``_attn_mask``; the softmax weights are cast to ``weights_dtype``
+    (default x's dtype, as the JAX package does) before they multiply V."""
+    m = cfg.mla
+    dn, dr = m.qk_nope_dim, m.qk_rope_dim
+    dt = x.dtype
+    wdt = weights_dtype or dt
+    q = torch.einsum("bsd,dhk->bshk", x, p.wq.to(dt))
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    sin, cos = rope_tables(q_pos, dr, cfg.rope_theta)
+    q_rope = apply_rope(q_rope, sin, cos)
+    scale = 1.0 / math.sqrt(dn + dr)
+    s_rope = torch.einsum("bshr,btr->bhst", q_rope.float(), k_rope.float())
+    mask = _attn_mask(q_pos, k_pos, None, k_valid)
+    if m.absorbed_decode:
+        q_lat = torch.einsum("bshn,rhn->bshr", q_nope, p.wuk.to(dt))
+        s = (torch.einsum("bshr,btr->bhst", q_lat.float(), c_kv.float())
+             + s_rope) * scale
+        w = torch.softmax(s + mask, dim=-1).to(wdt)
+        o_lat = torch.einsum("bhst,btr->bshr", w, c_kv.to(wdt)).to(dt)
+        o = torch.einsum("bshr,rhv->bshv", o_lat, p.wuv.to(dt))
+    else:
+        k_nope = torch.einsum("btr,rhn->bthn", c_kv, p.wuk.to(dt))
+        v = torch.einsum("btr,rhv->bthv", c_kv, p.wuv.to(dt))
+        s = (torch.einsum("bshn,bthn->bhst", q_nope.float(), k_nope.float())
+             + s_rope) * scale
+        w = torch.softmax(s + mask, dim=-1).to(wdt)
+        o = torch.einsum("bhst,bthv->bshv", w, v.to(wdt)).to(dt)
+    return torch.einsum("bshv,hvd->bsd", o, p.wo.to(dt))
+
+
+# ---------------------------------------------------------------------------
 # MLPs.
 # ---------------------------------------------------------------------------
 
 class MLP(nn.Module):
     """The parameters of ``init_mlp``: wi (D,F), wo (F,D), and wg (D,F)
-    for swiglu."""
+    for swiglu; F is ``d_ff`` or ``cfg.d_ff``."""
 
     def __init__(self, cfg: ArchConfig, generator: Optional[torch.Generator],
-                 device):
+                 device, d_ff: Optional[int] = None):
         super().__init__()
-        D, F_ = cfg.d_model, cfg.d_ff
+        D, F_ = cfg.d_model, d_ff or cfg.d_ff
         self.wi = dense_init((D, F_), generator, device)
         self.wo = dense_init((F_, D), generator, device)
         if cfg.mlp == "swiglu":

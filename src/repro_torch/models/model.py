@@ -6,9 +6,14 @@ stacks their params and scans over them, the port keeps one module per
 superblock in an ``nn.ModuleList`` and walks it in Python.  zamba2's
 weight-shared attention block (``"shared_attn"``) is one module,
 ``shared``, applied at its place in every superblock with that place's own
-KV cache.  The port runs the block kinds ``"mamba"``, ``"global"``,
-``"local"`` and ``"shared_attn"`` with a dense MLP; MoE, MLA and the
-frontends raise ``NotImplementedError`` (ROADMAP.md queue 1 item 10d).
+KV cache.  Every architecture of ``configs`` builds: an attention block
+takes MLA (``layers.MLA``) when ``cfg.mla`` and a mixture of experts
+(``moe.MoE``) when ``cfg.moe``, else GQA attention and a dense MLP.  The
+two stub frontends take precomputed embeddings: ``audio_frames``
+(musicgen) reads ``frame_emb`` (B,S,D) and has no ``embed`` table, its
+decode step embedding the last token through ``head.T``;
+``vision_patches`` (internvl2) prepends ``patch_emb`` (B,V,D) to the token
+embeddings, and its loss drops those V positions.
 
 Entry points, as in the JAX package:
   forward(batch)                 -> logits (scoring path, no cache)
@@ -20,13 +25,15 @@ KV caches are ring buffers with an explicit position buffer ``k_pos``
 (-1 = empty): a slot is attendable iff its stored position is in
 [q_pos - window, q_pos].  Prefill attends over the prompt's own k/v (the
 flash kernel on the card); decode attends over (ring buffer ++ current
-k/v) with ``valid = k_pos >= 0`` in plain torch.
+k/v) with ``valid = k_pos >= 0`` in plain torch.  MLA's cache is the
+compressed pair (``ckv`` (B,T,r), ``krope`` (B,T,dr)), read the same way
+and attended in plain torch on every device, as in the JAX package.
 
 Params are f32; compute runs in ``COMPUTE_DTYPE`` (bf16), with weights cast
 at use.  ``use_kernels`` (default True, the serving path) runs the kernels'
 ops, and then the device decides every kernel: on the card a prefill or
 forward runs the SSD kernel in every Mamba2 layer, flash attention in every
-attention block and the RMSNorm kernel in every norm; on the CPU each runs
+GQA attention block and the RMSNorm kernel in every norm; on the CPU each runs
 its plain version (``kernels/*/ops``).  The kernels have no backward and
 raise under autograd (``kernels.refuse_grad``).  ``use_kernels=False`` --
 the counterpart of JAX's default ``use_ssd_kernel=False``, which training
@@ -50,7 +57,7 @@ from torch import nn
 from repro_torch import device as device_mod
 from repro_torch.configs.base import ArchConfig
 
-from . import layers, ssm as ssm_mod
+from . import layers, moe as moe_mod, ssm as ssm_mod
 
 COMPUTE_DTYPE = torch.bfloat16
 
@@ -72,17 +79,17 @@ class MambaLayer(nn.Module):
 
 class AttnLayer(nn.Module):
     """One attention block (``"global"``, ``"local"``, or the shared block):
-    ln1, GQA attention, ln2, dense MLP."""
+    ln1, attention (MLA when ``cfg.mla``, else GQA), ln2, and the MoE
+    block when ``cfg.moe``, else a dense MLP."""
 
     def __init__(self, cfg: ArchConfig, generator, device):
         super().__init__()
         self.ln1 = layers.Norm(cfg, device)
-        self.attn = layers.Attention(cfg, generator, device)
+        self.attn = (layers.MLA if cfg.mla is not None
+                     else layers.Attention)(cfg, generator, device)
         self.ln2 = layers.Norm(cfg, device)
-        self.ffn = layers.MLP(cfg, generator, device)
-
-
-PORTED_KINDS = {"mamba", "global", "local", "shared_attn"}
+        self.ffn = (moe_mod.MoE if cfg.moe is not None
+                    else layers.MLP)(cfg, generator, device)
 
 
 class DecoderLM(nn.Module):
@@ -90,21 +97,14 @@ class DecoderLM(nn.Module):
                  remat: bool = True, use_kernels: bool = True):
         super().__init__()
         device = device_mod.resolve(device)
-        unported = sorted(set(cfg.pattern) - PORTED_KINDS)
-        if unported or cfg.moe is not None or cfg.mla is not None \
-                or cfg.frontend is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: the port runs {sorted(PORTED_KINDS)} blocks "
-                f"with a dense MLP and no frontend so far; MoE, MLA, "
-                f"frontends and other block kinds wait for ROADMAP.md "
-                f"queue 1 item 10d")
         self.cfg = cfg
         self.remat = remat
         self.use_kernels = use_kernels
         gen = (None if device.type == "meta"
                else torch.Generator().manual_seed(seed))
-        self.embed = nn.Parameter(
-            layers.normal((cfg.vocab, cfg.d_model), gen, device) * 0.02)
+        if cfg.frontend != "audio_frames":
+            self.embed = nn.Parameter(
+                layers.normal((cfg.vocab, cfg.d_model), gen, device) * 0.02)
         self.head = layers.dense_init((cfg.d_model, cfg.vocab), gen, device)
         self.final_norm = layers.Norm(cfg, device)
         layer_cls = {"mamba": MambaLayer, "global": AttnLayer,
@@ -120,7 +120,16 @@ class DecoderLM(nn.Module):
 
     # ----------------------------------------------------------- embeddings
     def embed_inputs(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        return self.embed[batch["tokens"]].to(COMPUTE_DTYPE)
+        """The block stack's input (B,S,D) in COMPUTE_DTYPE: ``frame_emb``
+        (audio), ``patch_emb`` ++ the tokens' embeddings (vision), or the
+        tokens' embeddings."""
+        frontend = self.cfg.frontend
+        if frontend == "audio_frames":
+            return batch["frame_emb"].to(COMPUTE_DTYPE)
+        x = self.embed[batch["tokens"]].to(COMPUTE_DTYPE)
+        if frontend == "vision_patches":
+            x = torch.cat([batch["patch_emb"].to(COMPUTE_DTYPE), x], dim=1)
+        return x
 
     # ---------------------------------------------------------------- blocks
     def _apply_block(self, kind: str, p: nn.Module, x: torch.Tensor,
@@ -142,21 +151,33 @@ class DecoderLM(nn.Module):
         # Decode (S == 1) attends over (prior ring buffer ++ current k/v);
         # prefill attends over the prompt's own k/v only.  The write to the
         # ring buffer is separate and goes to new_cache.
-        k, v = layers.project_kv(cfg, p.attn, h, q_pos)
-        new_cache = (None if cache is None
-                     else _cache_write_kv(cache, k, v, q_pos))
-        if cache is not None and S == 1:
-            k_all = torch.cat([cache["k"], k.to(cache["k"].dtype)], dim=1)
-            v_all = torch.cat([cache["v"], v.to(cache["v"].dtype)], dim=1)
-            k_pos = torch.cat([cache["k_pos"], q_pos])
-            y = layers.attention(cfg, p.attn, h, k_all, v_all, q_pos,
-                                 k_pos.clamp_min(0), window=window,
-                                 k_valid=k_pos >= 0, use_kernel=kern)
+        if cfg.mla is not None:
+            ckv, krope = layers.mla_compress(cfg, p.attn, h, q_pos)
+            cur = {"ckv": ckv, "krope": krope}
         else:
-            y = layers.attention(cfg, p.attn, h, k, v, q_pos, q_pos,
-                                 window=window, use_kernel=kern)
+            k, v = layers.project_kv(cfg, p.attn, h, q_pos)
+            cur = {"k": k, "v": v}
+        new_cache = None if cache is None else _cache_write(cache, cur,
+                                                            q_pos)
+        k_pos, valid = q_pos, None
+        if cache is not None and S == 1:
+            cur = {n: torch.cat([cache[n], t.to(cache[n].dtype)], dim=1)
+                   for n, t in cur.items()}
+            k_pos = torch.cat([cache["k_pos"], q_pos])
+            valid = k_pos >= 0
+        if cfg.mla is not None:
+            y = layers.mla_attention(cfg, p.attn, h, cur["ckv"],
+                                     cur["krope"], q_pos, k_pos.clamp_min(0),
+                                     k_valid=valid)
+        else:
+            y = layers.attention(cfg, p.attn, h, cur["k"], cur["v"], q_pos,
+                                 k_pos.clamp_min(0), window=window,
+                                 k_valid=valid, use_kernel=kern)
         x = x + y
-        return x + layers.apply_mlp(cfg, p.ffn, p.ln2(x, kern)), new_cache
+        h = p.ln2(x, kern)
+        if cfg.moe is not None:
+            return x + moe_mod.moe_block(cfg, p.ffn, h), new_cache
+        return x + layers.apply_mlp(cfg, p.ffn, h), new_cache
 
     def _run_blocks(self, x: torch.Tensor, cache: Optional[List[Cache]],
                     pos0: int = 0
@@ -203,6 +224,8 @@ class DecoderLM(nn.Module):
         x = self.embed_inputs(batch)
         x, _ = self._run_blocks(x, None)
         x = self.final_norm(x, self.use_kernels)
+        if self.cfg.frontend == "vision_patches":
+            x = x[:, self.cfg.vision_tokens:]
         B, S, D = x.shape
         n = B * S
         xt = x.reshape(n, D)
@@ -230,9 +253,10 @@ class DecoderLM(nn.Module):
         block's cache is {"conv", "state"}; an attention block's is a ring
         buffer {"k", "v": (batch, T, KV, hd) in COMPUTE_DTYPE, "k_pos": (T,)
         int32 of -1}, with T = cfg.window for "local" blocks, else
-        ``max_len``."""
+        ``max_len``; with MLA {"ckv": (batch, T, r), "krope": (batch, T,
+        dr)} in COMPUTE_DTYPE and "k_pos"."""
         cfg = self.cfg
-        dev = self.embed.device
+        dev = self.head.device
         spec = (ssm_mod.mamba_cache_spec(cfg, batch)
                 if "mamba" in cfg.pattern else {})
 
@@ -241,11 +265,19 @@ class DecoderLM(nn.Module):
                 return {name: torch.zeros(shp, dtype=dt, device=dev)
                         for name, (shp, dt) in spec.items()}
             T = cfg.window if kind == "local" else max_len
+            k_pos = torch.full((T,), -1, dtype=torch.int32, device=dev)
+            if cfg.mla is not None:
+                m = cfg.mla
+                return {"ckv": torch.zeros((batch, T, m.kv_lora_rank),
+                                           dtype=COMPUTE_DTYPE, device=dev),
+                        "krope": torch.zeros((batch, T, m.qk_rope_dim),
+                                             dtype=COMPUTE_DTYPE,
+                                             device=dev),
+                        "k_pos": k_pos}
             kv = (batch, T, cfg.n_kv_heads, cfg.hd)
             return {"k": torch.zeros(kv, dtype=COMPUTE_DTYPE, device=dev),
                     "v": torch.zeros(kv, dtype=COMPUTE_DTYPE, device=dev),
-                    "k_pos": torch.full((T,), -1, dtype=torch.int32,
-                                        device=dev)}
+                    "k_pos": k_pos}
 
         layers_ = [{_kind_key(kind, j): one(kind)
                     for j, kind in enumerate(cfg.pattern)}
@@ -254,7 +286,8 @@ class DecoderLM(nn.Module):
 
     def prefill(self, batch: Dict[str, torch.Tensor], cache: Cache
                 ) -> Tuple[Cache, torch.Tensor]:
-        """Run the prompt through the model, filling the cache."""
+        """Run the prompt through the model, filling the cache (vision:
+        the patches, then the tokens)."""
         x = self.embed_inputs(batch)
         S = x.shape[1]
         x, new_layers = self._run_blocks(x, cache["layers"])
@@ -263,8 +296,13 @@ class DecoderLM(nn.Module):
 
     def decode_step(self, cache: Cache, tokens: torch.Tensor
                     ) -> Tuple[torch.Tensor, Cache]:
-        """One decode step: tokens (B,1) -> logits (B,1,V), updated cache."""
-        x = self.embed[tokens].to(COMPUTE_DTYPE)
+        """One decode step: tokens (B,1) -> logits (B,1,V), updated cache.
+        The audio stub embeds the last emitted token through ``head.T``
+        (it has no embed table)."""
+        if self.cfg.frontend == "audio_frames":
+            x = self.head.T[tokens[:, 0]][:, None, :].to(COMPUTE_DTYPE)
+        else:
+            x = self.embed[tokens].to(COMPUTE_DTYPE)
         pos = cache["pos"]
         x, new_layers = self._run_blocks(x, cache["layers"], pos)
         logits = self._head(x)
@@ -309,10 +347,13 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     return nll.mean()
 
 
-def _cache_write_kv(cache: Cache, k: torch.Tensor, v: torch.Tensor,
-                    q_pos: torch.Tensor) -> Cache:
-    """The attention block's cache after writing k/v (B,S,KV,hd) at
+def _cache_write(cache: Cache, cur: Dict[str, torch.Tensor],
+                 q_pos: torch.Tensor) -> Cache:
+    """An attention block's cache after writing each buffer of ``cur`` (k
+    and v (B,S,KV,hd), or MLA's ckv (B,S,r) and krope (B,S,dr)) at
     q_pos."""
-    kn, pn = _ring_write(cache["k"], k, cache["k_pos"], q_pos)
-    vn, _ = _ring_write(cache["v"], v, cache["k_pos"], q_pos)
-    return {"k": kn, "v": vn, "k_pos": pn}
+    out = {}
+    for name, t in cur.items():
+        out[name], out["k_pos"] = _ring_write(cache[name], t, cache["k_pos"],
+                                              q_pos)
+    return out

@@ -882,6 +882,69 @@ def test_zamba2_prefill_runs_the_three_kernels(cuda, no_tf32, monkeypatch,
         assert (a - b).abs().max() < 1e-3 * max(1.0, float(b.abs().max()))
 
 
+@pytest.mark.parametrize("arch", ["deepseek_v2_lite_16b", "musicgen_medium",
+                                  "internvl2_26b"])
+def test_moe_mla_and_stub_frontends_run_their_kernels(cuda, no_tf32,
+                                                      monkeypatch, arch):
+    """Reduced deepseek (MLA + MoE: no flash, MLA is plain products),
+    musicgen (audio frames, decode through head.T) and internvl2 (patches
+    then tokens) on the card: a prefill launches flash at each GQA block
+    and RMSNorm at every norm, each of 3 decode steps RMSNorm at every
+    norm; with f32 compute the logits agree with the CPU's plain path
+    (same seed, same weights, the same tokens fed) to 1e-3 of the largest
+    value."""
+    from repro_torch.launch import serve
+    monkeypatch.setattr(model_mod, "COMPUTE_DTYPE", torch.float32)
+    cfg = reduced_config(get_config(arch))
+    batch = serve.prompt_batch(cfg, 2, 45, "cpu", seed=3)
+    fed = torch.as_tensor(np.random.default_rng(4).integers(
+        0, cfg.vocab, (2, 3)))
+    n_flash = 0 if cfg.mla is not None else cfg.n_layers
+    per_pass = 2 * cfg.n_layers + 1
+    got = {}
+    for dev in (torch.device("cpu"), cuda):
+        m = model_mod.DecoderLM(cfg, device=dev, seed=0)
+        fa_ops.reset_launches()
+        rn_ops.reset_launches()
+        with torch.no_grad():
+            c = m.init_cache(2, serve.prefill_len(batch) + 3)
+            c, lg = m.prefill({k: v.to(dev) for k, v in batch.items()}, c)
+            out = [lg]
+            for i in range(3):
+                lg, c = m.decode_step(c, fed[:, i:i + 1].to(dev))
+                out.append(lg)
+        torch.cuda.synchronize()
+        on = dev.type == "cuda"
+        assert fa_ops.LAUNCHES["flash_attention"] == n_flash * on
+        assert rn_ops.LAUNCHES["rmsnorm"] == 4 * per_pass * on
+        got[dev.type] = [x.float().cpu() for x in out]
+    for a, b in zip(got["cuda"], got["cpu"]):
+        assert (a - b).abs().max() < 1e-3 * max(1.0, float(b.abs().max()))
+
+
+def test_moe_combine_on_the_card_is_the_expert_order_index_add(cuda):
+    """bf16 on the card: the MoE combine gives the bits of one index_add_
+    an expert in ascending expert order, and the same bits twice."""
+    from repro_torch.models import moe
+    g = torch.Generator(device=cuda).manual_seed(5)
+    T, E, k, D = 4096, 64, 6, 256
+    gates = torch.softmax(torch.randn(T, E, generator=g, device=cuda), -1)
+    topv, topi = moe.top_k(gates, k)
+    sel = torch.zeros_like(gates).scatter(1, topi, topv / topv.sum(
+        -1, keepdim=True))
+    wv, idx = moe.top_k(sel.T, 480)
+    valid = wv > 0
+    yg = torch.randn(E, 480, D, generator=g, device=cuda).bfloat16() \
+        * (wv * valid)[..., None].bfloat16()
+    want = torch.zeros(T, D, dtype=torch.bfloat16, device=cuda)
+    for e in range(E):
+        want.index_add_(0, idx[e], yg[e])
+    got = moe.combine(yg, idx, valid, T, k)
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    assert torch.equal(moe.combine(yg, idx, valid, T, k).view(torch.int16),
+                       got.view(torch.int16))
+
+
 def test_bf16_prefill_runs_the_tensor_core_instances(cuda):
     """Served in bf16, every Mamba2 layer's SSD call and every flash call of
     a reduced zamba2 prefill is the tensor-core instance's."""

@@ -30,6 +30,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert "repro_torch.kernels.quorum_tally.kernel" in names
     for name in ("repro_torch.launch.serve", "repro_torch.models.model",
                  "repro_torch.models.ssm", "repro_torch.models.layers",
+                 "repro_torch.models.moe",
                  "repro_torch.models.convert",
                  "repro_torch.kernels.ssd_scan.kernel",
                  "repro_torch.kernels.flash_attention.kernel",

@@ -133,16 +133,38 @@ def test_weights_follow_the_seed():
     assert not torch.equal(a["embed"], c["embed"])
 
 
-def test_unported_architectures_raise():
-    """MoE, MLA and the frontends are not ported: those architectures
-    raise; the others build."""
-    for arch in ARCH_IDS:
-        cfg = reduced_config(get_config(arch))
-        if cfg.moe or cfg.mla or cfg.frontend:
-            with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-                torch_model.DecoderLM(cfg, device="meta")
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_every_architecture_builds_on_meta_with_jax_param_shapes(arch):
+    """Every architecture builds at full width on the meta device (no
+    weights drawn), with exactly the parameters of JAX's ``DecoderLM.init``
+    (abstract, by ``jax.eval_shape``): the same names, a superblock's
+    leaf ``blocks.<i>.<name>`` for each stacked ``blocks/<name>``, and
+    shapes.  Its count is ``cfg.param_count()`` plus the norms' scales
+    (and the Mamba2 terms and the vision stub's embed table, which that
+    count leaves out)."""
+    cfg = get_config(arch)
+    mt = torch_model.DecoderLM(cfg, device="meta")
+    mj = jax_model.DecoderLM(jax_get_config(arch), remat=False)
+    shapes = jax.eval_shape(lambda k: mj.init(k)[0], jax.random.PRNGKey(0))
+    want = {}
+    for path, leaf in jax.tree_util.tree_flatten_with_path(shapes)[0]:
+        name = ".".join(p.key for p in path)
+        if name.startswith("blocks."):
+            assert leaf.shape[0] == cfg.n_superblocks
+            for i in range(cfg.n_superblocks):
+                want[name.replace("blocks.", f"blocks.{i}.", 1)] = \
+                    tuple(leaf.shape[1:])
         else:
-            torch_model.DecoderLM(cfg, device="meta")
+            want[name] = tuple(leaf.shape)
+    got = {k: tuple(v.shape) for k, v in mt.named_parameters()}
+    assert got == want
+    n = sum(p.numel() for p in mt.parameters())
+    n_norms = (2 * cfg.n_layers + 1) * cfg.d_model
+    if cfg.mla is not None or cfg.moe is not None or cfg.frontend \
+            == "audio_frames":
+        assert n == cfg.param_count() + n_norms
+    if arch == "arctic_480b":
+        assert 476.8e9 < n < 476.9e9
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
