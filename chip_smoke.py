@@ -116,12 +116,31 @@ Phases, one JSON line each:
               routing themselves are counted.  The floor lowering keeps
               MLA's softmax weights in f32.  (c) layer 0's MoE block twice,
               the same bits, its combine the bits of an expert-order
-              index_add_
+              index_add_.  Every serve phase also holds the dry-run's
+              abstract state to the real one: ``abstract_params`` /
+              ``abstract_cache`` bytes (a meta build) equal the model's
+              parameters' and ``init_cache``'s, and ``init_cache`` grows
+              ``memory_allocated()`` by those bytes within the caching
+              allocator's block rounding
+  deepseek_ep   MoE's expert-parallel branch on that model: a 4 x 1024
+              prefill under a 1 x 4 and a 2 x 2 ``ModelMesh`` on the one
+              card (ranks one batch slice after another), in f32 held to
+              the single-shard prefill (2 x 2: the two batch halves' own,
+              whose capacity it takes) to SERVE_F32_TOL with the
+              single-shard routing replayed, the flips counted where each
+              layout routes itself; RMSNorm launches (55 a prefill); bf16
+              prefill ms of each layout beside the single-shard one
   deepseek_mla   (a) a 4-layer full-width deepseek with moe=None: MLA
               decode against a forward, f32 to 1e-3; (b) absorbed_decode
               against the decompressing branch, f32 to 1e-3
   arctic_meta   arctic_480b built on the meta device: cfg.param_count()
               plus the norms (476.85 G), no weights drawn
+  dryrun      ``repro_torch.launch.dryrun``: the 40 (architecture x
+              shape) cells on the 16 x 16 and 2 x 16 x 16 meshes from the
+              abstract state on meta, untraced, and each cell's step traced
+              on meta at full size on 16 x 16 (flops), DRYRUN_JOBS worker
+              processes; ok / skipped / error counts, the cells whose
+              per-device total fits this card, the seconds
   ssd_kernel  the SSD-scan kernel against its plain versions (the chunked
               scan ``ssd_chunked`` and the recurrence ``ref.ssd``): JAX's
               kernel-test shapes, a 13-token single chunk, mamba2's
@@ -1306,6 +1325,7 @@ def serve_phase(arch: str, dev, n_tokens: int, layers=None) -> dict:
     walls = {}
     n_params = sum(p.numel() for p in model.parameters())
     batch = serve.prompt_batch(cfg, SERVE_BATCH, SERVE_PROMPT, dev)
+    abstract = abstract_checks(arch, model, serve.prefill_len(batch))
     n_mamba, n_flash, per_pass = path_launches(cfg)
     per_run = {"ssd": n_mamba, "flash_attention": n_flash,
                "rmsnorm": per_pass * (1 + n_tokens)}
@@ -1370,10 +1390,192 @@ def serve_phase(arch: str, dev, n_tokens: int, layers=None) -> dict:
         prefill_ms=[r["prefill_ms"] for r in runs],
         decode_s=[r["decode_s"] for r in runs], checks=checks,
         greedy_tokens_shared=int(same.sum()), greedy_tokens=same.numel(),
-        first_divergence=first_diff, walls=walls,
+        first_divergence=first_diff, walls=walls, abstract=abstract,
         max_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
     return {"launches": launches, "captured": captured, "cfg": cfg,
             "model": model, "batch": batch, "phase": phase}
+
+
+def tree_tensors(tree) -> list:
+    """Every tensor of a tree of dicts and lists."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in tree_tensors(v)]
+    return []
+
+
+def abstract_checks(arch, model, max_len: int) -> dict:
+    """The dry-run's abstract state against the real one: the bytes of
+    ``abstract_params`` / ``abstract_cache`` (a meta build of the same
+    configuration) equal the bytes of the model's parameters and of its
+    ``init_cache(SERVE_BATCH, max_len)``, and the allocator's
+    ``memory_allocated()`` grows by the cache's bytes within its block
+    rounding: each tensor's size up to a multiple of 512 bytes, and a
+    block of the large pool (tensors over 1 MiB) left unsplit when less
+    than 1 MiB of it would remain."""
+    from repro_torch.launch.abstract import abstract_cache, abstract_params
+    from repro_torch.models.model import DecoderLM
+
+    def nbytes(ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    meta = DecoderLM(model.cfg, device="meta")
+    p_abs, _ = abstract_params(meta)
+    c_abs, _ = abstract_cache(meta, SERVE_BATCH, max_len)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    cache = model.init_cache(SERVE_BATCH, max_len)
+    torch.cuda.synchronize()
+    delta = torch.cuda.memory_allocated() - before
+    real = tree_tensors(cache)
+    out = {"param_bytes": nbytes(model.parameters()),
+           "abstract_param_bytes": nbytes(p_abs.values()),
+           "cache_bytes": nbytes(real),
+           "abstract_cache_bytes": nbytes(tree_tensors(c_abs)),
+           "init_cache_allocated": delta,
+           "cache_bytes_in_blocks": sum(
+               -(-t.numel() * t.element_size() // 512) * 512 for t in real),
+           "large_pool_tensors": sum(
+               t.numel() * t.element_size() > 2 ** 20 for t in real)}
+    del cache, real
+    bound = out["cache_bytes_in_blocks"] + out["large_pool_tensors"] * 2 ** 20
+    if out["param_bytes"] != out["abstract_param_bytes"] \
+            or out["cache_bytes"] != out["abstract_cache_bytes"] \
+            or not out["cache_bytes"] <= delta <= bound:
+        fail(f"{arch} abstract state vs real: {out}")
+    return out
+
+
+EP_LAYOUTS = {"1x4": {"data": 1, "model": 4}, "2x2": {"data": 2, "model": 2}}
+
+
+def moe_ep_check(res) -> dict:
+    """MoE's expert-parallel branch on the deepseek model already built: a
+    full-width SERVE_BATCH x SERVE_PROMPT prefill under a 1 x 4 and a 2 x 2
+    ``ModelMesh`` on the one card, against the single-shard run in f32.
+    1 x 4 is held to the whole batch's single-shard prefill; 2 x 2, whose
+    capacity is a batch half's, to the two halves' single-shard prefills.
+    Replaying the single-shard runs' routing (``routing``: under the mesh a
+    batch slice's ranks make the same two selections a layer that a
+    single-shard run of the slice makes) the logits agree to SERVE_F32_TOL;
+    left to route themselves, the flips are counted.  Prefill ms of each
+    layout, routing itself, in bf16 as served.  RMSNorm launches of the
+    mesh runs are counted (55 a prefill)."""
+    from repro_torch.parallel.sharding import ModelMesh, sharding_ctx
+    model, cfg, batch = res["model"], res["cfg"], res["batch"]
+    dev = batch["tokens"].device
+    f32, bf16 = torch.float32, torch.bfloat16
+    half = SERVE_BATCH // 2
+    halves = [{"tokens": batch["tokens"][:half]},
+              {"tokens": batch["tokens"][half:]}]
+
+    def prefill(b, mesh=None, dtype=f32, mode=None, log=None):
+        with variant(model, True, dtype), routing(mode, log), \
+                torch.inference_mode(), sharding_ctx(mesh):
+            cache = model.init_cache(b["tokens"].shape[0], SERVE_PROMPT)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, lg = model.prefill(b, cache)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        return lg[:, -1].float(), ms
+
+    logs = {"whole": [], "h0": [], "h1": []}
+    single, _ = prefill(batch, mode="record", log=logs["whole"])
+    split = torch.cat([prefill(h, mode="record", log=logs[k])[0]
+                       for h, k in zip(halves, ("h0", "h1"))])
+    # under 2 x 2 each layer routes batch half 0, then half 1
+    interleaved = [e for i in range(0, len(logs["h0"]), 2)
+                   for e in logs["h0"][i:i + 2] + logs["h1"][i:i + 2]]
+    replay = {"1x4": (logs["whole"], single), "2x2": (interleaved, split)}
+    out = {"single_shard_logits_max": float(single.abs().max())}
+    reset_model_launches()
+    n_mesh_prefills = 0
+    for name, shape in EP_LAYOUTS.items():
+        mesh = ModelMesh.of(shape, dev)
+        log, want = replay[name]
+        got, _ = prefill(batch, mesh, mode="replay", log=log)
+        own_log = []
+        own, _ = prefill(batch, mesh, mode="record", log=own_log)
+        n_mesh_prefills += 2
+        err = float((got - want).abs().max())
+        out[f"{name} f32 vs single shard, same routing"] = err
+        out[f"{name} f32 vs single shard, own routing"] = float(
+            (own - want).abs().max())
+        out[f"{name} f32 routing flips (rows of "
+            f"{sum(len(x) for x in own_log)})"] = routing_flips(own_log, log)
+        if not err < SERVE_F32_TOL or not bool(torch.isfinite(got).all()):
+            fail(f"deepseek EP {name}: logits off by {err} from the "
+                 f"single-shard run")
+    launches = model_launches()
+    if launches != {"ssd": 0, "flash_attention": 0,
+                    "rmsnorm": path_launches(cfg)[2] * n_mesh_prefills}:
+        fail(f"deepseek EP launches {launches}")
+    ms = {}
+    for name, shape in (("single", None),) + tuple(EP_LAYOUTS.items()):
+        mesh = None if shape is None else ModelMesh.of(shape, dev)
+        ms[name] = [prefill(batch, mesh, bf16)[1] for _ in range(3)]
+    out["prefill_ms_bf16 (3 runs)"] = ms
+    return {"checks": out, "launches": launches}
+
+
+DRYRUN_JOBS = 6
+
+
+def dryrun_phase(smi: str) -> dict:
+    """The port's dry-run (``repro_torch.launch.dryrun``) of all 40 cells
+    on both production meshes without a trace, plus each cell traced on
+    the single-pod mesh, DRYRUN_JOBS cells at a time in worker processes
+    (meta tensors: host work).  ``fits`` holds each per-device total to
+    this card's memory.  Fails on any error, or if a traced record's
+    memory differs from its untraced twin's."""
+    from repro_torch.configs import ARCH_IDS, SHAPES
+    from repro_torch.launch import dryrun
+    device_bytes = torch.cuda.get_device_properties(0).total_memory
+    pairs = [(a, s) for a in ARCH_IDS for s in SHAPES]
+    cells = ([(a, s, mp, False) for a, s in pairs for mp in (False, True)]
+             + [(a, s, False, True) for a, s in pairs])
+    t0 = time.perf_counter()
+    recs = dryrun.run_cells(cells, DRYRUN_JOBS, device_bytes)
+    seconds = time.perf_counter() - t0
+    errors = [(c, r["error"]) for c, r in zip(cells, recs)
+              if r["status"] == "error"]
+    if errors:
+        fail(f"dryrun: {len(errors)} cells failed, first {errors[0]}")
+    by = {(c[0], c[1], c[2], c[3]): r for c, r in zip(cells, recs)}
+    rows = {}
+    for a, s in pairs:
+        for mp in (False, True):
+            r = by[(a, s, mp, False)]
+            if r["status"] != "ok":
+                continue
+            row = {"per_device_total": r["memory"]["per_device_total"],
+                   "argument_size_in_bytes":
+                       r["memory"]["argument_size_in_bytes"],
+                   "fits": r["fits"]}
+            if not mp:
+                t = by[(a, s, False, True)]
+                if t["memory"] != r["memory"]:
+                    fail(f"dryrun {a}.{s}: traced memory {t['memory']} vs "
+                         f"{r['memory']}")
+                row.update(model_flops=t["cost"]["model_flops"],
+                           trace_s=t["trace_s"])
+            rows[f"{a}.{s}.{'multi' if mp else 'single'}"] = row
+    untraced, traced = recs[:2 * len(pairs)], recs[2 * len(pairs):]
+    count = {k: sum(r["status"] == k for r in untraced)
+             for k in ("ok", "skipped", "error")}
+    return {"card": smi, "device_bytes": device_bytes, "jobs": DRYRUN_JOBS,
+            "untraced_cells": count,
+            "traced_single_pod": {k: sum(r["status"] == k for r in traced)
+                                  for k in ("ok", "skipped", "error")},
+            "fit_card": {m: sum(bool(v["fits"]) for k, v in rows.items()
+                                if k.endswith(m))
+                         for m in (".single", ".multi")},
+            "trace_s_total": sum(r.get("trace_s", 0.0) for r in traced),
+            "seconds": seconds, "cells": rows}
 
 
 def moe_combine_check(res) -> dict:
@@ -3072,11 +3274,17 @@ def main() -> None:
     deepseek["phase"]["checks"].update(moe_combine_check(deepseek))
     serve_profile(deepseek)
     serve_launches["serve_deepseek_v2_lite_16b"] = deepseek["launches"]
+    ep = moe_ep_check(deepseek)
+    emit("deepseek_ep", ok=True, card=smi, **ep)
+    serve_launches["deepseek_ep"] = ep["launches"]
     del deepseek
     torch.cuda.empty_cache()
     emit("deepseek_mla", ok=True, **mla_checks(dev))
     torch.cuda.empty_cache()
     emit("arctic_meta", ok=True, **arctic_meta())
+
+    # ---- the dry-run: every cell on both production meshes, on meta ------
+    emit("dryrun", ok=True, **dryrun_phase(smi))
 
     # ---- training (no kernel under grad; the trained checkpoints served
     # through ssd, flash_attention and rmsnorm) ------------------------------

@@ -1,9 +1,10 @@
 """Architecture configuration system, copied from the JAX package's
-``configs/base.py`` without ``input_specs`` (the abstract-input builder of
-its multi-pod dry-run, which the port has no use for).
+``configs/base.py``.
 
-One ``ArchConfig`` per architecture (``repro_torch/configs/<id>.py``) and the
-input-shape sets (train_4k / prefill_32k / decode_32k / long_500k).
+One ``ArchConfig`` per architecture (``repro_torch/configs/<id>.py``), the
+input-shape sets (train_4k / prefill_32k / decode_32k / long_500k), and
+``input_specs``: the (shape, dtype) of every model input of a cell, for
+the dry-run (``launch/dryrun.py``), which allocates nothing.
 """
 from __future__ import annotations
 
@@ -11,6 +12,8 @@ import dataclasses
 import importlib
 from dataclasses import dataclass, field
 from typing import Dict, Optional, Tuple
+
+import torch
 
 
 @dataclass(frozen=True)
@@ -257,3 +260,30 @@ def _param_count(cfg: ArchConfig, active_only: bool = False,
             blocks = 1                                   # weights shared
         total += blocks * p
     return total
+
+
+# ---------------------------------------------------------------------------
+# input_specs -- (shape, dtype) stand-ins for every model input.
+# ---------------------------------------------------------------------------
+
+def input_specs(cfg: ArchConfig, shape: ShapeSpec
+                ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """{name: (shape, dtype)} of a cell's inputs, JAX's keys, shapes and
+    dtypes (int32 ids, bf16 frontend embeddings).  Train and prefill: the
+    tokens and labels, or for ``audio_frames`` the frame embeddings and
+    labels, or for ``vision_patches`` the patch embeddings, then the
+    tokens and labels of the remaining positions; decode: one new token a
+    request (the cache is the model's ``init_cache``)."""
+    B, S = shape.global_batch, shape.seq_len
+    i32, bf16 = torch.int32, torch.bfloat16
+    if shape.is_train or shape.kind == "prefill":
+        if cfg.frontend == "audio_frames":
+            return {"frame_emb": ((B, S, cfg.d_model), bf16),
+                    "labels": ((B, S), i32)}
+        if cfg.frontend == "vision_patches":
+            V = cfg.vision_tokens
+            return {"patch_emb": ((B, V, cfg.d_model), bf16),
+                    "tokens": ((B, S - V), i32),
+                    "labels": ((B, S - V), i32)}
+        return {"tokens": ((B, S), i32), "labels": ((B, S), i32)}
+    return {"tokens": ((B, 1), i32)}

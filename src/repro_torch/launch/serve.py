@@ -2,7 +2,7 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2_2_7b
       [--batch 4] [--prompt-len 1024] [--tokens 32] [--layers N] [--smoke]
-      [--device cpu]
+      [--device cpu] [--dry-run [--shape decode_32k] [--multi-pod]]
 
 Serves the full configuration of any of the ten architectures on the card
 -- where every prefill runs the SSD kernel in each Mamba2 layer, flash
@@ -12,12 +12,16 @@ from a seed (bf16 frame or patch embeddings for the stub frontends).
 ``--layers`` keeps the full width and cuts the depth to N layers (a model
 whose weights do not fit the card whole); ``--smoke`` serves the reduced
 configuration; ``--device cpu`` runs the plain versions on the CPU.
-Prints prefill ms and decode tok/s.
+Prints prefill ms and decode tok/s.  ``--dry-run`` instead runs the FULL
+configuration's serving cell (``--shape`` decode_32k, long_500k or
+prefill_32k) on the production mesh through ``launch.dryrun.lower_cell``
+in this process, on the meta device, and prints its record as JSON.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import time
 from typing import Dict, Optional, Sequence
 
@@ -113,8 +117,20 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     ap.add_argument("--device", default=None,
                     help="default: the CUDA card; 'cpu' runs the plain "
                          "versions")
+    ap.add_argument("--dry-run", action="store_true",
+                    help="print the full configuration's dry-run record")
+    ap.add_argument("--shape", default="decode_32k",
+                    help="the dry-run's input shape")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="the dry-run on the 2x16x16 mesh")
     args = ap.parse_args(argv)
 
+    if args.dry_run:
+        from repro_torch.launch import dryrun
+        rec = dryrun.lower_cell(args.arch, args.shape,
+                                multi_pod=args.multi_pod)
+        print(json.dumps(rec, indent=1))
+        return rec
     dev = device_mod.resolve(args.device)
     cfg = get_config(args.arch)
     if args.smoke:

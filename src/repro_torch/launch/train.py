@@ -3,6 +3,7 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch <id> [--steps N]
       [--seq 128] [--batch 4] [--microbatches M] [--compression int8|topk]
       [--ckpt-dir DIR] [--smoke] [--device cpu]
+      [--dry-run [--shape train_4k] [--multi-pod]]
 
 On the card it trains the FULL configuration (the counterpart of the JAX
 launcher's full run on a TPU slice); ``--smoke``, or ``--device cpu``,
@@ -10,15 +11,17 @@ trains the reduced configuration -- the same train step, optimizer,
 checkpoint and control-plane path, small.  The model runs its plain code
 under autograd (``DecoderLM(use_kernels=False, remat=True)``; the card's
 kernels have no backward).  The control plane (Fast Flexible Paxos, n=11)
-commits the checkpoint manifests and data cursors.  ``--dry-run`` (JAX's
-compile-only dry-run for a production mesh) is not ported: ROADMAP.md
-queue 1 item 10e.  Stub frontends are dropped, and the backbone trains on
-token batches, as the JAX launcher does.
+commits the checkpoint manifests and data cursors.  Stub frontends are
+dropped, and the backbone trains on token batches, as the JAX launcher
+does.  ``--dry-run`` runs the FULL configuration's cell (``--shape``) on
+the production mesh through ``launch.dryrun.lower_cell`` in this process,
+on the meta device, and prints its record as JSON.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 from typing import Optional, Sequence
 
 import torch
@@ -33,14 +36,18 @@ from repro_torch.training.optimizer import adamw, cosine_schedule
 from repro_torch.training.trainer import Trainer, TrainerConfig
 
 
-def main(argv: Optional[Sequence[str]] = None) -> Trainer:
+def main(argv: Optional[Sequence[str]] = None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", required=True)
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--smoke", action="store_true",
                     help="train the reduced configuration")
     ap.add_argument("--dry-run", action="store_true",
-                    help="not ported (ROADMAP.md queue 1 item 10e)")
+                    help="print the full configuration's dry-run record")
+    ap.add_argument("--shape", default="train_4k",
+                    help="the dry-run's input shape")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="the dry-run on the 2x16x16 mesh")
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--compression", default=None,
                     choices=[None, "int8", "topk"])
@@ -53,9 +60,11 @@ def main(argv: Optional[Sequence[str]] = None) -> Trainer:
     args = ap.parse_args(argv)
 
     if args.dry_run:
-        raise NotImplementedError(
-            "--dry-run (lowering the full config for a production mesh) is "
-            "not ported: ROADMAP.md queue 1 item 10e")
+        from repro_torch.launch import dryrun
+        rec = dryrun.lower_cell(args.arch, args.shape,
+                                multi_pod=args.multi_pod)
+        print(json.dumps(rec, indent=1))
+        return rec
     dev = device_mod.resolve(args.device)
     cfg = get_config(args.arch)
     if args.smoke or dev.type == "cpu":

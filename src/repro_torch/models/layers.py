@@ -21,6 +21,13 @@ cannot express ring-buffer slots with stored positions.  In f32 the two
 attention paths agree to float rounding; in bf16 they differ by bf16
 rounding.  MLA is plain einsums in the JAX package (V's head dim differs
 from QK's), so it runs plain torch products on every device.
+
+Under an active model mesh (``parallel.sharding.sharding_ctx``) attention
+follows JAX's shard plan (``_attn_shard_plan``, ``layers.py:35-69``): where
+the head count does not divide the 'model' axis but padding wastes at most
+half, K and V are expanded to H heads and wq, wo, K and V zero-padded to
+the next multiple; the dead heads' zero wo rows add exactly 0.  Without a
+mesh nothing changes on any path.
 """
 from __future__ import annotations
 
@@ -36,9 +43,43 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.rmsnorm import ops as rmsnorm_ops
+from repro_torch.parallel.sharding import active_mesh, fsdp_use
 
 NEG_INF = -2.0e38
 Q_CHUNK = 1024       # JAX's query chunk of the plain attention path
+
+
+def _attn_shard_plan(n_heads: int) -> Tuple[str, int]:
+    """(seq axis, padded head count) of attention on the active mesh's
+    'model' axis, as JAX picks them: heads that divide the axis shard as
+    they are; otherwise pad them to the next multiple when that wastes at
+    most half, else shard the query's seq ('seq_sp') instead."""
+    mesh = active_mesh()
+    if mesh is None or "model" not in mesh.shape:
+        return "seq", n_heads
+    m = mesh.shape["model"]
+    if n_heads % m == 0:
+        return "seq", n_heads
+    h_pad = -(-n_heads // m) * m
+    if (h_pad - n_heads) / n_heads <= 0.5:
+        return "seq", h_pad
+    return "seq_sp", n_heads
+
+
+def _pad_heads(arr: torch.Tensor, h_pad: int, axis: int) -> torch.Tensor:
+    """``arr`` zero-padded along ``axis`` to ``h_pad`` heads."""
+    h = arr.shape[axis]
+    if h == h_pad:
+        return arr
+    shape = list(arr.shape)
+    shape[axis] = h_pad - h
+    return torch.cat([arr, arr.new_zeros(shape)], dim=axis)
+
+
+def _expand_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """(B,T,KV,hd) -> (B,T,H,hd), each kv head repeated H/KV times."""
+    rep = n_heads // k.shape[2]
+    return k if rep == 1 else k.repeat_interleave(rep, dim=2)
 
 
 def remat(fn, *args):
@@ -84,6 +125,8 @@ class Norm(nn.Module):
     """``init_norm`` + ``apply_norm``: RMSNorm with an f32 scale (ones), or
     the parameter-free LayerNorm (``cfg.norm == "nonparam_ln"``).  RMSNorm
     runs the kernel's op with ``use_kernel``, else ``rms_norm``."""
+
+    AXES = {"scale": ("norm",)}
 
     def __init__(self, cfg: ArchConfig, device):
         super().__init__()
@@ -138,6 +181,11 @@ class Attention(nn.Module):
     """The parameters of ``init_attention``: wq (D,H,hd), wk/wv (D,KV,hd),
     wo (H,hd,D), f32."""
 
+    AXES = {"wq": ("embed", "w_heads", "head_dim"),
+            "wk": ("embed", "w_kv_heads", "head_dim"),
+            "wv": ("embed", "w_kv_heads", "head_dim"),
+            "wo": ("w_heads", "head_dim", "embed")}
+
     def __init__(self, cfg: ArchConfig, generator: Optional[torch.Generator],
                  device):
         super().__init__()
@@ -174,7 +222,15 @@ def attention(cfg: ArchConfig, p: Attention, x: torch.Tensor,
     the CPU.  Otherwise (a cache read, or ``use_kernel=False``) JAX's jnp
     path, ``plain_attention``."""
     dt = x.dtype
-    q = torch.einsum("bsd,dhk->bshk", x, p.wq.to(dt))
+    wq = fsdp_use(p.wq, Attention.AXES["wq"], dt)
+    wo = fsdp_use(p.wo, Attention.AXES["wo"], dt)
+    if active_mesh() is not None:
+        _, h_eff = _attn_shard_plan(cfg.n_heads)
+        if h_eff != cfg.n_heads:
+            wq, wo = _pad_heads(wq, h_eff, 1), _pad_heads(wo, h_eff, 0)
+            k = _pad_heads(_expand_kv(k, cfg.n_heads), h_eff, 2)
+            v = _pad_heads(_expand_kv(v, cfg.n_heads), h_eff, 2)
+    q = torch.einsum("bsd,dhk->bshk", x, wq)
     sin, cos = rope_tables(q_pos, cfg.hd, cfg.rope_theta)
     q = apply_rope(q, sin, cos)
     if k_valid is None and use_kernel:
@@ -183,7 +239,7 @@ def attention(cfg: ArchConfig, p: Attention, x: torch.Tensor,
                                 window=window).transpose(1, 2)
     else:
         o = plain_attention(q, k, v, q_pos, k_pos, window, k_valid)
-    return torch.einsum("bshk,hkd->bsd", o, p.wo.to(dt))
+    return torch.einsum("bshk,hkd->bsd", o, wo)
 
 
 def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -203,8 +259,7 @@ def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     T, KV = k.shape[1], k.shape[2]
     dt = q.dtype
     q = q * torch.tensor(1.0 / math.sqrt(hd), dtype=dt)
-    kf = k.repeat_interleave(H // KV, dim=2)
-    vf = v.repeat_interleave(H // KV, dim=2)
+    kf, vf = _expand_kv(k, H), _expand_kv(v, H)
 
     def chunk_attn(qc, qp, kc, vc, kp, kval):
         s = torch.einsum("bshk,bthk->bhst", qc.float(), kc.float())
@@ -255,6 +310,12 @@ def project_kv(cfg: ArchConfig, p: Attention, x: torch.Tensor,
 class MLA(nn.Module):
     """The parameters of ``init_mla``: wq (D,H,dn+dr), wdkv (D,r+dr), wuk
     (r,H,dn), wuv (r,H,dv), wo (H,dv,D) with fan-in H*dv, f32."""
+
+    AXES = {"wq": ("embed", "w_heads", "head_dim"),
+            "wdkv": ("embed", "kv_lora"),
+            "wuk": ("kv_lora", "w_heads", "head_dim"),
+            "wuv": ("kv_lora", "w_heads", "head_dim"),
+            "wo": ("w_heads", "head_dim", "embed")}
 
     def __init__(self, cfg: ArchConfig, generator: Optional[torch.Generator],
                  device):
@@ -329,6 +390,9 @@ def mla_attention(cfg: ArchConfig, p: MLA, x: torch.Tensor,
 class MLP(nn.Module):
     """The parameters of ``init_mlp``: wi (D,F), wo (F,D), and wg (D,F)
     for swiglu; F is ``d_ff`` or ``cfg.d_ff``."""
+
+    AXES = {"wi": ("embed", "mlp"), "wo": ("mlp", "embed"),
+            "wg": ("embed", "mlp")}
 
     def __init__(self, cfg: ArchConfig, generator: Optional[torch.Generator],
                  device, d_ff: Optional[int] = None):

@@ -46,6 +46,12 @@ nothing.  The model is built on the card unless ``device="cpu"`` (or
 ``"meta"``, which allocates nothing and draws no weights) is given; weights
 come from a CPU ``torch.Generator`` seeded with ``seed``, so a seed gives
 the same weights on every device.
+
+Each module that owns parameters declares their logical axes beside them
+(``AXES``, JAX's axes trees without the stacked superblock axis, since the
+port keeps one module per superblock); ``param_axes(model)`` collects them
+by ``state_dict`` name and ``DecoderLM.cache_axes()`` gives those of
+``init_cache``'s tree.  ``parallel.sharding`` maps them onto a mesh.
 """
 from __future__ import annotations
 
@@ -93,6 +99,10 @@ class AttnLayer(nn.Module):
 
 
 class DecoderLM(nn.Module):
+    # the embed table's d_model on 'model' (the token gather needs no
+    # collective); the head's vocab on 'model'
+    AXES = {"embed": (None, "embed_td"), "head": ("embed", "w_vocab")}
+
     def __init__(self, cfg: ArchConfig, device=None, seed: int = 0,
                  remat: bool = True, use_kernels: bool = True):
         super().__init__()
@@ -157,8 +167,8 @@ class DecoderLM(nn.Module):
         else:
             k, v = layers.project_kv(cfg, p.attn, h, q_pos)
             cur = {"k": k, "v": v}
-        new_cache = None if cache is None else _cache_write(cache, cur,
-                                                            q_pos)
+        new_cache = (None if cache is None
+                     else _cache_write(cache, cur, q_pos, pos0))
         k_pos, valid = q_pos, None
         if cache is not None and S == 1:
             cur = {n: torch.cat([cache[n], t.to(cache[n].dtype)], dim=1)
@@ -248,6 +258,31 @@ class DecoderLM(nn.Module):
         return total / n
 
     # -- serving ----------------------------------------------------------
+    def _cache_spec(self, batch: int, max_len: int) -> Dict:
+        """{kind key: {buffer: (shape, dtype, logical axes, fill)}} of one
+        superblock's cache, the one place that knows its layout."""
+        cfg = self.cfg
+
+        def one(kind):
+            if kind == "mamba":
+                return {name: (shp, dt, ax, 0) for name, (shp, dt, ax) in
+                        ssm_mod.mamba_cache_spec(cfg, batch).items()}
+            T = cfg.window if kind == "local" else max_len
+            k_pos = ((T,), torch.int32, ("cache_seq",), -1)
+            if cfg.mla is not None:
+                m = cfg.mla
+                return {"ckv": ((batch, T, m.kv_lora_rank), COMPUTE_DTYPE,
+                                ("batch", "cache_seq", "kv_lora"), 0),
+                        "krope": ((batch, T, m.qk_rope_dim), COMPUTE_DTYPE,
+                                  ("batch", "cache_seq", None), 0),
+                        "k_pos": k_pos}
+            kv = ((batch, T, cfg.n_kv_heads, cfg.hd), COMPUTE_DTYPE,
+                  ("batch", "cache_seq", "kv_heads", "head_dim"), 0)
+            return {"k": kv, "v": kv, "k_pos": k_pos}
+
+        return {_kind_key(kind, j): one(kind)
+                for j, kind in enumerate(cfg.pattern)}
+
     def init_cache(self, batch: int, max_len: int) -> Cache:
         """{"pos", "layers": one {key: cache} per superblock}.  A Mamba2
         block's cache is {"conv", "state"}; an attention block's is a ring
@@ -255,34 +290,23 @@ class DecoderLM(nn.Module):
         int32 of -1}, with T = cfg.window for "local" blocks, else
         ``max_len``; with MLA {"ckv": (batch, T, r), "krope": (batch, T,
         dr)} in COMPUTE_DTYPE and "k_pos"."""
-        cfg = self.cfg
         dev = self.head.device
-        spec = (ssm_mod.mamba_cache_spec(cfg, batch)
-                if "mamba" in cfg.pattern else {})
-
-        def one(kind):
-            if kind == "mamba":
-                return {name: torch.zeros(shp, dtype=dt, device=dev)
-                        for name, (shp, dt) in spec.items()}
-            T = cfg.window if kind == "local" else max_len
-            k_pos = torch.full((T,), -1, dtype=torch.int32, device=dev)
-            if cfg.mla is not None:
-                m = cfg.mla
-                return {"ckv": torch.zeros((batch, T, m.kv_lora_rank),
-                                           dtype=COMPUTE_DTYPE, device=dev),
-                        "krope": torch.zeros((batch, T, m.qk_rope_dim),
-                                             dtype=COMPUTE_DTYPE,
-                                             device=dev),
-                        "k_pos": k_pos}
-            kv = (batch, T, cfg.n_kv_heads, cfg.hd)
-            return {"k": torch.zeros(kv, dtype=COMPUTE_DTYPE, device=dev),
-                    "v": torch.zeros(kv, dtype=COMPUTE_DTYPE, device=dev),
-                    "k_pos": k_pos}
-
-        layers_ = [{_kind_key(kind, j): one(kind)
-                    for j, kind in enumerate(cfg.pattern)}
-                   for _ in range(cfg.n_superblocks)]
+        spec = self._cache_spec(batch, max_len)
+        layers_ = [{key: {name: torch.full(shp, fill, dtype=dt, device=dev)
+                          for name, (shp, dt, _, fill) in bufs.items()}
+                    for key, bufs in spec.items()}
+                   for _ in range(self.cfg.n_superblocks)]
         return {"pos": 0, "layers": layers_}
+
+    def cache_axes(self) -> Cache:
+        """The logical axes of ``init_cache``'s tree, in its structure
+        (JAX ``model.py:319-363`` without the superblock axis); "pos" is
+        a Python int here, ``()``."""
+        spec = self._cache_spec(1, 1)
+        return {"pos": (), "layers": [
+            {key: {name: ax for name, (_, _, ax, _) in bufs.items()}
+             for key, bufs in spec.items()}
+            for _ in range(self.cfg.n_superblocks)]}
 
     def prefill(self, batch: Dict[str, torch.Tensor], cache: Cache
                 ) -> Tuple[Cache, torch.Tensor]:
@@ -314,23 +338,28 @@ class DecoderLM(nn.Module):
 # ---------------------------------------------------------------------------
 
 def _ring_write(buf: torch.Tensor, new: torch.Tensor, pos_buf: torch.Tensor,
-                q_pos: torch.Tensor, axis: int = 1
+                q_pos: torch.Tensor, axis: int = 1,
+                pos0: Optional[int] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Write new (B,S,...) into the ring buffer (B,T,...) at q_pos % T.
-    Returns new tensors (buffer, positions); the inputs are not changed."""
+    """Write new (B,S,...) into the ring buffer (B,T,...) at q_pos % T,
+    q_pos = pos0 + arange(S).  Returns new tensors (buffer, positions); the
+    inputs are not changed.  ``pos0``, the write position the caller
+    holds, spares a read of q_pos[0] (which a tensor on the meta device
+    cannot give)."""
     T = buf.shape[axis]
     S = new.shape[axis]
+    start = int(q_pos[0]) if pos0 is None else pos0
     if S >= T:
         # keep the last T entries (a prompt longer than the window), rolled
         # so that slot(p) = p % T holds: decode writes then evict exactly
         # the oldest entry.
         tail = new.narrow(axis, S - T, T)
         tail_pos = q_pos[S - T:]
-        shift = int(tail_pos[0]) % T
+        shift = (start + S - T) % T
         return (torch.roll(tail, shift, dims=axis).to(buf.dtype),
                 torch.roll(tail_pos, shift, dims=0))
     # JAX's _scatter_axis is Tensor.index_copy (out of place) here.
-    idx = (q_pos[0].long() % T + torch.arange(S, device=buf.device)) % T
+    idx = (start + torch.arange(S, device=buf.device)) % T
     return (buf.index_copy(axis, idx, new.to(buf.dtype)),
             pos_buf.index_copy(0, idx, q_pos.to(pos_buf.dtype)))
 
@@ -348,12 +377,23 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 
 def _cache_write(cache: Cache, cur: Dict[str, torch.Tensor],
-                 q_pos: torch.Tensor) -> Cache:
+                 q_pos: torch.Tensor, pos0: int) -> Cache:
     """An attention block's cache after writing each buffer of ``cur`` (k
     and v (B,S,KV,hd), or MLA's ckv (B,S,r) and krope (B,S,dr)) at
-    q_pos."""
+    q_pos = pos0 + arange(S)."""
     out = {}
     for name, t in cur.items():
         out[name], out["k_pos"] = _ring_write(cache[name], t, cache["k_pos"],
-                                              q_pos)
+                                              q_pos, pos0=pos0)
+    return out
+
+
+def param_axes(model: nn.Module) -> Dict[str, Tuple]:
+    """{``state_dict`` name: logical axes} of every parameter of
+    ``model``, from the ``AXES`` its owning module declares."""
+    out = {}
+    for mname, mod in model.named_modules():
+        for pname, _ in mod.named_parameters(recurse=False):
+            out[f"{mname}.{pname}" if mname else pname] = \
+                type(mod).AXES[pname]
     return out

@@ -35,6 +35,12 @@ from .layers import dense_init, normal, rms_norm
 class Mamba(nn.Module):
     """The parameters of ``init_mamba``, with its distributions."""
 
+    AXES = {"wz": ("embed", "ssm_inner"), "wx": ("embed", "ssm_inner"),
+            "wB": ("embed", "ssm_state"), "wC": ("embed", "ssm_state"),
+            "wdt": ("embed", None), "conv": ("conv", None),
+            "A_log": (None,), "dt_bias": (None,), "Dskip": (None,),
+            "norm_scale": (None,), "wo": ("ssm_inner", "embed")}
+
     def __init__(self, cfg: ArchConfig, generator: Optional[torch.Generator],
                  device):
         super().__init__()
@@ -226,11 +232,13 @@ def mamba_block(cfg: ArchConfig, p: Mamba, x: torch.Tensor,
 
 
 def mamba_cache_spec(cfg: ArchConfig, batch: int):
-    """(shape, dtype) of one block's cache."""
+    """(shape, dtype, logical axes) of one block's cache."""
     s = cfg.ssm
     D = cfg.d_model
     di, nh, ds = s.d_inner(D), s.n_heads(D), s.d_state
     return {
-        "conv": ((batch, s.d_conv - 1, di + 2 * ds), torch.bfloat16),
-        "state": ((batch, nh, s.head_dim, ds), torch.float32),
+        "conv": ((batch, s.d_conv - 1, di + 2 * ds), torch.bfloat16,
+                 ("batch", None, None)),
+        "state": ((batch, nh, s.head_dim, ds), torch.float32,
+                  ("batch", "heads", "head_dim", "ssm_state")),
     }

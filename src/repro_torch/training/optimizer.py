@@ -14,6 +14,10 @@ in its order: f32 moments, bias corrections ``1 - b**step`` in f32,
 ``u = -lr_t * (m_hat / (sqrt(v_hat) + eps) + wd * p)``, then ``p + u`` in
 p's dtype.  (``torch.optim.AdamW`` applies the decay and the correction
 in another order.)  ``step`` is an int32 scalar tensor of the state.
+
+``opt.state_axes(param_axes)`` gives the logical axes of the state from
+those of the parameters (``{name: axes}``, ``models.model.param_axes``), so
+the parameters' sharding applies to the moments (JAX ``:88,154``).
 """
 from __future__ import annotations
 
@@ -28,6 +32,7 @@ Params = Dict[str, torch.Tensor]
 class Optimizer(NamedTuple):
     init: Callable[[Params], Dict]
     update: Callable[[Params, Dict, Params], torch.Tensor]
+    state_axes: Callable[[Dict], Dict]
 
 
 def apply_updates(params: Params, updates: Params) -> None:
@@ -113,7 +118,10 @@ def adamw(lr: float = 3e-4, b1: float = 0.9, b2: float = 0.95,
                 p.copy_((p + u).to(p.dtype))
         return torch.sqrt(_total(sq))
 
-    return Optimizer(init, update)
+    def state_axes(param_axes):
+        return {"step": (), "mu": dict(param_axes), "nu": dict(param_axes)}
+
+    return Optimizer(init, update, state_axes)
 
 
 # ---------------------------------------------------------------------------
@@ -171,7 +179,19 @@ def adafactor(lr: float = 1e-2, decay: float = 0.8, eps: float = 1e-30,
                 p.copy_((p + u).to(p.dtype))
         return torch.sqrt(_total(sq))
 
-    return Optimizer(init, update)
+    def state_axes(param_axes):
+        """A factored parameter's row moment drops its last axis, its
+        column moment its second-last; a 1-axis parameter's full moment
+        keeps its axes and its (1,) placeholder is replicated.  The port
+        factors each superblock's own tensor, so these follow the port's
+        state, not JAX's stacked one."""
+        return {"step": (),
+                "vr": {k: ax[:-1] if len(ax) >= 2 else ax
+                       for k, ax in param_axes.items()},
+                "vc": {k: ax[:-2] + ax[-1:] if len(ax) >= 2 else (None,)
+                       for k, ax in param_axes.items()}}
+
+    return Optimizer(init, update, state_axes)
 
 
 def _device(params: Params) -> torch.device:

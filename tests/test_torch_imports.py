@@ -59,7 +59,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "repro_torch.training.trainer", "repro_torch.training.data",
                  "repro_torch.training.checkpoint",
                  "repro_torch.training.compress",
-                 "repro_torch.launch.train"):
+                 "repro_torch.launch.train", "repro_torch.launch.mesh",
+                 "repro_torch.launch.abstract",
+                 "repro_torch.launch.dryrun"):
         assert name in names
     code = f"""
 import importlib, sys

@@ -598,5 +598,10 @@ def test_launcher_smoke_trains_and_commits(tmp_path, capsys):
 
 
 def test_launcher_dry_run_is_not_ported():
-    with pytest.raises(NotImplementedError, match="10e"):
-        launch_train.main(["--arch", "olmo_1b", "--dry-run"])
+    """(The name predates the port of the dry-run.)  ``--dry-run`` no
+    longer raises: it returns and prints the full configuration's dry-run
+    record of train_4k on the 16 x 16 mesh."""
+    rec = launch_train.main(["--arch", "olmo_1b", "--dry-run"])
+    assert rec["status"] == "ok" and rec["shape"] == "train_4k"
+    assert rec["mesh"] == "16x16" and rec["n_microbatches"] == 4
+    assert rec["cost"]["model_flops"] > 0
