@@ -15,7 +15,9 @@ All randomness goes through three draw functions -- ``_draw_race``,
 deterministic, so a test can substitute the JAX package's draws and compare
 the rest exactly.  The vote tallies go through ``kernels.quorum_tally.ops``:
 on CUDA tensors the hand-written kernels, on CPU tensors their plain
-versions.
+versions.  Run under ``torch.profiler``, each draw function is a
+``repro_torch.draws`` span and each read of the table to the host a
+``repro_torch.host_read`` span (``repro_torch.tracing``).
 
 All clocks are ms from proposer 0's submission.  Delays >= ``LOST_MS`` never
 arrive; latencies >= ``UNDECIDED_MS`` mean "never decided".
@@ -28,6 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch import device as device_mod
+from repro_torch import tracing
 from repro_torch.core.quorum import QuorumMasks
 from repro_torch.kernels.quorum_tally import ops as qt_ops
 
@@ -125,18 +128,26 @@ def _check_recovery(recovery: str) -> None:
                          f"pick one of {RECOVERY_MODES}")
 
 
+def _to_host(x: torch.Tensor) -> np.ndarray:
+    """``x`` as a host array: one device-to-host read, and so one
+    synchronisation (a ``repro_torch.host_read`` span)."""
+    with tracing.span(tracing.HOST_READ):
+        return x.detach().cpu().numpy()
+
+
 def saturation_depths(table: Dict[str, torch.Tensor]) -> Tuple[int, int, int]:
     """Max prefix depths ``(k1, k2c, k2f)`` at which any quorum of the table
     can saturate: for a row with weights w and threshold t, the adversarial
     arrival order is ascending by weight, so the deepest first saturation is
     ``#{prefix sums of sorted(w) < t} + 1``; rows that cannot saturate at
     all are excluded.  Cardinality tables reduce to the column maxima of
-    ``q``.  Host-side."""
+    ``q``.  Host-side: one read of ``q``, or of each phase's weights and
+    thresholds, from the table's device."""
     n = int(table["p1_w"].shape[-1])
 
     def depth(w, t):
-        w = w.detach().cpu().numpy().astype(np.float64)
-        t = t.detach().cpu().numpy().astype(np.float64)
+        w = _to_host(w).astype(np.float64)
+        t = _to_host(t).astype(np.float64)
         cs = np.cumsum(np.sort(w, axis=-1), axis=-1)
         saturable = cs[..., -1] >= t
         k_row = (cs < t[..., None]).sum(axis=-1) + 1
@@ -144,7 +155,7 @@ def saturation_depths(table: Dict[str, torch.Tensor]) -> Tuple[int, int, int]:
         return int(k_row.max()) if k_row.size else 0
 
     if "q" in table:
-        q = table["q"].detach().cpu().numpy()
+        q = _to_host(table["q"])
         ks = (int(q[:, 0].max()), int(q[:, 1].max()), int(q[:, 2].max()))
     else:
         ks = (depth(table["p1_w"], table["p1_t"]),
@@ -201,24 +212,25 @@ def _draw_race(gen: torch.Generator, offsets: torch.Tensor, delay, *, n: int,
     always drawn, so coordinated draws are identical across rules.  The
     per-value arrivals follow from votes and arrive (``_val_arr``)."""
     K = k_proposers
-    d_prop = delay.sample_hops(gen, (samples, n, K), lat_mod.PROPOSAL)
-    arrival = offsets.to(d_prop.dtype).expand(K) + d_prop
-    # each acceptor votes for the first proposal to arrive (first index on
-    # ties); no arrival at all means no vote.
-    votes = torch.argmin(arrival, dim=-1).to(torch.int32)
-    vote_time = arrival.amin(dim=-1)
-    voted = vote_time < UNDECIDED_MS
-    votes = torch.where(voted, votes, torch.full_like(votes, -1))
+    with tracing.span(tracing.DRAWS):
+        d_prop = delay.sample_hops(gen, (samples, n, K), lat_mod.PROPOSAL)
+        arrival = offsets.to(d_prop.dtype).expand(K) + d_prop
+        # each acceptor votes for the first proposal to arrive (first index
+        # on ties); no arrival at all means no vote.
+        votes = torch.argmin(arrival, dim=-1).to(torch.int32)
+        vote_time = arrival.amin(dim=-1)
+        voted = vote_time < UNDECIDED_MS
+        votes = torch.where(voted, votes, torch.full_like(votes, -1))
 
-    d_ret = delay.sample_hops(gen, (samples, n), lat_mod.TO_LEARNER)
-    big = torch.full_like(d_ret, BIG)
-    arrive = torch.where(voted, vote_time + d_ret, big)
-    arrive = torch.where(arrive < UNDECIDED_MS, arrive, big)
+        d_ret = delay.sample_hops(gen, (samples, n), lat_mod.TO_LEARNER)
+        big = torch.full_like(d_ret, BIG)
+        arrive = torch.where(voted, vote_time + d_ret, big)
+        arrive = torch.where(arrive < UNDECIDED_MS, arrive, big)
 
-    d_2a = delay.sample_hops(gen, (samples, n), lat_mod.FROM_COORDINATOR)
-    d_2b = delay.sample_hops(gen, (samples, n), lat_mod.TO_COORDINATOR)
-    classic = d_2b if recovery == "uncoordinated" else d_2a + d_2b
-    classic = torch.where(classic < UNDECIDED_MS, classic, big)
+        d_2a = delay.sample_hops(gen, (samples, n), lat_mod.FROM_COORDINATOR)
+        d_2b = delay.sample_hops(gen, (samples, n), lat_mod.TO_COORDINATOR)
+        classic = d_2b if recovery == "uncoordinated" else d_2a + d_2b
+        classic = torch.where(classic < UNDECIDED_MS, classic, big)
     return {"votes": votes, "arrive": arrive, "classic": classic}
 
 
@@ -234,20 +246,23 @@ def _val_arr(raw: Dict[str, torch.Tensor], k_proposers: int) -> torch.Tensor:
 def _fast_path_draws(gen: torch.Generator, delay, n: int,
                      samples: int) -> torch.Tensor:
     """(S, n) conflict-free client -> acceptor -> learner path times."""
-    d1 = delay.sample_hops(gen, (samples, n, 1), lat_mod.PROPOSAL)[..., 0]
-    d2 = delay.sample_hops(gen, (samples, n), lat_mod.TO_LEARNER)
-    path = d1 + d2
-    return torch.where(path < UNDECIDED_MS, path, torch.full_like(path, BIG))
+    with tracing.span(tracing.DRAWS):
+        d1 = delay.sample_hops(gen, (samples, n, 1), lat_mod.PROPOSAL)[..., 0]
+        d2 = delay.sample_hops(gen, (samples, n), lat_mod.TO_LEARNER)
+        path = d1 + d2
+        return torch.where(path < UNDECIDED_MS, path,
+                           torch.full_like(path, BIG))
 
 
 def _classic_path_draws(gen: torch.Generator, delay, n: int, samples: int):
     """((S,) client->leader hop, (S, n) leader round-trip times)."""
-    d0 = delay.sample_hops(gen, (samples,), lat_mod.CLIENT_TO_LEADER)
-    d1 = delay.sample_hops(gen, (samples, n), lat_mod.FROM_COORDINATOR)
-    d2 = delay.sample_hops(gen, (samples, n), lat_mod.TO_COORDINATOR)
-    path = d1 + d2
-    return d0, torch.where(path < UNDECIDED_MS, path,
-                           torch.full_like(path, BIG))
+    with tracing.span(tracing.DRAWS):
+        d0 = delay.sample_hops(gen, (samples,), lat_mod.CLIENT_TO_LEADER)
+        d1 = delay.sample_hops(gen, (samples, n), lat_mod.FROM_COORDINATOR)
+        d2 = delay.sample_hops(gen, (samples, n), lat_mod.TO_COORDINATOR)
+        path = d1 + d2
+        return d0, torch.where(path < UNDECIDED_MS, path,
+                               torch.full_like(path, BIG))
 
 
 def _sample_race(gen: torch.Generator, offsets: torch.Tensor, delay, *,

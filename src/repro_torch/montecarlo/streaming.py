@@ -43,6 +43,11 @@ tally_decide or masked_tally kernel on the card) and reduces them into R
 per-regime slices at once.  Trial t's regime is ``zs[t // epoch_trials]``
 in trial-index space, so occupancy does not depend on ``chunk``; even
 ``trials <= chunk`` runs the chunk loop.
+
+Run under ``torch.profiler``, a streamed request marks its stages as
+``repro_torch.tracing`` spans: ``stream`` (the call), ``prepare`` (up to
+the first chunk, its ``host_read`` spans inside), and a chunk's ``draws``,
+``decide`` and ``sketch``; ``StreamSummary.quantile`` is a ``readout``.
 """
 from __future__ import annotations
 
@@ -54,6 +59,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.kernels.quorum_tally import ops as qt_ops
 from repro_torch.parallel import sharding as psharding
 
@@ -183,24 +189,26 @@ class StreamSummary:
         bool mask (False = padding trial, contributes nothing).  A summary
         stacked over R regimes takes an (R, C) ``valid``, one row a
         regime."""
-        lat = out["latency_ms"]
-        v = valid[..., None, :]
-        fast = out["reached_fast"] & v
-        rec = out["recovery"] & v
-        und = out["undecided"] & v
-        decided = fast | rec
-        idx = bucket_index(lat, self.precision).long().expand(decided.shape)
-        hist = torch.zeros_like(self.hist).scatter_add_(
-            -1, idx, decided.to(torch.int32))
-        return self._absorb(
-            n_trials=(fast | rec | und).sum(dim=-1).to(torch.int32),
-            n_fast=fast.sum(dim=-1).to(torch.int32),
-            n_recovery=rec.sum(dim=-1).to(torch.int32),
-            n_undecided=und.sum(dim=-1).to(torch.int32),
-            cnt=decided.sum(dim=-1).to(torch.float32),
-            lat_sum=torch.where(decided, lat, 0.0).sum(dim=-1),
-            lat_max=torch.where(decided, lat, -math.inf).amax(dim=-1),
-            hist=hist)
+        with tracing.span(tracing.SKETCH):
+            lat = out["latency_ms"]
+            v = valid[..., None, :]
+            fast = out["reached_fast"] & v
+            rec = out["recovery"] & v
+            und = out["undecided"] & v
+            decided = fast | rec
+            idx = bucket_index(lat, self.precision).long().expand(
+                decided.shape)
+            hist = torch.zeros_like(self.hist).scatter_add_(
+                -1, idx, decided.to(torch.int32))
+            return self._absorb(
+                n_trials=(fast | rec | und).sum(dim=-1).to(torch.int32),
+                n_fast=fast.sum(dim=-1).to(torch.int32),
+                n_recovery=rec.sum(dim=-1).to(torch.int32),
+                n_undecided=und.sum(dim=-1).to(torch.int32),
+                cnt=decided.sum(dim=-1).to(torch.float32),
+                lat_sum=torch.where(decided, lat, 0.0).sum(dim=-1),
+                lat_max=torch.where(decided, lat, -math.inf).amax(dim=-1),
+                hist=hist)
 
     def _absorb(self, *, n_trials, n_fast, n_recovery, n_undecided, cnt,
                 lat_sum, lat_max, hist) -> "StreamSummary":
@@ -236,18 +244,19 @@ class StreamSummary:
         """Sketch quantile estimate over decided trials, within
         ``precision`` relative error inside the sketch range.  Scalar ``q``
         -> (M,); a sequence of Q -> (Q, M).  NaN where nothing decided."""
-        scalar = np.ndim(q) == 0
-        qv = torch.as_tensor(np.atleast_1d(np.asarray(q, np.float32))).to(
-            self.hist.device)
-        n = self.n_decided
-        cum = torch.cumsum(self.hist, dim=-1, dtype=torch.int32)
-        rank = torch.ceil(qv[:, None] * n[None, :]).clamp(min=1.0)
-        rank = torch.minimum(rank, n.clamp(min=1)[None, :].to(rank.dtype))
-        idx = torch.argmax((cum[None, :, :] >= rank[:, :, None]).to(
-            torch.int32), dim=-1)
-        val = torch.where(n[None, :] > 0, bucket_value(idx, self.precision),
-                          torch.nan)
-        return val[0] if scalar else val
+        with tracing.span(tracing.READOUT):
+            scalar = np.ndim(q) == 0
+            qv = torch.as_tensor(np.atleast_1d(np.asarray(q, np.float32))
+                                 ).to(self.hist.device)
+            n = self.n_decided
+            cum = torch.cumsum(self.hist, dim=-1, dtype=torch.int32)
+            rank = torch.ceil(qv[:, None] * n[None, :]).clamp(min=1.0)
+            rank = torch.minimum(rank, n.clamp(min=1)[None, :].to(rank.dtype))
+            idx = torch.argmax((cum[None, :, :] >= rank[:, :, None]).to(
+                torch.int32), dim=-1)
+            val = torch.where(n[None, :] > 0,
+                              bucket_value(idx, self.precision), torch.nan)
+            return val[0] if scalar else val
 
     def summary(self) -> Dict[str, torch.Tensor]:
         """``engine.summarize`` keys, plus p99.9 / p99.99."""
@@ -280,17 +289,23 @@ def _lat_only_outcomes(lat: torch.Tensor, fast: bool) -> Dict:
 
 def _chunk_outcomes(path: str, gen, table, offsets, delay, *, n, k_proposers,
                     chunk, k_sat=None, recovery="coordinated") -> Dict:
-    if path == "race":
-        return engine._race_outcomes(gen, table, offsets, delay, n=n,
-                                     k_proposers=k_proposers, samples=chunk,
-                                     k_sat=k_sat, recovery=recovery)
-    if path == "fast_path":
+    """(M, chunk) outcomes of the materialized lowering: one ``decide``
+    span, the chunk's ``draws`` inside it."""
+    with tracing.span(tracing.DECIDE):
+        if path == "race":
+            return engine._race_outcomes(gen, table, offsets, delay, n=n,
+                                         k_proposers=k_proposers,
+                                         samples=chunk, k_sat=k_sat,
+                                         recovery=recovery)
+        if path == "fast_path":
+            return _lat_only_outcomes(
+                engine._fast_path_outcomes(gen, table, delay, n=n,
+                                           samples=chunk, k_sat=k_sat),
+                fast=True)
         return _lat_only_outcomes(
-            engine._fast_path_outcomes(gen, table, delay, n=n, samples=chunk,
-                                       k_sat=k_sat), fast=True)
-    return _lat_only_outcomes(
-        engine._classic_path_outcomes(gen, table, delay, n=n, samples=chunk,
-                                      k_sat=k_sat), fast=False)
+            engine._classic_path_outcomes(gen, table, delay, n=n,
+                                          samples=chunk, k_sat=k_sat),
+            fast=False)
 
 
 def _count(idx: torch.Tensor, size: int) -> torch.Tensor:
@@ -312,7 +327,7 @@ def _card_layout(table, recovery: str = "coordinated") -> tuple:
     table and each system's pair id (M,); q_rec is q2c under coordinated
     recovery, q2f under uncoordinated.  Recovery latency depends on a system
     only through this pair."""
-    q = table["q"].detach().cpu().numpy()
+    q = engine._to_host(table["q"])
     cols = [0, 1] if recovery == "coordinated" else [0, 2]
     pairs, inv = np.unique(q[:, cols], axis=0, return_inverse=True)
     dev = table["q"].device
@@ -326,28 +341,29 @@ def _cols_card_update(state: StreamSummary, cols: torch.Tensor,
     """Absorb a chunk whose per-system latency is one of ``Kc`` shared
     columns, ``lat[m, c] = cols[c, col_of_m[m]]``: one (Kc, bins) histogram
     plus per-column sum / max, then a gather per system."""
-    B = state.bins
-    Kc = cols.shape[1]
-    und = cols >= UNDECIDED_MS
-    bkey = torch.where(und, B, bucket_index(cols, state.precision).long())
-    bkey = torch.where(valid[:, None], bkey, B + 1)
-    flat = torch.arange(Kc, device=cols.device)[None, :] * (B + 2) + bkey
-    LH = _count(flat, Kc * (B + 2)).reshape(Kc, B + 2)
-    col_of_m = col_of_m.long()
-    rows = LH[col_of_m]
-    hist = rows[:, :B]
-    n_und = rows[:, B]
-    n_dec = hist.sum(dim=-1, dtype=torch.int32)
-    ok = valid[:, None] & ~und
-    col_sum = torch.where(ok, cols, 0.0).sum(dim=0)
-    col_max = torch.where(ok, cols, -math.inf).amax(dim=0)
-    zero = torch.zeros_like(n_dec)
-    n_valid = valid.sum().to(torch.int32).expand(col_of_m.shape)
-    return state._absorb(
-        n_trials=n_valid, n_fast=n_dec if fast else zero,
-        n_recovery=zero if fast else n_dec, n_undecided=n_und,
-        cnt=n_dec.to(torch.float32), lat_sum=col_sum[col_of_m],
-        lat_max=col_max[col_of_m], hist=hist)
+    with tracing.span(tracing.SKETCH):
+        B = state.bins
+        Kc = cols.shape[1]
+        und = cols >= UNDECIDED_MS
+        bkey = torch.where(und, B, bucket_index(cols, state.precision).long())
+        bkey = torch.where(valid[:, None], bkey, B + 1)
+        flat = torch.arange(Kc, device=cols.device)[None, :] * (B + 2) + bkey
+        LH = _count(flat, Kc * (B + 2)).reshape(Kc, B + 2)
+        col_of_m = col_of_m.long()
+        rows = LH[col_of_m]
+        hist = rows[:, :B]
+        n_und = rows[:, B]
+        n_dec = hist.sum(dim=-1, dtype=torch.int32)
+        ok = valid[:, None] & ~und
+        col_sum = torch.where(ok, cols, 0.0).sum(dim=0)
+        col_max = torch.where(ok, cols, -math.inf).amax(dim=0)
+        zero = torch.zeros_like(n_dec)
+        n_valid = valid.sum().to(torch.int32).expand(col_of_m.shape)
+        return state._absorb(
+            n_trials=n_valid, n_fast=n_dec if fast else zero,
+            n_recovery=zero if fast else n_dec, n_undecided=n_und,
+            cnt=n_dec.to(torch.float32), lat_sum=col_sum[col_of_m],
+            lat_max=col_max[col_of_m], hist=hist)
 
 
 def _race_card_update(state: StreamSummary, gen, table, layout, offsets,
@@ -371,37 +387,39 @@ def _race_card_update(state: StreamSummary, gen, table, layout, offsets,
     if recovery == "uncoordinated":
         k_sat = (k_sat[0], k_sat[2], k_sat[2])
     pairs, pair_of_m = layout
-    q2f = table["q"][:, 2].long()
     B = state.bins
-    FH, Fsum, Fmax, cnt, RH, Rsum, Rmax = qt_ops.race_card_hist(
-        raw["votes"], raw["arrive"], raw["classic"], valid, pairs,
-        n_values=k_proposers, k_sat=k_sat, precision=state.precision,
-        bins=B, undecided_ms=float(UNDECIDED_MS))
+    with tracing.span(tracing.DECIDE):
+        FH, Fsum, Fmax, cnt, RH, Rsum, Rmax = qt_ops.race_card_hist(
+            raw["votes"], raw["arrive"], raw["classic"], valid, pairs,
+            n_values=k_proposers, k_sat=k_sat, precision=state.precision,
+            bins=B, undecided_ms=float(UNDECIDED_MS))
 
-    # fast side: winner-2b prefix columns.
-    hist_fast = _suffix(FH, 1)[q2f - 1, q2f]             # (M, B)
-    sum_fast = _suffix(Fsum, 1)[q2f - 1, q2f]            # (M,)
-    SFmax = torch.flip(torch.cummax(torch.flip(Fmax, (1,)), dim=1).values,
-                       (1,))
-    max_fast = SFmax[q2f - 1, q2f]
-    n_fast = _suffix(cnt, 0)[q2f]
+    with tracing.span(tracing.SKETCH):
+        q2f = table["q"][:, 2].long()
+        # fast side: winner-2b prefix columns.
+        hist_fast = _suffix(FH, 1)[q2f - 1, q2f]             # (M, B)
+        sum_fast = _suffix(Fsum, 1)[q2f - 1, q2f]            # (M,)
+        SFmax = torch.flip(torch.cummax(torch.flip(Fmax, (1,)),
+                                        dim=1).values, (1,))
+        max_fast = SFmax[q2f - 1, q2f]
+        n_fast = _suffix(cnt, 0)[q2f]
 
-    # recovery side: (q1, q_rec) pair columns.
-    rec_rows = torch.cumsum(RH, dim=1, dtype=torch.int32)[
-        pair_of_m, q2f - 1]                              # (M, B + 1)
-    hist_rec = rec_rows[:, :B]
-    n_und = rec_rows[:, B]
-    n_rec = hist_rec.sum(dim=-1, dtype=torch.int32)
-    sum_rec = torch.cumsum(Rsum, dim=1)[pair_of_m, q2f - 1]
-    max_rec = torch.cummax(Rmax, dim=1).values[pair_of_m, q2f - 1]
+        # recovery side: (q1, q_rec) pair columns.
+        rec_rows = torch.cumsum(RH, dim=1, dtype=torch.int32)[
+            pair_of_m, q2f - 1]                              # (M, B + 1)
+        hist_rec = rec_rows[:, :B]
+        n_und = rec_rows[:, B]
+        n_rec = hist_rec.sum(dim=-1, dtype=torch.int32)
+        sum_rec = torch.cumsum(Rsum, dim=1)[pair_of_m, q2f - 1]
+        max_rec = torch.cummax(Rmax, dim=1).values[pair_of_m, q2f - 1]
 
-    n_valid = valid.sum().to(torch.int32).expand(q2f.shape)
-    return state._absorb(
-        n_trials=n_valid, n_fast=n_fast, n_recovery=n_rec,
-        n_undecided=n_und, cnt=(n_fast + n_rec).to(torch.float32),
-        lat_sum=sum_fast + sum_rec,
-        lat_max=torch.maximum(max_fast, max_rec),
-        hist=hist_fast + hist_rec)
+        n_valid = valid.sum().to(torch.int32).expand(q2f.shape)
+        return state._absorb(
+            n_trials=n_valid, n_fast=n_fast, n_recovery=n_rec,
+            n_undecided=n_und, cnt=(n_fast + n_rec).to(torch.float32),
+            lat_sum=sum_fast + sum_rec,
+            lat_max=torch.maximum(max_fast, max_rec),
+            hist=hist_fast + hist_rec)
 
 
 def _race_fused_update(state: StreamSummary, gen, table, offsets, delay,
@@ -420,18 +438,21 @@ def _race_fused_update(state: StreamSummary, gen, table, offsets, delay,
         k_sat = (k_sat[0], k_sat[2], k_sat[2])
     else:
         rec_w, rec_t = table["p2c_w"], table["p2c_t"]
-    hist, stats = qt_ops.stream_tally_decide_hist(
-        raw["votes"], engine._val_arr(raw, k_proposers), raw["arrive"],
-        raw["classic"], table["p1_w"], table["p1_t"], rec_w, rec_t,
-        table["p2f_w"], table["p2f_t"], valid, n_values=k_proposers,
-        k_sat=k_sat, precision=state.precision, bins=state.bins,
-        undecided_ms=float(UNDECIDED_MS))
-    return state._absorb(
-        n_trials=stats["n_fast"] + stats["n_recovery"] + stats["n_undecided"],
-        n_fast=stats["n_fast"], n_recovery=stats["n_recovery"],
-        n_undecided=stats["n_undecided"],
-        cnt=(stats["n_fast"] + stats["n_recovery"]).to(torch.float32),
-        lat_sum=stats["sum_ms"], lat_max=stats["max_ms"], hist=hist)
+    with tracing.span(tracing.DECIDE):
+        hist, stats = qt_ops.stream_tally_decide_hist(
+            raw["votes"], engine._val_arr(raw, k_proposers), raw["arrive"],
+            raw["classic"], table["p1_w"], table["p1_t"], rec_w, rec_t,
+            table["p2f_w"], table["p2f_t"], valid, n_values=k_proposers,
+            k_sat=k_sat, precision=state.precision, bins=state.bins,
+            undecided_ms=float(UNDECIDED_MS))
+    with tracing.span(tracing.SKETCH):
+        return state._absorb(
+            n_trials=(stats["n_fast"] + stats["n_recovery"]
+                      + stats["n_undecided"]),
+            n_fast=stats["n_fast"], n_recovery=stats["n_recovery"],
+            n_undecided=stats["n_undecided"],
+            cnt=(stats["n_fast"] + stats["n_recovery"]).to(torch.float32),
+            lat_sum=stats["sum_ms"], lat_max=stats["max_ms"], hist=hist)
 
 
 # ---------------------------------------------------------------------------
@@ -575,79 +596,76 @@ def _mesh_merge(parts, mesh: psharding.TrialMesh, device) -> StreamSummary:
 def _stream_entry(path: str, key: int, table, delay, offsets, *, n,
                   k_proposers, trials, chunk, precision, shard=True,
                   k_max="auto", regimes=None, recovery="coordinated"):
-    engine._check_mask_table(table, n)
-    engine._check_recovery(recovery)
-    if trials < 1:
-        raise ValueError(f"trials must be >= 1, got {trials}")
-    if chunk < 1:
-        raise ValueError(f"chunk must be >= 1, got {chunk}")
-    sketch_bins(precision)
-    dev = engine._table_device(table)
-    if regimes is not None:
-        if isinstance(regimes, dict):
-            regimes = MarkovRegimes.from_config(regimes, n)
-        regimes = regimes.validate().bound(
-            delay if delay is not None else default_delay())
-    mesh = _resolve_mesh(shard, dev)
-    kw = dict(n=n, k_proposers=k_proposers, chunk=chunk, precision=precision,
-              k_max=k_max, regimes=regimes, recovery=recovery)
-    if mesh is None:
-        return _domain_stream(path, key, table, delay, offsets, trials=trials,
-                              materialize=True, **kw)
-    # JAX's per-device body: domain d of D streams its own share of the
-    # trials under its own key; an empty domain is the merge identity and
-    # launches nothing.
-    m = table["p1_w"].shape[0]
-    parts = []
-    for g, ddev in mesh.domains:
-        t_d = trials // mesh.size + (1 if g < trials % mesh.size else 0)
-        if t_d == 0:
-            parts.append(StreamSummary.zeros(m, precision, dev)
-                         if regimes is None
-                         else _regime_zeros(regimes, m, precision, dev))
-            continue
-        parts.append(_domain_stream(
-            path, rng.derive(key, rng.DEVICE_FOLD_DOMAIN, g),
-            {k: v.to(ddev) for k, v in table.items()}, delay, offsets,
-            trials=t_d, materialize=False, **kw))
-    if regimes is None:
-        return _mesh_merge(parts, mesh, dev)
-    occ = psharding.all_reduce(
-        torch.stack([p.occupancy.to(dev) for p in parts]).sum(
-            0, dtype=torch.int32), mesh, "sum")
-    return RegimeStreamSummary(
-        names=regimes.names, occupancy=occ,
-        by_regime=_mesh_merge([p.by_regime for p in parts], mesh, dev))
+    with tracing.span(tracing.STREAM):
+        with tracing.span(tracing.PREPARE):
+            engine._check_mask_table(table, n)
+            engine._check_recovery(recovery)
+            if trials < 1:
+                raise ValueError(f"trials must be >= 1, got {trials}")
+            if chunk < 1:
+                raise ValueError(f"chunk must be >= 1, got {chunk}")
+            sketch_bins(precision)
+            dev = engine._table_device(table)
+            if regimes is not None:
+                if isinstance(regimes, dict):
+                    regimes = MarkovRegimes.from_config(regimes, n)
+                regimes = regimes.validate().bound(
+                    delay if delay is not None else default_delay())
+            mesh = _resolve_mesh(shard, dev)
+            kw = dict(n=n, k_proposers=k_proposers, chunk=chunk,
+                      precision=precision, k_max=k_max, regimes=regimes,
+                      recovery=recovery)
+            if mesh is None:
+                run = _domain_plan(path, key, table, delay, offsets,
+                                   trials=trials, materialize=True, **kw)
+        if mesh is None:
+            return run()
+        # JAX's per-device body: domain d of D streams its own share of the
+        # trials under its own key; an empty domain is the merge identity
+        # and launches nothing.
+        m = table["p1_w"].shape[0]
+        parts = []
+        for g, ddev in mesh.domains:
+            t_d = trials // mesh.size + (1 if g < trials % mesh.size else 0)
+            if t_d == 0:
+                parts.append(StreamSummary.zeros(m, precision, dev)
+                             if regimes is None
+                             else _regime_zeros(regimes, m, precision, dev))
+                continue
+            parts.append(_domain_plan(
+                path, rng.derive(key, rng.DEVICE_FOLD_DOMAIN, g),
+                {k: v.to(ddev) for k, v in table.items()}, delay, offsets,
+                trials=t_d, materialize=False, **kw)())
+        if regimes is None:
+            return _mesh_merge(parts, mesh, dev)
+        occ = psharding.all_reduce(
+            torch.stack([p.occupancy.to(dev) for p in parts]).sum(
+                0, dtype=torch.int32), mesh, "sum")
+        return RegimeStreamSummary(
+            names=regimes.names, occupancy=occ,
+            by_regime=_mesh_merge([p.by_regime for p in parts], mesh, dev))
 
 
-def _domain_stream(path: str, key: int, table, delay, offsets, *, n,
-                   k_proposers, trials, chunk, precision, k_max, regimes,
-                   recovery, materialize: bool):
-    """One domain's stream of ``trials`` on ``key``, on the table's device.
+def _domain_plan(path: str, key: int, table, delay, offsets, *, n,
+                 k_proposers, trials, chunk, precision, k_max, regimes,
+                 recovery, materialize: bool):
+    """Does what one domain's stream does before its first chunk -- the
+    saturation depths, the card layout, placing the delay and the offsets,
+    the zero summary -- and returns the call that streams the chunks.
     ``materialize`` (unsharded runs only, as in JAX) lets ``trials <=
     chunk`` take the engine's materializing entry point."""
     dev = engine._table_device(table)
     if regimes is not None:
-        return _regime_stream(path, key, table, engine._offsets(offsets, dev),
-                              regimes, n=n, k_proposers=k_proposers,
-                              trials=trials, chunk=chunk, precision=precision,
-                              k_sat=_resolve_k_sat(table, k_max, n),
-                              recovery=recovery)
+        offsets = engine._offsets(offsets, dev)
+        k_sat = _resolve_k_sat(table, k_max, n)
+        return lambda: _regime_stream(
+            path, key, table, offsets, regimes, n=n, k_proposers=k_proposers,
+            trials=trials, chunk=chunk, precision=precision, k_sat=k_sat,
+            recovery=recovery)
     if materialize and trials <= chunk:
-        # the materializing path is the T <= chunk case, on the same key.
-        if path == "race":
-            out = engine.race(key, table, offsets, delay, n=n,
-                              k_proposers=k_proposers, samples=trials,
-                              recovery=recovery)
-        elif path == "fast_path":
-            out = _lat_only_outcomes(
-                engine.fast_path(key, table, delay, n=n, samples=trials),
-                fast=True)
-        else:
-            out = _lat_only_outcomes(
-                engine.classic_path(key, table, delay, n=n, samples=trials),
-                fast=False)
-        return StreamSummary.from_outcomes(out, precision)
+        return lambda: _materialized(path, key, table, delay, offsets, n=n,
+                                     k_proposers=k_proposers, trials=trials,
+                                     precision=precision, recovery=recovery)
     k_sat = _resolve_k_sat(table, k_max, n)
     card = "q" in table and k_sat is not None
     fused = path == "race" and "q" not in table and k_sat is not None
@@ -655,38 +673,63 @@ def _domain_stream(path: str, key: int, table, delay, offsets, *, n,
     delay = lat_mod.to_device(default_delay() if delay is None else delay,
                               dev)
     offsets = engine._offsets(offsets, dev)
-    m = table["p1_w"].shape[0]
-    state = StreamSummary.zeros(m, precision, dev)
+    zero = StreamSummary.zeros(table["p1_w"].shape[0], precision, dev)
     lanes = torch.arange(chunk, device=dev)
-    for i in range(-(-trials // chunk)):
-        gen = rng.generator(rng.derive(key, rng.CHUNK_DOMAIN, i), dev)
-        valid = lanes < min(chunk, trials - i * chunk)
-        if fused:
-            state = _race_fused_update(state, gen, table, offsets, delay,
-                                       valid, n=n, k_proposers=k_proposers,
-                                       chunk=chunk, k_sat=k_sat,
-                                       recovery=recovery)
-        elif card and path == "race":
-            state = _race_card_update(state, gen, table, layout, offsets,
-                                      delay, valid, n=n,
+
+    def chunks() -> StreamSummary:
+        state = zero
+        for i in range(-(-trials // chunk)):
+            gen = rng.generator(rng.derive(key, rng.CHUNK_DOMAIN, i), dev)
+            valid = lanes < min(chunk, trials - i * chunk)
+            if fused:
+                state = _race_fused_update(
+                    state, gen, table, offsets, delay, valid, n=n,
+                    k_proposers=k_proposers, chunk=chunk, k_sat=k_sat,
+                    recovery=recovery)
+            elif card and path == "race":
+                state = _race_card_update(
+                    state, gen, table, layout, offsets, delay, valid, n=n,
+                    k_proposers=k_proposers, chunk=chunk, k_sat=k_sat,
+                    recovery=recovery)
+            elif card and path == "fast_path":
+                draws = engine._fast_path_draws(gen, delay, n, chunk)
+                with tracing.span(tracing.DECIDE):
+                    cols = engine._sorted_prefix(draws, k_sat[2])
+                state = _cols_card_update(state, cols, table["q"][:, 2] - 1,
+                                          valid, fast=True)
+            elif card:                                     # classic_path
+                d0, pathv = engine._classic_path_draws(gen, delay, n, chunk)
+                with tracing.span(tracing.DECIDE):
+                    cols = d0[:, None] + engine._sorted_prefix(pathv,
+                                                               k_sat[1])
+                state = _cols_card_update(state, cols, table["q"][:, 1] - 1,
+                                          valid, fast=False)
+            else:
+                out = _chunk_outcomes(path, gen, table, offsets, delay, n=n,
                                       k_proposers=k_proposers, chunk=chunk,
                                       k_sat=k_sat, recovery=recovery)
-        elif card and path == "fast_path":
-            cols = engine._sorted_prefix(
-                engine._fast_path_draws(gen, delay, n, chunk), k_sat[2])
-            state = _cols_card_update(state, cols, table["q"][:, 2] - 1,
-                                      valid, fast=True)
-        elif card:                                     # classic_path
-            d0, pathv = engine._classic_path_draws(gen, delay, n, chunk)
-            cols = d0[:, None] + engine._sorted_prefix(pathv, k_sat[1])
-            state = _cols_card_update(state, cols, table["q"][:, 1] - 1,
-                                      valid, fast=False)
-        else:
-            out = _chunk_outcomes(path, gen, table, offsets, delay, n=n,
-                                  k_proposers=k_proposers, chunk=chunk,
-                                  k_sat=k_sat, recovery=recovery)
-            state = state.update(out, valid)
-    return state
+                state = state.update(out, valid)
+        return state
+    return chunks
+
+
+def _materialized(path: str, key: int, table, delay, offsets, *, n,
+                  k_proposers, trials, precision, recovery) -> StreamSummary:
+    """The T <= chunk case: the engine's materializing entry point on the
+    same key, reduced."""
+    if path == "race":
+        out = engine.race(key, table, offsets, delay, n=n,
+                          k_proposers=k_proposers, samples=trials,
+                          recovery=recovery)
+    elif path == "fast_path":
+        out = _lat_only_outcomes(
+            engine.fast_path(key, table, delay, n=n, samples=trials),
+            fast=True)
+    else:
+        out = _lat_only_outcomes(
+            engine.classic_path(key, table, delay, n=n, samples=trials),
+            fast=False)
+    return StreamSummary.from_outcomes(out, precision)
 
 
 def race_stream(key: int, table, offsets, delay=None, *, n: int,

@@ -90,14 +90,14 @@ def assert_matches(port, jax_s, lat_of, what):
 
 def _spy_domains(monkeypatch):
     calls = []
-    inner = streaming._domain_stream
+    inner = streaming._domain_plan
 
     def spy(path, key, table, delay, offsets, *, trials, materialize, **kw):
         calls.append((key, trials, materialize))
         return inner(path, key, table, delay, offsets, trials=trials,
                      materialize=materialize, **kw)
 
-    monkeypatch.setattr(streaming, "_domain_stream", spy)
+    monkeypatch.setattr(streaming, "_domain_plan", spy)
     return calls
 
 
