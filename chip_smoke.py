@@ -22,14 +22,18 @@ Phases, one JSON line each:
               CUDA-event times of one call of kernel and plain version, the
               kernel's device time per call from torch.profiler (launch and
               fill), and a torch fill's device time at the sweep chunk's
-              size (the least a launch takes here)
+              size (the least a launch takes here); masked_sat at
+              MASKED_SAT_CASES, timed at the mixed n=12 table's fast rows
+              over a 65,536-trial chunk
   4. masked materializing race   engine.race on the mixed n=12 table at
-              8192 samples (the masked_tally path), checked bit-identical
+              8192 samples (the masked_tally path, and masked_sat for its
+              three saturations), checked bit-identical
               to the cardinality lowering on the table's cardinality rows
               (the tally_decide path: its launch on the kernels line, on
               the 8192 x 12 votes phase 3 checks and times it at)
   5. mixed batch   the 13-system n=12 batch through score_systems at 2*10^6
-              trials, chunk 8192 (the fused stream kernel's path)
+              trials, chunk 8192 (the fused stream kernel's path on the race,
+              masked_sat a chunk on the fast path)
   6. sweep    the 271-system n=11 sweep at 10^7 trials per pass, chunk
               16384, with the sweep's own checks (the race_card_hist path:
               one launch and one fill a race chunk)
@@ -181,7 +185,7 @@ Phases, one JSON line each:
               tokens/s, peak memory, a traced step's card busy time and
               idle share, the phase's wall
   script      the script's wall seconds
-  the kernels line: all eight kernels' launches on their main paths
+  the kernels line: all nine kernels' launches on their main paths
               (summed; ``launches_by_path`` names each path's), error,
               times, bounds
 
@@ -227,12 +231,14 @@ REPLACES = {
         "src/repro/kernels/quorum_tally/kernel.py:321",
     "race_card_hist": "src/repro/kernels/quorum_tally/kernel.py:439 and the "
                       "XLA reductions of src/repro/montecarlo/streaming.py:394",
+    "masked_sat": "none: src/repro/montecarlo/engine.py:411 _sat_time, plain "
+                  "jnp (gather, cumsum, argmax, gather, min)",
     "ssd": "src/repro/kernels/ssd_scan/kernel.py:66",
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:92",
     "rmsnorm": "src/repro/kernels/rmsnorm/kernel.py:32",
 }
 QUORUM_KERNELS = ("tally_votes", "tally_decide", "masked_tally",
-                  "stream_tally_decide_hist", "race_card_hist")
+                  "stream_tally_decide_hist", "race_card_hist", "masked_sat")
 # Serving traffic: 4 requests of 1024 prompt tokens (four 256-token chunks,
 # three carried-state hand-offs a Mamba2 layer), then 32 greedy decode
 # steps.
@@ -351,6 +357,31 @@ MASKED_CASES = [
 TALLY_VOTES_CASES = ([(4097, 11, K) for K in range(1, 10)]
                      + [(3001, n, K) for n in (31, 32, 33) for K in (2, 8)]
                      + [(2049, 300, 5), (1500, 12, 70)])
+# masked_sat at the main paths' shapes and the edges of its design: the
+# mixed n=12 table's fast rows (13 systems, 3 rows each, 21 live) at the
+# benchmark's 65,536-trial chunk, the planner's n=11 batch of 404 systems
+# (more systems than one block's shared memory holds), per-system orders
+# as the masked race's fast phase passes them, prefixes cut below n, n past
+# the register-held 16 positions and past 256, unit, quarter, negative,
+# non-integral and nonpositive-threshold rows, and a system's rows past a
+# block's shared memory (read from device memory): (name, trials, n, L,
+# systems M, rows G, the rows' kind for masked_sat_inputs, per-system
+# orders).  "mixed_n12" takes the table itself.
+MASKED_SAT_CASES = [
+    ("mixed_n12", 65_536, 12, 12, 13, 3, "mixed_n12", False),
+    ("mixed_n12 race orders", 8192, 12, 12, 13, 3, "mixed_n12", True),
+    ("planner 404", 8192, 11, 11, 404, 12, "integral", False),
+    ("integral k below n", 3000, 12, 9, 5, 7, "integral", False),
+    ("unit", 2000, 12, 12, 4, 16, "unit", False),
+    ("quarters", 2000, 11, 11, 6, 9, "quarters", True),
+    ("negative", 1500, 10, 10, 3, 6, "negative", False),
+    ("nonpositive", 1500, 9, 7, 3, 5, "nonpositive", True),
+    ("normal", 1500, 12, 12, 5, 8, "normal", False),
+    ("n=17", 1000, 17, 17, 3, 6, "integral", False),
+    ("n=40 L=30", 1000, 40, 30, 3, 7, "integral", True),
+    ("n=300 L=200", 200, 300, 200, 2, 5, "quarters", False),
+    ("rows in device memory", 300, 12, 12, 2, 40_000, "integral", False),
+]
 # The two kernels at a large shape beside their main path's: masked_tally
 # on the mixed n=12 table's 39 fast rows at 65,536 trials, tally_votes at
 # 2^20 trials of 11 votes, K = 2.
@@ -557,6 +588,79 @@ def race_card_inputs(case, dev):
             dict(n_values=K, k_sat=ks, precision=0.01,
                  bins=streaming.sketch_bins(0.01),
                  undecided_ms=float(engine.UNDECIDED_MS)))
+
+
+def masked_sat_inputs(case, dev):
+    """(sorted_x, perm, w, t) on ``dev`` for a MASKED_SAT_CASES entry, drawn
+    with numpy from a seed: arrivals quantized to quarters (ties), about 10%
+    LOST (1e9) and 3% +inf, each row sorted stably and cut to its first L
+    positions (a strided view where L < n, as a prefix sort leaves it);
+    per-system orders (M, S, L), else one (S, L).  Rows (about a fifth of
+    them padding: zero weights, threshold 2^30): ``integral`` weights in
+    [0, 3) and thresholds in [1, n + 2); ``unit`` 0/1 weights; ``quarters``
+    weights and thresholds in quarters (every sum exact in f32);
+    ``negative`` integral weights in [-2, 3); ``nonpositive`` integral, a
+    third of the thresholds -3, -0.0 or 0.0; ``normal`` |N(0, 1)| weights
+    (sums inexact in f32); ``mixed_n12`` the mixed n=12 table's fast
+    rows."""
+    name, S, n, L, M, G, rows, per = case
+    r = np.random.default_rng(S * 17 + n * 5 + L * 3 + M + G)
+    if rows == "mixed_n12":
+        from repro_torch.montecarlo.engine import build_mask_table
+        table = build_mask_table([m.masks(n) for m in mixed_members(n)],
+                                 device="cpu")
+        w, t = table["p2f_w"].numpy(), table["p2f_t"].numpy()
+    else:
+        if rows == "normal":
+            w = np.abs(r.standard_normal((M, G, n)))
+        elif rows == "quarters":
+            w = r.integers(0, 9, (M, G, n)) / 4.0
+        elif rows == "unit":
+            w = r.integers(0, 2, (M, G, n))
+        else:
+            w = r.integers(-2 if rows == "negative" else 0, 3, (M, G, n))
+        hi = n + 2 if rows != "unit" else n // 2 + 2
+        t = (r.integers(4, 4 * hi, (M, G)) / 4.0 if rows in
+             ("quarters", "normal") else r.integers(1, hi, (M, G)))
+        w, t = w.astype(np.float32), t.astype(np.float32)
+        if rows == "nonpositive":
+            third = r.random((M, G)) < 0.33
+            t[third] = r.choice(np.array([-3.0, -0.0, 0.0], np.float32),
+                                int(third.sum()))
+        pad = r.random((M, G)) < 0.2
+        w[pad], t[pad] = 0.0, 2.0 ** 30
+    shape = (M, S, n) if per else (S, n)
+    x = np.floor(np.exp(r.standard_normal(shape)) * 8.0) / 4.0
+    x[r.random(shape) < 0.1] = 1e9
+    x[r.random(shape) < 0.03] = np.inf
+    x = x.astype(np.float32)
+    perm = np.argsort(x, axis=-1, kind="stable")
+    srt = np.take_along_axis(x, perm, axis=-1)
+    f = lambda a: torch.as_tensor(a).to(dev)
+    return (f(srt)[..., :L], f(perm.astype(np.int64))[..., :L], f(w), f(t))
+
+
+def sequential_sat(sorted_x, perm, w, t, big: float):
+    """masked_sat with each row's running sum taken one f32 add a position,
+    in position order (the kernel's order): the plain version's
+    ``cumsum`` may add in another order on the card, and in double on the
+    CPU, which moves a crossing where the weights are not integral."""
+    M, G, n = w.shape
+    if sorted_x.dim() == 2:
+        sorted_x = sorted_x.expand(M, -1, -1)
+        perm = perm.expand(M, -1, -1)
+    S, L = sorted_x.shape[1:]
+    wp = torch.gather(w[:, :, None, :].expand(M, G, S, n), 3,
+                      perm[:, None].expand(M, G, S, L))
+    c = torch.zeros((M, G, S), dtype=torch.float32, device=w.device)
+    first = torch.full((M, G, S), L, dtype=torch.long, device=w.device)
+    for j in range(L):
+        c = c + wp[..., j]
+        first = torch.where((first == L) & (c >= t[..., None]), j, first)
+    reached = c >= t[..., None]
+    tt = torch.gather(sorted_x[:, None].expand(M, G, S, L), 3,
+                      first.clamp(max=L - 1)[..., None])[..., 0]
+    return torch.where(reached, tt, torch.full_like(tt, big)).amin(dim=1)
 
 
 def masked_inputs(case, dev):
@@ -1831,7 +1935,7 @@ def experiment_phase(dev, smi: str) -> dict:
 
     # (a) the quickstart: montecarlo (masked_tally), des and modelcheck
     quick = quickstart(device=dev)
-    mc = record("quickstart", quick, dict(masked_tally=1),
+    mc = record("quickstart", quick, dict(masked_tally=1, masked_sat=3),
                 EXPERIMENT_SAMPLES)
     t0 = time.perf_counter()
     des = quick.run("des")
@@ -1874,12 +1978,16 @@ def experiment_phase(dev, smi: str) -> dict:
            dict(stream_tally_decide_hist=chunks), EXPERIMENT_TRIALS)
 
     # (d) both committed configs, loaded unchanged: regime streams decide
-    # through masked_tally (diurnal_wan has a grid) and tally_decide
+    # through masked_tally and three masked_sat a chunk (diurnal_wan has a
+    # grid) and tally_decide
     for path, kern in zip(SCENARIOS, ("masked_tally", "tally_decide")):
         exp = Experiment.from_config(os.path.join(ROOT, path), device=dev)
         name = os.path.basename(path)[:-len(".json")]
-        st = record(name, exp, {kern: -(-exp.trials // exp.chunk)},
-                    exp.trials).stream
+        chunks = -(-exp.trials // exp.chunk)
+        expect = {kern: chunks}
+        if kern == "masked_tally":
+            expect["masked_sat"] = 3 * chunks
+        st = record(name, exp, expect, exp.trials).stream
         check_regime_stream(st, exp.trials, len(exp.systems), name)
         rows[name].update(trials=exp.trials, chunk=exp.chunk,
                           regimes=list(st.names),
@@ -2053,21 +2161,28 @@ def rung_launches(rungs, batches, chunk: int, regimes: bool) -> dict:
     ``race_card_hist`` a chunk and materializes (trials <= chunk) through
     one ``tally_decide``; a masked batch through the fused stream kernel a
     chunk, or one ``masked_tally``.  Regime streams decide every chunk
-    through ``tally_decide`` / ``masked_tally``.  ``batches[i]`` are rung
-    i's members."""
+    through ``tally_decide`` / ``masked_tally``.  A masked batch's
+    ``masked_tally`` call comes with three ``masked_sat`` (the race's fast,
+    detection and recovery saturations), and its fast pass takes one
+    ``masked_sat`` a chunk, or one.  ``batches[i]`` are rung i's
+    members."""
     from repro_torch.frontier.score import _as_masks
     out = only()
     for r, members in zip(rungs, batches):
         card = all(m.cardinality_q() is not None
                    for m in _as_masks(members, None)[0])
         chunks = -(-r.trials // chunk)
-        if regimes:
-            out["tally_decide" if card else "masked_tally"] += chunks
-        elif r.trials <= chunk:
-            out["tally_decide" if card else "masked_tally"] += 1
+        generic = regimes or r.trials <= chunk
+        calls = chunks if regimes or r.trials > chunk else 1
+        if card:
+            out["tally_decide" if generic else "race_card_hist"] += calls
+            continue
+        if generic:
+            out["masked_tally"] += calls
+            out["masked_sat"] += 3 * calls
         else:
-            out["race_card_hist" if card
-                else "stream_tally_decide_hist"] += chunks
+            out["stream_tally_decide_hist"] += calls
+        out["masked_sat"] += calls
     return out
 
 
@@ -2978,6 +3093,21 @@ def main() -> None:
         if int(got[3].sum()) != case[-1]:
             fail(f"race_card_hist {case[0]}: {int(got[3].sum())} trials "
                  f"counted, {case[-1]} valid")
+    # masked_sat at every shape of MASKED_SAT_CASES: the plain version's
+    # bits (one f32 add a position where the weights are not exact in f32),
+    # the same bits over two calls
+    big = float(engine.BIG)
+    sat_args = {}
+    for case in MASKED_SAT_CASES:
+        a = sat_args[case[0]] = masked_sat_inputs(case, dev)
+        sat = kernel.masked_sat(*a, big=big)
+        same(sat, sequential_sat(*a, big) if case[6] == "normal"
+             else ref.masked_sat(*a, big=big), f"masked_sat {case[0]}")
+        same(sat.view(torch.int32),
+             kernel.masked_sat(*a, big=big).view(torch.int32),
+             f"masked_sat {case[0]} repeated")
+    del sat
+    torch.cuda.empty_cache()
     torch.cuda.synchronize()
 
     args_c, kw_c = args12["coordinated"]
@@ -2997,6 +3127,9 @@ def main() -> None:
                                           **card_args["sweep"][1]),
             lambda: ref.race_card_hist(*card_args["sweep"][0],
                                        **card_args["sweep"][1])),
+        "masked_sat": (
+            lambda: kernel.masked_sat(*sat_args["mixed_n12"], big=big),
+            lambda: ref.masked_sat(*sat_args["mixed_n12"], big=big)),
     }
     S11, S12, S4 = v11.shape[0], raw12["votes"].shape[0], v4.shape[0]
     p11 = card_args["sweep"][0][4].shape[0]
@@ -3004,7 +3137,16 @@ def main() -> None:
     slots11 = k2f11 + 1
     G1, G2c = table12["p1_w"].shape[1], table12["p2c_w"].shape[1]
     mask_bytes = 4 * M12 * 12 * (G1 + G2c + G2f) + 4 * M12 * (G1 + G2c + G2f)
+    # masked_sat at the benchmark's fast chunk: the order (f32 arrivals and
+    # int64 ids) read once, each system's live fast rows (n + 1 words a
+    # row), the (M, S) answer written; a row's add and compare a position,
+    # a minimum a system
+    xs_, _, ws_, ts_ = sat_args["mixed_n12"]
+    S_sat, L_sat = xs_.shape
+    live_sat = int((~((ws_ == 0).all(-1) & (ts_ > 0))).sum())
     bytes_ = {
+        "masked_sat": (S_sat * L_sat * (4 + 8) + live_sat * 13 * 4
+                       + M12 * S_sat * 4),
         "tally_votes": S11 * 11 * 4 + S11 * 2 * 4,
         "tally_decide": S4 * 12 * 4 + S4 * 2 * 4 + S4 * 4 * 2 + S4,
         "masked_tally": (S12 * 12 * 4 + M12 * G2f * 13 * 4
@@ -3028,6 +3170,7 @@ def main() -> None:
     # compare and a bucket, per fast column a bucket.
     k1, k2c, k2f = kw_c["k_sat"]
     ops_ = {
+        "masked_sat": S_sat * (live_sat * L_sat * 2 + M12),
         "tally_votes": S11 * 11 * 2,
         "tally_decide": S4 * 12 * 2,
         "masked_tally": S12 * M12 * G2f * 12 * 2,
@@ -3041,7 +3184,8 @@ def main() -> None:
               "tally_decide": "tally_decide_kernel",
               "masked_tally": "masked_tally_kernel",
               "stream_tally_decide_hist": "stream_kernel",
-              "race_card_hist": ("race_card_kernel", "Memset")}
+              "race_card_hist": ("race_card_kernel", "Memset"),
+              "masked_sat": "masked_sat_kernel"}
     for k, (kf, pf) in timed.items():
         kms, pms = cuda_ms(kf), cuda_ms(pf)
         ops.reset_launches()
@@ -3093,7 +3237,7 @@ def main() -> None:
                       samples=8192)
     torch.cuda.synchronize()
     launches4 = dict(ops.LAUNCHES)
-    if launches4 != only(masked_tally=1):
+    if launches4 != only(masked_tally=1, masked_sat=3):
         fail(f"masked race launches {launches4}")
     lat = out["latency_ms"]
     if tuple(lat.shape) != (M12, 8192):
@@ -3134,7 +3278,10 @@ def main() -> None:
     fr = score_systems(members, n=12, trials=2_000_000, chunk=8192, seed=0)
     torch.cuda.synchronize()
     launches5 = dict(ops.LAUNCHES)
-    if launches5 != only(stream_tally_decide_hist=MIXED_RACE_CHUNKS):
+    # the race through the fused kernel, the fast pass through masked_sat
+    # (one a chunk of the same size)
+    if launches5 != only(stream_tally_decide_hist=MIXED_RACE_CHUNKS,
+                         masked_sat=MIXED_RACE_CHUNKS):
         fail(f"mixed batch launches {launches5}")
     race, fast = fr.streams["race"], fr.streams["fast"]
     for s in (race, fast):
@@ -3299,7 +3446,9 @@ def main() -> None:
                "masked_tally": {"masked_race": launches4["masked_tally"]},
                "stream_tally_decide_hist": {
                    "mixed_batch": launches5["stream_tally_decide_hist"]},
-               "race_card_hist": {"sweep": launches6["race_card_hist"]}}
+               "race_card_hist": {"sweep": launches6["race_card_hist"]},
+               "masked_sat": {"masked_race": launches4["masked_sat"],
+                              "mixed_batch": launches5["masked_sat"]}}
     for k, v in exper["launches"].items():
         by_path[k]["experiment"] = v
     for k, v in plan["launches"].items():

@@ -14,7 +14,8 @@
 // stored to the stack in <false, 1, 2, 4, 7>; every stream_kernel instance
 // 64 (its launch bounds), none spilling where the masks are resident
 // (RES), 126-166 bytes stored to the stack where they are read from device
-// memory; race_card_kernel<false> 64, no spills.
+// memory; race_card_kernel<false> 64, no spills; masked_sat_kernel 32-58
+// (<true, true>, the main path's, 58), no spills.
 //
 // tally_votes              replaces src/repro/kernels/quorum_tally/kernel.py
 //                          :tally_votes (_tally_kernel).
@@ -142,6 +143,45 @@
 //   Where the tile, prefixes and cells do not fit in shared memory (large n
 //   or k_sat), a block works in its region of device memory instead.  A
 //   call is one fill (FH, RH, slot counts, tickets) and one launch.
+//
+// masked_sat               replaces no TPU kernel: src/repro/montecarlo/
+//                          engine.py:_sat_time is plain jnp (a gather of the
+//                          weights along each order, cumsum, >=, argmax, a
+//                          gather and a min over rows), which the port ran
+//                          as about nine torch launches around an (M, G, S,
+//                          L) f32 tensor.  It is the masked tables' decide
+//                          wherever no fused kernel takes them: the fast
+//                          and classic paths, the materializing race, the
+//                          regime streams.
+//   Bound: device memory.  The presorted prefix is read once (f32 arrivals
+//   and int64 ids, S*L each), each system's live rows once and the (M, S)
+//   answer written once: 12.8 MB at the benchmark's fast chunk (65,536 x
+//   12, 13 systems, 21 live rows), 3.8 us; its adds and compares take 0.5
+//   us at the f32 rate.  In practice it is bound by the instructions of the
+//   dependent walks, a lane's adds along the order one position after
+//   another, and by the staging of the rows at a block's start.
+//   Design: a thread a (trial, system), lanes over trials, so each store of
+//   out[m, s0 + lane] is one contiguous span; a block takes a group of
+//   systems and trial tiles after it.  Each system's rows are staged once a
+//   block, classified by one warp: a dead row (zero weights and a positive
+//   threshold, or a NaN threshold) never crosses and is dropped, a
+//   monotone row (no negative or NaN weight) reaches its threshold exactly
+//   when it crosses it, and the live rows go in groups of four transposed
+//   (one 16-byte load gives four rows' weights of a lane), the monotone
+//   groups first.  A trial's order, where L <= 16 and n < 256, is read
+//   with 16-byte loads and held in registers, a byte a position; else it
+//   is read where the sort left it.  A monotone group adds along the order
+//   with __fadd_rn (the stream kernel's sat_time, JAX's _select_sat) and
+//   stops at the earliest crossing any of the system's rows has so far:
+//   arrivals ascend, so a later crossing cannot lower the minimum; a group
+//   holding another row walks all L positions and keeps each row's first
+//   crossing and whether its sum ends at or above its threshold, which is
+//   the plain version's test.  Rows that have not crossed by the earliest
+//   crossing matter only where its arrival lies above big (they would give
+//   big); only then are they walked to the end.  Where one system's rows
+//   do not fit a block's shared memory, every row is read from device
+//   memory and walked whole.  No atomics: a call gives the same bits every
+//   time.  A call is one launch and no fill.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -1869,6 +1909,345 @@ __global__ void __launch_bounds__(RC_MAX_THREADS)
 }
 
 // ---------------------------------------------------------------------------
+// masked_sat
+// ---------------------------------------------------------------------------
+
+#define MS_THREADS 256              // trials a block takes at once, one a thread
+#define MS_SOFT_SMEM (96 * 1024)    // a block's rows where two blocks fit an SM
+#define MS_MAX_GRID_Y 65535         // system groups of a launch
+
+// What one launch reads and writes.  Row s of system m's order is
+// x + m xm + s xs (arrivals) and perm + m pm + s ps (acceptor ids); pm = 0
+// is one order for every system.
+struct SatArgs {
+  const float* x;
+  const long long* perm;
+  const float* w;     // (M, G, n)
+  const float* t;     // (M, G)
+  float* out;         // (M, S)
+  long long xs, xm, ps, pm;
+  int S, L, n, M, G, mg, ngmax;
+  int vec;            // perm rows 16-byte aligned: two ids a load
+  float big;
+};
+
+// A system's rows in shared memory, 16 * (1 + ngmax (n + 1)) bytes: this
+// header, ngmax float4 thresholds, then ngmax x n float4 weights (group gi,
+// lane l: the four rows' weights of l).  Its nl live rows fill ng groups of
+// four, the monotone ones first (ngm groups hold monotone rows only), the
+// last group padded with copies of the last live row (a copy crosses where
+// its row does, so it changes no minimum); dead: some row never reaches
+// its threshold.
+struct SatSys {
+  int ng, ngm, nl, dead;
+};
+
+__host__ __device__ inline size_t sat_sys_bytes(int n, int ngmax) {
+  return 16 * (1 + (size_t)ngmax * (n + 1));
+}
+
+// Row g's kind.  dead: it can never reach its threshold (a NaN threshold,
+// or all weights zero and a positive threshold); mono: no weight negative
+// or NaN, so its running sum never falls and it reaches its threshold
+// exactly when it crosses it somewhere.
+__device__ __forceinline__ void sat_row_kind(const float* wr, float tg, int n,
+                                             bool& dead, bool& mono) {
+  bool zero = true;
+  mono = true;
+  for (int l = 0; l < n; ++l) {
+    const float v = __ldg(wr + l);
+    zero &= v == 0.0f;
+    mono &= v >= 0.0f;
+  }
+  dead = !(tg == tg) || (zero && tg > 0.0f);
+}
+
+// Slot q of a system's rows: lane l's weight.
+__device__ __forceinline__ float* sat_wslot(float* sw, int n, int q, int l) {
+  return sw + ((size_t)(q >> 2) * n + l) * 4 + (q & 3);
+}
+
+// One warp stages system m's live rows at sys: the monotone rows upward
+// from slot 0 and the others downward from the top slot, in one pass over
+// the rows; then the others move down behind the monotone ones (rare: a
+// negative or NaN weight) and the last group is padded.
+__device__ void sat_stage(const SatArgs& a, int m, unsigned char* sys) {
+  const int lane = threadIdx.x & 31, n = a.n, G = a.G, top = 4 * a.ngmax;
+  const float* wm = a.w + (size_t)m * G * n;
+  const float* tm = a.t + (size_t)m * G;
+  float* st = reinterpret_cast<float*>(sys + 16);
+  float* sw = st + 4 * a.ngmax;
+  const unsigned lt = (1u << lane) - 1u;
+  int nm = 0, nn = 0;
+  bool dead_any = false;
+  for (int base = 0; base < G; base += 32) {
+    const int g = base + lane;
+    bool dead = false, mono = true;
+    float tg = 0.0f;
+    if (g < G) {
+      tg = __ldg(tm + g);
+      sat_row_kind(wm + (size_t)g * n, tg, n, dead, mono);
+    }
+    const bool lm = g < G && !dead && mono, ln = g < G && !dead && !mono;
+    const unsigned bm = __ballot_sync(FULL, lm), bn = __ballot_sync(FULL, ln);
+    dead_any |= __any_sync(FULL, g < G && dead);
+    if (lm || ln) {
+      const int q = lm ? nm + __popc(bm & lt) : top - 1 - nn - __popc(bn & lt);
+      st[q] = tg;
+      const float* wr = wm + (size_t)g * n;
+      for (int l = 0; l < n; ++l) *sat_wslot(sw, n, q, l) = __ldg(wr + l);
+    }
+    nm += __popc(bm);
+    nn += __popc(bn);
+  }
+  __syncwarp();
+  // the others lie in [top - nn, top) and belong in [nm, nm + nn): those
+  // outside it, [top - c, top), go to the slots of it still free, [nm, nm +
+  // c) (the two ranges are disjoint)
+  const int c = nn - max(0, nm + 2 * nn - top);
+  for (int i = 0; i < c; ++i) {
+    const int from = top - c + i, to = nm + i;
+    if (lane == 0) st[to] = st[from];
+    for (int l = lane; l < n; l += 32)
+      *sat_wslot(sw, n, to, l) = *sat_wslot(sw, n, from, l);
+  }
+  __syncwarp();
+  const int nl = nm + nn, ng = (nl + 3) >> 2;
+  for (int q = nl; q < 4 * ng; ++q) {
+    if (lane == 0) st[q] = st[nl - 1];
+    for (int l = lane; l < n; l += 32)
+      *sat_wslot(sw, n, q, l) = *sat_wslot(sw, n, nl - 1, l);
+  }
+  if (lane == 0)
+    *reinterpret_cast<SatSys*>(sys) = SatSys{ng, nn ? nm >> 2 : ng, nl,
+                                             (int)dead_any};
+}
+
+// One trial's order of one system: the acceptor at position j.  REG holds
+// up to 16 ids below 256 in registers, a byte each, read from the int64
+// ids with 16-byte loads where the rows are aligned; else the ids are read
+// where the sort left them.
+template <bool REG>
+struct SatOrd {
+  const long long* p;
+  __device__ __forceinline__ void load(const long long* q, int, int) {
+    p = q;
+  }
+  __device__ __forceinline__ int at(int j) const { return (int)__ldg(p + j); }
+};
+
+template <>
+struct SatOrd<true> {
+  u64 a, b;
+  __device__ __forceinline__ void put(int j, int v) {
+    const u64 byte = (u64)(v & 0xff);
+    if (j < 8)
+      a |= byte << (8 * j);
+    else
+      b |= byte << (8 * (j - 8));
+  }
+  __device__ __forceinline__ void load(const long long* q, int L, int vec) {
+    a = b = 0;
+    if (vec) {
+      const int4* q4 = reinterpret_cast<const int4*>(q);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        if (2 * k + 1 < L) {
+          const int4 v = __ldg(q4 + k);  // ids 2k and 2k + 1: low words x, z
+          put(2 * k, v.x);
+          put(2 * k + 1, v.z);
+        }
+      }
+      if (L & 1) put(L - 1, (int)__ldg(q + L - 1));
+    } else {
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+        if (j < L) put(j, (int)__ldg(q + j));
+    }
+  }
+  __device__ __forceinline__ int at(int j) const {
+    return (int)(((j < 8 ? a : b) >> ((j & 7) * 8)) & 0xffu);
+  }
+};
+
+// A group of four monotone rows along the order over positions [0, lim),
+// each adding its weights with __fadd_rn; lim becomes the first position
+// where one crosses.  The weights of four positions load before their adds.
+template <class O>
+__device__ __forceinline__ void sat_walk4(const O& o, const float4* w,
+                                          const float4& t, int& lim) {
+  float4 c = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (int j0 = 0; j0 < lim; j0 += 4) {
+    float4 v[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) v[u] = w[o.at(min(j0 + u, lim - 1))];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      if (j0 + u < lim && add4(c, v[u], t)) lim = j0 + u;
+  }
+}
+
+// The same for a system's one live row (the group's first).
+template <class O>
+__device__ __forceinline__ void sat_walk1(const O& o, const float4* w,
+                                          float t, int& lim) {
+  const float* w1 = reinterpret_cast<const float*>(w);
+  float c = 0.0f;
+  for (int j0 = 0; j0 < lim; j0 += 4) {
+    float v[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) v[u] = w1[4 * o.at(min(j0 + u, lim - 1))];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      if (j0 + u < lim) {
+        c = __fadd_rn(c, v[u]);
+        if (c >= t) lim = j0 + u;
+      }
+    }
+  }
+}
+
+// A row whose sum reaches its threshold at the last position (the plain
+// version's `reached`) saturates at its first crossing f; one that does
+// not gives big.
+__device__ __forceinline__ void sat_end(float c, float t, int f, int& lim,
+                                        bool& unreached) {
+  if (c >= t)
+    lim = min(lim, f);
+  else
+    unreached = true;
+}
+
+// A group of four rows of any weights over all L positions: each row's
+// first crossing and whether it reaches its threshold at the end.
+template <class O>
+__device__ __forceinline__ void sat_walk_all(const O& o, int L,
+                                             const float4* w, const float4& t,
+                                             int& lim, bool& unreached) {
+  float4 c = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  int f0 = L, f1 = L, f2 = L, f3 = L;
+  for (int j = 0; j < L; ++j) {
+    const float4 v = w[o.at(j)];
+    c.x = __fadd_rn(c.x, v.x);
+    c.y = __fadd_rn(c.y, v.y);
+    c.z = __fadd_rn(c.z, v.z);
+    c.w = __fadd_rn(c.w, v.w);
+    if (f0 == L && c.x >= t.x) f0 = j;
+    if (f1 == L && c.y >= t.y) f1 = j;
+    if (f2 == L && c.z >= t.z) f2 = j;
+    if (f3 == L && c.w >= t.w) f3 = j;
+  }
+  sat_end(c.x, t.x, f0, lim, unreached);
+  sat_end(c.y, t.y, f1, lim, unreached);
+  sat_end(c.z, t.z, f2, lim, unreached);
+  sat_end(c.w, t.w, f3, lim, unreached);
+}
+
+// One (trial, system) from the system's rows in shared memory.  The
+// monotone groups stop at the earliest crossing found so far: arrivals
+// ascend along the order, so a later crossing cannot lower the minimum.
+// Rows that have not crossed by then count (as big) only where the
+// earliest crossing's arrival lies above big (a LOST or infinite one);
+// only then are they walked to the end.
+template <bool REG>
+__device__ __forceinline__ float sat_res(const SatOrd<REG>& o,
+                                         const unsigned char* sys, int L,
+                                         int n, int ngmax, const float* xr,
+                                         float big) {
+  const SatSys h = *reinterpret_cast<const SatSys*>(sys);
+  const float4* st = reinterpret_cast<const float4*>(sys + 16);
+  const float4* sw = st + ngmax;
+  int lim = L;
+  bool unreached = false;
+  if (h.nl == 1 && h.ngm == 1) {
+    sat_walk1(o, sw, st[0].x, lim);
+  } else {
+    for (int gi = 0; gi < h.ngm; ++gi)
+      sat_walk4(o, sw + (size_t)gi * n, st[gi], lim);
+    for (int gi = h.ngm; gi < h.ng; ++gi)
+      sat_walk_all(o, L, sw + (size_t)gi * n, st[gi], lim, unreached);
+  }
+  if (lim == L) return big;
+  float v = __ldg(xr + lim);
+  if (v > big) {
+    bool miss = h.dead || unreached;
+    for (int gi = 0; !miss && gi < h.ngm; ++gi) {
+      int all = L;
+      sat_walk_all(o, L, sw + (size_t)gi * n, st[gi], all, miss);
+    }
+    if (miss) v = big;
+  }
+  return v;
+}
+
+// One (trial, system) from the rows in device memory (a system's rows past
+// a block's shared memory): every row walked to the end.
+template <bool REG>
+__device__ __forceinline__ float sat_glob(const SatOrd<REG>& o,
+                                          const SatArgs& a, int m,
+                                          const float* xr) {
+  const float* wm = a.w + (size_t)m * a.G * a.n;
+  const float* tm = a.t + (size_t)m * a.G;
+  int lim = a.L;
+  bool unreached = false;
+  for (int g = 0; g < a.G; ++g) {
+    const float* wr = wm + (size_t)g * a.n;
+    const float tg = __ldg(tm + g);
+    float c = 0.0f;
+    int f = a.L;
+    for (int j = 0; j < a.L; ++j) {
+      c = __fadd_rn(c, __ldg(wr + o.at(j)));
+      if (f == a.L && c >= tg) f = j;
+    }
+    sat_end(c, tg, f, lim, unreached);
+  }
+  if (lim == a.L) return a.big;
+  const float v = __ldg(xr + lim);
+  return unreached && v > a.big ? a.big : v;
+}
+
+// A block takes the systems [mg y, mg (y + 1)): RES stages their live rows
+// in shared memory once, then the block walks trials, a thread each, tile
+// after tile, writing out[m, s] for each of its systems (a warp's stores
+// contiguous).
+template <bool REG, bool RES>
+__global__ void __launch_bounds__(MS_THREADS) masked_sat_kernel(SatArgs a) {
+  extern __shared__ __align__(16) unsigned char ms_smem[];
+  const int m0 = blockIdx.y * a.mg, mc = min(a.mg, a.M - m0);
+  const size_t per = sat_sys_bytes(a.n, a.ngmax);
+  if (RES) {
+    for (int k = threadIdx.x >> 5; k < mc; k += MS_THREADS / 32)
+      sat_stage(a, m0 + k, ms_smem + k * per);
+    __syncthreads();
+  }
+  const bool shared = a.pm == 0;
+  for (long long s = (long long)blockIdx.x * MS_THREADS + threadIdx.x;
+       s < a.S; s += (long long)gridDim.x * MS_THREADS) {
+    SatOrd<REG> o;
+    if (shared) o.load(a.perm + s * a.ps, a.L, a.vec);
+    for (int k = 0; k < mc; ++k) {
+      const int m = m0 + k;
+      if (!shared) o.load(a.perm + m * a.pm + s * a.ps, a.L, a.vec);
+      const float* xr = a.x + m * a.xm + s * a.xs;
+      float v;
+      if constexpr (RES)
+        v = sat_res<REG>(o, ms_smem + k * per, a.L, a.n, a.ngmax, xr, a.big);
+      else
+        v = sat_glob<REG>(o, a, m, xr);
+      a.out[(size_t)m * a.S + s] = v;
+    }
+  }
+}
+
+typedef void (*SatKernel)(SatArgs);
+static SatKernel sat_kernel(bool reg, bool res) {
+  return reg ? (res ? masked_sat_kernel<true, true>
+                    : masked_sat_kernel<true, false>)
+             : (res ? masked_sat_kernel<false, true>
+                    : masked_sat_kernel<false, false>);
+}
+
+// ---------------------------------------------------------------------------
 // C entry points (ctypes).  Pointers and the stream arrive as void*.
 // ---------------------------------------------------------------------------
 
@@ -2132,6 +2511,76 @@ int qt_stream_tally_decide_hist(
       : n <= 256 ? (res ? stream_launch<0, true> : stream_launch<0, false>)
                  : (res ? stream_launch<-1, true> : stream_launch<-1, false>);
   launch(a, grid, threads, smem, st);
+  return (int)cudaGetLastError();
+}
+
+// The launch plan of masked_sat for n acceptors, L positions, M systems of
+// G rows: out = {systems a block, dynamic shared memory, blocks the card
+// holds at once, rows resident in shared memory, orders in registers,
+// trials a tile}.
+// A block holds as many systems' rows as leave room for two blocks an SM,
+// one system's where that is more, and where even one system's do not fit
+// a block's shared memory (or 65535 groups of systems would not cover M)
+// every system's rows are read from device memory.  Returns a CUDA error
+// code.
+int qt_sat_plan(int n, int L, int M, int G, long long* out) {
+  const long long ngmax = ((long long)G + 3) / 4;
+  const double per = 16.0 * (1.0 + (double)ngmax * (n + 1.0));
+  const long long need = ((long long)M + MS_MAX_GRID_Y - 1) / MS_MAX_GRID_Y;
+  const double budget =
+      per * need <= MS_SOFT_SMEM ? MS_SOFT_SMEM : (double)ST_MAX_SMEM;
+  long long mg = (long long)(budget / per);
+  if (mg > M) mg = M;
+  const bool res = mg >= need && per * mg <= ST_MAX_SMEM;
+  if (!res) mg = M;
+  const bool reg = L <= 16 && n <= 256;
+  const int smem = res ? (int)(per * mg) : 0;
+  const SatKernel kern = sat_kernel(reg, res);
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, ST_MAX_SMEM);
+  int per_sm = 0, dev = 0, sms = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
+                                                      MS_THREADS, smem);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = mg;
+  out[1] = smem;
+  out[2] = (long long)(per_sm > 0 ? per_sm : 1) * sms;
+  out[3] = res;
+  out[4] = reg;
+  out[5] = MS_THREADS;
+  return 0;
+}
+
+int qt_masked_sat(const void* x, const void* perm, const void* w,
+                  const void* t, void* out, long long xs, long long xm,
+                  long long ps, long long pm, int S, int L, int n, int M,
+                  int G, int mg, int gx, int gy, int smem, float big,
+                  int res, int reg, int vec, void* stream) {
+  SatArgs a;
+  a.x = (const float*)x;
+  a.perm = (const long long*)perm;
+  a.w = (const float*)w;
+  a.t = (const float*)t;
+  a.out = (float*)out;
+  a.xs = xs;
+  a.xm = xm;
+  a.ps = ps;
+  a.pm = pm;
+  a.S = S;
+  a.L = L;
+  a.n = n;
+  a.M = M;
+  a.G = G;
+  a.mg = mg;
+  a.ngmax = (int)(((long long)G + 3) / 4);
+  a.vec = vec;
+  a.big = big;
+  sat_kernel(reg != 0, res != 0)<<<dim3(gx, gy), MS_THREADS, smem,
+                                   (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 

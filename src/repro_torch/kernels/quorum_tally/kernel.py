@@ -1,6 +1,6 @@
 """Hopper kernels for the quorum tally, bound with ctypes.
 
-``csrc/quorum_tally.cu`` holds five CUDA C++ kernels for ``sm_90a``; its
+``csrc/quorum_tally.cu`` holds six CUDA C++ kernels for ``sm_90a``; its
 header says which TPU kernel each replaces, what bounds it on the card and
 what its design does about that.  ``build()`` compiles the source with
 ``nvcc`` on first use into ``build/`` beside this file (git-ignored,
@@ -36,13 +36,14 @@ MAX_SCRATCH_BYTES = 2 ** 30
 
 LAUNCHES: Dict[str, int] = {"tally_votes": 0, "tally_decide": 0,
                             "masked_tally": 0, "stream_tally_decide_hist": 0,
-                            "race_card_hist": 0}
+                            "race_card_hist": 0, "masked_sat": 0}
 
 _lib = None
 _lib_lock = threading.Lock()
 _MASKED_PLANS: Dict[tuple, tuple] = {}
 _STREAM_PLANS: Dict[tuple, tuple] = {}
 _CARD_PLANS: Dict[tuple, tuple] = {}
+_SAT_PLANS: Dict[tuple, tuple] = {}
 
 
 def reset_launches() -> None:
@@ -71,10 +72,13 @@ def bind(path) -> ctypes.CDLL:
     lib.qt_card_plan.argtypes = [I] * 5 + [ctypes.POINTER(L)]
     lib.qt_race_card_hist.argtypes = (
         [P] * 5 + [I] * 7 + [F, I, F] + [I] * 6 + [P, L, L] + [P] * 11)
+    lib.qt_sat_plan.argtypes = [I] * 4 + [ctypes.POINTER(L)]
+    lib.qt_masked_sat.argtypes = ([P] * 5 + [L] * 4 + [I] * 9 + [F]
+                                  + [I] * 3 + [P])
     for f in ("qt_tally_votes", "qt_tally_decide", "qt_masked_plan",
               "qt_masked_tally", "qt_stream_plan",
               "qt_stream_tally_decide_hist", "qt_card_plan",
-              "qt_race_card_hist"):
+              "qt_race_card_hist", "qt_sat_plan", "qt_masked_sat"):
         getattr(lib, f).restype = I
     return lib
 
@@ -441,3 +445,62 @@ def race_card_hist(votes: torch.Tensor, arrive: torch.Tensor,
             region_of(5, k2f, V, dtype=f32), region_of(2, V),
             region_of(1, P, V, bins + 1), region_of(6, P, V, dtype=f32),
             region_of(7, P, V, dtype=f32))
+
+
+def _sat_plan(lib, dev, n: int, L: int, M: int, G: int) -> tuple:
+    """(systems a block, shared memory, blocks the card holds at once, rows
+    resident in shared memory, orders held in registers, trials a tile) for
+    a shape, from ``qt_sat_plan`` once per device and shape."""
+    key = (dev.index, n, L, M, G)
+    plan = _SAT_PLANS.get(key)
+    if plan is None:
+        out = (ctypes.c_longlong * 6)()
+        with torch.cuda.device(dev):
+            err = lib.qt_sat_plan(n, L, M, G, out)
+        _raise_on(err, "masked_sat plan")
+        plan = _SAT_PLANS[key] = tuple(out)
+    return plan
+
+
+def masked_sat(sorted_x: torch.Tensor, perm: torch.Tensor, w: torch.Tensor,
+               t: torch.Tensor, *, big: float) -> torch.Tensor:
+    """(M, S) f32 earliest instant some quorum row of each system saturates
+    (shapes and semantics of ``ref.masked_sat``), in one launch and no
+    fill.  ``sorted_x`` and ``perm`` are read as the sort left them: any
+    row and system strides (a prefix of a wider sort, an expanded shared
+    order), the last axis contiguous."""
+    ref.check_masked_sat(sorted_x, perm, w, t)
+    _require_cuda(sorted_x)
+    M, G, n = w.shape
+    S, L = sorted_x.shape[-2:]
+    dev = sorted_x.device
+    _check(w, "w", torch.float32, (M, G, n), dev)
+    _check(t, "t", torch.float32, (M, G), dev)
+    if perm.device != dev:
+        raise ValueError(f"perm lies on {perm.device}, expected {dev}")
+    if sorted_x.stride(-1) != 1 or perm.stride(-1) != 1:
+        raise ValueError("masked_sat reads sorted_x and perm contiguous "
+                         "along their last axis")
+    if S >= 2 ** 31 or M >= 2 ** 31 or G >= 2 ** 31:
+        raise ValueError(f"masked_sat takes S, M, G < 2^31, got "
+                         f"{(S, M, G)}")
+    out = torch.empty((M, S), dtype=torch.float32, device=dev)
+    if not (S and M):
+        return out
+    lib = _load()
+    mg, smem, blocks, res, reg, tile = _sat_plan(lib, dev, n, L, M, G)
+    gy = -(-M // mg)
+    gx = max(1, min(-(-S // tile), blocks // gy))
+    per = sorted_x.dim() == 3
+    xs, ps = sorted_x.stride(-2), perm.stride(-2)
+    xm = sorted_x.stride(0) if per else 0
+    pm = perm.stride(0) if per else 0
+    vec = perm.data_ptr() % 16 == 0 and ps % 2 == 0 and pm % 2 == 0
+    with torch.cuda.device(dev):
+        err = lib.qt_masked_sat(
+            sorted_x.data_ptr(), perm.data_ptr(), w.data_ptr(), t.data_ptr(),
+            out.data_ptr(), xs, xm, ps, pm, S, L, n, M, G, mg, gx, gy, smem,
+            float(big), int(res), int(reg), int(vec), _stream(dev))
+    _raise_on(err, "masked_sat")
+    LAUNCHES["masked_sat"] += 1
+    return out

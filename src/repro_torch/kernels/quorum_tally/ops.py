@@ -19,10 +19,12 @@ reset_launches = kernel.reset_launches
 def launch_plans() -> int:
     """What the kernels have built for reuse so far in this process: the
     loaded library (one) plus the launch plans cached per device and shape
-    (``masked_tally``'s, ``stream_tally_decide_hist``'s and
-    ``race_card_hist``'s).  0 where no kernel ran, as on the CPU."""
+    (``masked_tally``'s, ``stream_tally_decide_hist``'s,
+    ``race_card_hist``'s and ``masked_sat``'s).  0 where no kernel ran, as
+    on the CPU."""
     return (int(kernel._lib is not None) + len(kernel._MASKED_PLANS)
-            + len(kernel._STREAM_PLANS) + len(kernel._CARD_PLANS))
+            + len(kernel._STREAM_PLANS) + len(kernel._CARD_PLANS)
+            + len(kernel._SAT_PLANS))
 
 
 def _on_card(t: torch.Tensor) -> bool:
@@ -60,6 +62,16 @@ def masked_tally(votes: torch.Tensor, weights: torch.Tensor,
     if _on_card(votes):
         return kernel.masked_tally(votes, weights, thresholds, n_values)
     return ref.masked_tally(votes, weights, thresholds, n_values)
+
+
+def masked_sat(sorted_x: torch.Tensor, perm: torch.Tensor, w: torch.Tensor,
+               t: torch.Tensor, *, big: float) -> torch.Tensor:
+    """(M, S) f32 earliest instant some quorum row of each system saturates
+    along presorted arrivals, ``big`` where none does (``ref.masked_sat``)."""
+    if _on_card(sorted_x):
+        return kernel.masked_sat(sorted_x, perm, w, t, big=big)
+    ref.check_masked_sat(sorted_x, perm, w, t)
+    return ref.masked_sat(sorted_x, perm, w, t, big=big)
 
 
 def stream_tally_decide_hist(votes, val_arr, arrive, classic, w1, t1, w2c,

@@ -69,22 +69,62 @@ def _prefix_sat(x: torch.Tensor, w: torch.Tensor, t: torch.Tensor, k: int,
     position of the stable ascending order at which its cumulative weight
     reaches t[g]; rows that do not within k positions get ``big``.  Exact
     whenever k >= ``engine.saturation_depths``.  Returns (M, S) f32."""
-    M, G, n = w.shape
     k = min(int(k), x.shape[-1])
     srt, idx = torch.sort(x, dim=-1, stable=True)
-    srt, idx = srt[..., :k], idx[..., :k]
-    if x.dim() == 2:
-        srt = srt.expand(M, -1, -1)
-        idx = idx.expand(M, -1, -1)
-    S = srt.shape[1]
-    wp = torch.gather(w[:, :, None, :].expand(M, G, S, n), 3,
-                      idx[:, None].expand(M, G, S, k))
-    csum = torch.cumsum(wp, dim=-1)
-    ok = csum >= t[:, :, None, None]                        # (M, G, S, k)
-    first = torch.argmax(ok.to(torch.int32), dim=-1, keepdim=True)
+    return masked_sat(srt[..., :k], idx[..., :k], w, t, big=big)
+
+
+def masked_sat(sorted_x: torch.Tensor, perm: torch.Tensor, w: torch.Tensor,
+               t: torch.Tensor, *, big: float) -> torch.Tensor:
+    """Earliest instant some quorum row of each system saturates.
+
+    ``sorted_x``/``perm`` (S, L) shared by all systems or (M, S, L) one block
+    per system: ascending arrivals and their acceptor ids; ``w`` (M, G, n),
+    ``t`` (M, G).  Row g saturates at the first sorted position whose
+    cumulative weight reaches t[g]; its time is the arrival there (the LOST
+    sentinel when that arrival never happened).  Unreached rows give ``big``.
+    Returns the min over rows, (M, S)."""
+    M, G, n = w.shape
+    if sorted_x.dim() == 2:
+        sorted_x = sorted_x.expand(M, -1, -1)
+        perm = perm.expand(M, -1, -1)
+    S, L = sorted_x.shape[1:]
+    w_perm = torch.gather(w[:, :, None, :].expand(M, G, S, n), 3,
+                          perm[:, None].expand(M, G, S, L))
+    csum = torch.cumsum(w_perm, dim=-1)
+    ok = csum >= t[:, :, None, None]
+    idx = torch.argmax(ok.to(torch.int32), dim=-1, keepdim=True)
     reached = ok[..., -1]
-    tt = torch.gather(srt[:, None].expand(M, G, S, k), 3, first)[..., 0]
+    tt = torch.gather(sorted_x[:, None].expand(M, G, S, L), 3, idx)[..., 0]
     return torch.where(reached, tt, torch.full_like(tt, big)).amin(dim=1)
+
+
+def check_masked_sat(sorted_x: torch.Tensor, perm: torch.Tensor,
+                     w: torch.Tensor, t: torch.Tensor) -> None:
+    """What masked_sat refuses, with ``ValueError``: weights not (M, G, n)
+    with G >= 1, thresholds not (M, G), arrivals not (S, L) or (M, S, L)
+    with 1 <= L <= n, ids not of the arrivals' shape, and any dtype but
+    f32 arrivals, weights and thresholds and int64 ids (a sort's)."""
+    if w.dim() != 3 or t.dim() != 2 or tuple(t.shape) != tuple(w.shape[:2]):
+        raise ValueError(f"masked_sat takes weights (M, G, n) and thresholds "
+                         f"(M, G), got {tuple(w.shape)} / {tuple(t.shape)}")
+    M, G, n = w.shape
+    if G < 1:
+        raise ValueError("masked_sat takes G >= 1 quorum rows a system")
+    if (sorted_x.dim() not in (2, 3) or perm.shape != sorted_x.shape
+            or (sorted_x.dim() == 3 and sorted_x.shape[0] != M)):
+        raise ValueError(f"masked_sat takes arrivals and ids (S, L) or "
+                         f"(M={M}, S, L) of one shape, got "
+                         f"{tuple(sorted_x.shape)} / {tuple(perm.shape)}")
+    if not 1 <= sorted_x.shape[-1] <= n:
+        raise ValueError(f"masked_sat takes 1 <= L <= n={n} sorted "
+                         f"positions, got L={sorted_x.shape[-1]}")
+    for x, name, dtype in ((sorted_x, "sorted_x", torch.float32),
+                           (perm, "perm", torch.int64),
+                           (w, "w", torch.float32), (t, "t", torch.float32)):
+        if x.dtype != dtype:
+            raise ValueError(f"masked_sat: {name} has dtype {x.dtype}, "
+                             f"expected {dtype}")
 
 
 def check_stream(S: int, n: int, k_sat: tuple) -> None:

@@ -343,20 +343,9 @@ def _sat_time(sorted_x: torch.Tensor, perm: torch.Tensor, w: torch.Tensor,
     ``t`` (M, G).  Row g saturates at the first sorted position whose
     cumulative weight reaches t[g]; its time is the arrival there (the LOST
     sentinel when that arrival never happened).  Unreached rows give BIG.
-    Returns the min over rows, (M, S)."""
-    M, G, n = w.shape
-    if sorted_x.dim() == 2:
-        sorted_x = sorted_x.expand(M, -1, -1)
-        perm = perm.expand(M, -1, -1)
-    S, L = sorted_x.shape[1:]
-    w_perm = torch.gather(w[:, :, None, :].expand(M, G, S, n), 3,
-                          perm[:, None].expand(M, G, S, L))
-    csum = torch.cumsum(w_perm, dim=-1)
-    ok = csum >= t[:, :, None, None]
-    idx = torch.argmax(ok.to(torch.int32), dim=-1, keepdim=True)
-    reached = ok[..., -1]
-    tt = torch.gather(sorted_x[:, None].expand(M, G, S, L), 3, idx)[..., 0]
-    return torch.where(reached, tt, torch.full_like(tt, BIG)).amin(dim=1)
+    Returns the min over rows, (M, S): one ``masked_sat`` launch on the
+    card, its plain version on the CPU."""
+    return qt_ops.masked_sat(sorted_x, perm, w, t, big=BIG)
 
 
 def _masked_vote_winner(votes: torch.Tensor, table: Dict[str, torch.Tensor],

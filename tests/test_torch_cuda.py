@@ -41,8 +41,9 @@ from repro_torch.models import model as model_mod
 from repro_torch.models.ssm import ssd_chunked
 from repro_torch.montecarlo import streaming
 
-from chip_smoke import (MASKED_CASES, RACE_CARD_CASES, TALLY_VOTES_CASES,
-                        masked_inputs, race_card_inputs)
+from chip_smoke import (MASKED_CASES, MASKED_SAT_CASES, RACE_CARD_CASES,
+                        TALLY_VOTES_CASES, masked_inputs, masked_sat_inputs,
+                        race_card_inputs, sequential_sat)
 
 BINS = streaming.sketch_bins(0.01)
 
@@ -315,7 +316,7 @@ def test_stream_kernel_one_launch_per_call(cuda):
     ops.stream_tally_decide_hist(*args, **kw)
     assert ops.LAUNCHES == {"tally_votes": 0, "tally_decide": 0,
                             "masked_tally": 0, "stream_tally_decide_hist": 1,
-                            "race_card_hist": 0}
+                            "race_card_hist": 0, "masked_sat": 0}
 
 
 def test_ops_launch_on_cuda_and_count(cuda):
@@ -327,7 +328,7 @@ def test_ops_launch_on_cuda_and_count(cuda):
     ops.quorum_reached(votes, 2, 3)
     assert ops.LAUNCHES == {"tally_votes": 1, "tally_decide": 1,
                             "masked_tally": 1, "stream_tally_decide_hist": 0,
-                            "race_card_hist": 0}
+                            "race_card_hist": 0, "masked_sat": 0}
 
 
 @pytest.mark.parametrize("S,n,M,G,K,tier", [
@@ -441,10 +442,126 @@ def test_card_race_chunk_is_one_launch(cuda):
         torch.cuda.synchronize()
     assert ops.LAUNCHES == {"tally_votes": 0, "tally_decide": 0,
                             "masked_tally": 0, "stream_tally_decide_hist": 0,
-                            "race_card_hist": 3}
+                            "race_card_hist": 3, "masked_sat": 0}
     names = [e.key.lower() for e in prof.key_averages()]
     assert not [k for k in names if "sort" in k or "scatter" in k
                 or "tally_decide" in k], names
+
+
+# ---------------------------------------------------------------------------
+# masked_sat
+# ---------------------------------------------------------------------------
+
+SAT_BIG = 1e9
+
+
+@pytest.mark.parametrize("case", MASKED_SAT_CASES, ids=lambda c: c[0])
+def test_masked_sat_kernel(cuda, case):
+    """The kernel against the plain version on the card, bit for bit (one
+    f32 add a position where the weights are not exact in f32), and the
+    same bits over two calls."""
+    a = masked_sat_inputs(case, cuda)
+    got = kernel.masked_sat(*a, big=SAT_BIG)
+    want = (sequential_sat(*a, SAT_BIG) if case[6] == "normal"
+            else ref.masked_sat(*a, big=SAT_BIG))
+    assert got.shape == want.shape and got.dtype == torch.float32
+    bad = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+    assert bad == 0, f"{case[0]}: {bad} entries differ"
+    assert torch.equal(got.view(torch.int32),
+                       kernel.masked_sat(*a, big=SAT_BIG).view(torch.int32))
+
+
+@pytest.mark.parametrize("name,res,reg,groups", [
+    ("mixed_n12", 1, 1, 1), ("planner 404", 1, 1, 2),
+    ("n=40 L=30", 1, 0, 1), ("n=300 L=200", 1, 0, 1),
+    ("rows in device memory", 0, 1, 1)])
+def test_masked_sat_kernel_plan_tiers(cuda, name, res, reg, groups):
+    """Each instance is reached by a shape that needs it: rows resident in
+    shared memory or read from device memory, orders in registers or read
+    where the sort left them, more systems than one block holds."""
+    case = next(c for c in MASKED_SAT_CASES if c[0] == name)
+    _, S, n, L, M, G, _, _ = case
+    plan = kernel._sat_plan(kernel._load(), cuda, n, L, M, G)
+    assert (plan[3], plan[4]) == (res, reg)
+    assert -(-M // plan[0]) >= groups
+
+
+def test_masked_sat_one_launch_per_call_and_no_fill(cuda):
+    a = masked_sat_inputs(MASKED_SAT_CASES[0], cuda)
+    kernel.masked_sat(*a, big=SAT_BIG)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            ops.masked_sat(*a, big=SAT_BIG)
+        torch.cuda.synchronize()
+    assert ops.LAUNCHES == {k: 3 if k == "masked_sat" else 0
+                            for k in ops.LAUNCHES}
+    names = [e.key for e in prof.key_averages()]
+    assert [k for k in names if "masked_sat_kernel" in k], names
+    assert not [k for k in names if "memset" in k.lower()
+                or "scan" in k.lower()], names
+
+
+def test_masked_sat_wrapper_refuses(cuda):
+    x, p, w, t = masked_sat_inputs(("r", 64, 5, 5, 2, 3, "integral", False),
+                                   cuda)
+    with pytest.raises(ValueError, match="int64"):
+        kernel.masked_sat(x, p.int(), w, t, big=SAT_BIG)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernel.masked_sat(x, p, w.transpose(1, 2).contiguous().transpose(
+            1, 2), t, big=SAT_BIG)
+    with pytest.raises(ValueError, match="last axis"):
+        kernel.masked_sat(x.T.contiguous().T, p.T.contiguous().T, w, t,
+                          big=SAT_BIG)
+    with pytest.raises(ValueError, match="lies on"):
+        kernel.masked_sat(x, p, w.cpu(), t, big=SAT_BIG)
+
+
+@pytest.mark.parametrize("per", [False, True], ids=["shared", "per_system"])
+def test_masked_sat_takes_the_mixed_table_through_the_engine(cuda, per):
+    """``engine._sat_time`` on the card is one launch and the plain
+    version's bits, on the mixed n=12 table's three phases."""
+    from repro_torch.montecarlo import engine
+    from chip_smoke import mixed_members
+    table = engine.build_mask_table([m.masks(12) for m in mixed_members()],
+                                    device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    shape = (13, 4096, 12) if per else (4096, 12)
+    x = torch.rand(shape, generator=g, device=cuda) * 4
+    x = torch.where(x > 3.6, torch.full_like(x, 1e9), x)
+    xs, ps = torch.sort(x, dim=-1, stable=True)
+    for ph in ("p1", "p2c", "p2f"):
+        ops.reset_launches()
+        got = engine._sat_time(xs, ps, table[ph + "_w"], table[ph + "_t"])
+        assert ops.LAUNCHES["masked_sat"] == 1
+        want = ref.masked_sat(xs, ps, table[ph + "_w"], table[ph + "_t"],
+                              big=float(engine.BIG))
+        assert torch.equal(got, want), ph
+
+
+def test_masked_fast_path_stream_one_launch_a_chunk(cuda):
+    """The masked fast path's stream on the mixed n=12 table launches
+    masked_sat once a chunk and nothing else, and equals the stream on the
+    plain versions: counts, histogram and max_ms equal, means to 1e-5."""
+    from chip_smoke import mixed_members, plain_quorum_kernels
+    from repro_torch.montecarlo import engine, rng
+    table = engine.build_mask_table([m.masks(12) for m in mixed_members()],
+                                    device=cuda)
+    run = lambda: streaming.fast_path_stream(
+        rng.root(9), table, n=12, trials=300_000, chunk=65_536, shard=False)
+    ops.reset_launches()
+    got = run()
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES == {k: 5 if k == "masked_sat" else 0
+                            for k in ops.LAUNCHES}
+    with plain_quorum_kernels():
+        want = run()
+    for f in ("n_trials", "n_fast", "n_recovery", "n_undecided", "hist",
+              "max_ms"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert torch.allclose(got.mean_ms, want.mean_ms, rtol=1e-5, atol=0.0)
 
 
 @pytest.mark.parametrize("S,n,V", [(64, 5, 9), (64, 129, 2)])
@@ -1119,15 +1236,19 @@ def _experiment(case, dev):
                                   "diurnal_wan", "trace_replay"])
 def test_experiment_kernels_equal_plain_versions(cuda, case):
     """An Experiment's Monte-Carlo run on the card launches its path's
-    kernel and no other, and equals the same run with the quorum kernels
-    swapped for their plain versions: decide bits and latencies, or
-    counts, histograms, maxima and occupancy, equal; means to 1e-5."""
+    kernel and no other (a masked_tally call with the three masked_sat of
+    the race's saturations), and equals the same run with the quorum
+    kernels swapped for their plain versions: decide bits and latencies,
+    or counts, histograms, maxima and occupancy, equal; means to 1e-5."""
     from chip_smoke import plain_quorum_kernels, same_stream
     exp, kern, n = _experiment(case, cuda)
     ops.reset_launches()
     got = exp.run("montecarlo")
     torch.cuda.synchronize()
-    assert ops.LAUNCHES == {k: n if k == kern else 0 for k in ops.LAUNCHES}
+    want = {k: n if k == kern else 0 for k in ops.LAUNCHES}
+    if kern == "masked_tally":
+        want["masked_sat"] = 3 * n
+    assert ops.LAUNCHES == want
     with plain_quorum_kernels():
         want = exp.run("montecarlo")
     if got.raw is not None:
