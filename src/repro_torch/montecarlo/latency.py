@@ -32,6 +32,8 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
+
 # Sentinel one-way delay for a dropped message.
 LOST_MS = 1e9
 
@@ -206,7 +208,8 @@ def _on(t: torch.Tensor, device: torch.device) -> bool:
 def to_device(model, device):
     """``model`` with every tensor of it and of the models it wraps on
     ``device`` (the same object when they already are).  The engine's and
-    the streams' entry points call it once per call."""
+    the streams' entry points call it once per call; each tensor copied is
+    one ``repro_torch.host_write`` span."""
     if model is None or not dataclasses.is_dataclass(model):
         return model
     device = torch.device(device)
@@ -216,7 +219,11 @@ def to_device(model, device):
             continue
         v = getattr(model, f.name)
         if isinstance(v, torch.Tensor):
-            w = v if _on(v, device) else v.to(device)
+            if _on(v, device):
+                w = v
+            else:
+                with tracing.span(tracing.HOST_WRITE):
+                    w = v.to(device)
         elif isinstance(v, tuple):
             w = tuple(to_device(x, device) for x in v)
             w = v if all(a is b for a, b in zip(w, v)) else w

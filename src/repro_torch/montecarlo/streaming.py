@@ -474,7 +474,8 @@ def _regime_zeros(regimes: MarkovRegimes, m: int, precision: float,
 def _regime_stream(path: str, key: int, table, offsets,
                    regimes: MarkovRegimes, *, n, k_proposers, trials, chunk,
                    precision, k_sat, recovery) -> RegimeStreamSummary:
-    """The chunk loop under a Markov regime chain.
+    """The chunk loop under a Markov regime chain, its delays already on
+    the table's device.
 
     The chain ``zs`` covers the loop's trial capacity, computed on the host
     once and moved to the device once; chunk c keeps the i.i.d. stream's
@@ -487,8 +488,6 @@ def _regime_stream(path: str, key: int, table, offsets,
     n_chunks = -(-trials // chunk)
     n_epochs = -(-(n_chunks * chunk) // ep)
     zs = regimes.sequence(key, n_epochs).to(dev)
-    placed = replace(regimes, delays=tuple(
-        lat_mod.to_device(d, dev) for d in regimes.delays))
     state = _regime_zeros(regimes, m, precision, dev)
     occ, by = state.occupancy, state.by_regime
     lanes = torch.arange(chunk, device=dev)
@@ -498,7 +497,7 @@ def _regime_stream(path: str, key: int, table, offsets,
         tidx = i * chunk + lanes
         rid = zs[torch.div(tidx, ep, rounding_mode="floor")]
         out = _chunk_outcomes(path, gen, table, offsets,
-                              placed.mixed_delay(rid), n=n,
+                              regimes.mixed_delay(rid), n=n,
                               k_proposers=k_proposers, chunk=chunk,
                               k_sat=k_sat, recovery=recovery)
         sel = (tidx < trials)[None, :] & (rid[None, :] == regs)   # (R, C)
@@ -656,6 +655,9 @@ def _domain_plan(path: str, key: int, table, delay, offsets, *, n,
     chunk`` take the engine's materializing entry point."""
     dev = engine._table_device(table)
     if regimes is not None:
+        with tracing.span(tracing.PLACE):
+            regimes = replace(regimes, delays=tuple(
+                lat_mod.to_device(d, dev) for d in regimes.delays))
         offsets = engine._offsets(offsets, dev)
         k_sat = _resolve_k_sat(table, k_max, n)
         return lambda: _regime_stream(
@@ -670,8 +672,9 @@ def _domain_plan(path: str, key: int, table, delay, offsets, *, n,
     card = "q" in table and k_sat is not None
     fused = path == "race" and "q" not in table and k_sat is not None
     layout = _card_layout(table, recovery) if card else None
-    delay = lat_mod.to_device(default_delay() if delay is None else delay,
-                              dev)
+    with tracing.span(tracing.PLACE):
+        delay = lat_mod.to_device(
+            default_delay() if delay is None else delay, dev)
     offsets = engine._offsets(offsets, dev)
     zero = StreamSummary.zeros(table["p1_w"].shape[0], precision, dev)
     lanes = torch.arange(chunk, device=dev)

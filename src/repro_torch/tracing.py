@@ -35,6 +35,12 @@ The spans of a streamed request (``streaming.race_stream``,
   repro_torch.host_read  one device-to-host read, hence one synchronisation
                          (``engine.saturation_depths``,
                          ``streaming._card_layout``)
+  repro_torch.place      the delay model placed on the table's device
+                         (``latency.to_device``; a regime stream's delays
+                         too)
+  repro_torch.host_write one tensor of a delay model copied to another
+                         device (``latency.to_device``), the mirror of
+                         ``host_read``
   repro_torch.draws      all randomness of a chunk (``engine._draw_race``,
                          ``_fast_path_draws``, ``_classic_path_draws``)
   repro_torch.decide     a chunk's step from draws to decided outcomes: the
@@ -58,6 +64,8 @@ import torch
 STREAM = "repro_torch.stream"
 PREPARE = "repro_torch.prepare"
 HOST_READ = "repro_torch.host_read"
+PLACE = "repro_torch.place"
+HOST_WRITE = "repro_torch.host_write"
 DRAWS = "repro_torch.draws"
 DECIDE = "repro_torch.decide"
 SKETCH = "repro_torch.sketch"

@@ -1,9 +1,10 @@
 """repro_torch.tracing: spans on the stream path record only under
 ``torch.profiler``, one draws / decide / sketch span a chunk in every
-lowering, the reads to the host counted, and the summary the same bits with
-tracing on and off."""
+lowering, the reads to the host and the delay's copies to the table's
+device counted, and the summary the same bits with tracing on and off."""
 import collections
 import json
+from pathlib import Path
 
 import pytest
 import torch
@@ -84,7 +85,7 @@ def test_spans_of_a_stream(kind, path, kw, reads, nested):
         assert torch.equal(getattr(plain, f), getattr(traced, f)), f
 
     want = {tracing.STREAM: 1, tracing.PREPARE: 1, tracing.HOST_READ: reads,
-            tracing.DRAWS: CHUNKS, tracing.DECIDE: CHUNKS,
+            tracing.PLACE: 1, tracing.DRAWS: CHUNKS, tracing.DECIDE: CHUNKS,
             tracing.SKETCH: CHUNKS}
     assert collections.Counter(r.name for r in recs) == {
         k: v for k, v in want.items() if v}
@@ -94,7 +95,8 @@ def test_spans_of_a_stream(kind, path, kw, reads, nested):
     prep = next(r for r in recs if r.name == tracing.PREPARE)
     for r in recs:
         want = {tracing.STREAM: None, tracing.PREPARE: root.index,
-                tracing.HOST_READ: prep.index, tracing.DECIDE: root.index,
+                tracing.HOST_READ: prep.index, tracing.PLACE: prep.index,
+                tracing.DECIDE: root.index,
                 tracing.SKETCH: root.index}.get(r.name)
         if r.name == tracing.DRAWS:
             parent = by[r.parent].name
@@ -117,7 +119,7 @@ def test_readout_span_and_the_profilers_trace(tmp_path):
     names = {e["name"] for e in json.loads(path.read_text())["traceEvents"]
              if e.get("cat") == "user_annotation"}
     assert {tracing.STREAM, tracing.PREPARE, tracing.HOST_READ,
-            tracing.DRAWS, tracing.DECIDE, tracing.SKETCH,
+            tracing.PLACE, tracing.DRAWS, tracing.DECIDE, tracing.SKETCH,
             tracing.READOUT} <= names
 
 
@@ -212,7 +214,6 @@ def test_span_cost_busy_by_innermost_range(ranges, ops, want):
     """``tools/span_cost.py``: each device record goes to the innermost
     ``repro_torch.*`` range on the card holding its midpoint."""
     import importlib.util
-    from pathlib import Path
     path = Path(__file__).resolve().parent.parent / "tools" / "span_cost.py"
     spec = importlib.util.spec_from_file_location("span_cost", path)
     mod = importlib.util.module_from_spec(spec)
@@ -239,3 +240,77 @@ def test_kept_spans_leave_the_collectors_count():
     assert len(tracing.records()) == 2000
     assert grew < 100, grew
     tracing.clear()
+
+
+# ---------------------------------------------------------------------------
+# The delay's placement: the benchmark deployment ``geo15_eu_down``'s WAN
+# model with crashed acceptors (15 acceptors over five regions, one region
+# down), built on the host as a user's ``delay_from_config`` builds it.
+# ---------------------------------------------------------------------------
+
+GEO_DELAY = json.loads((Path(__file__).resolve().parent.parent / "ffpbench"
+                        / "configs" / "geo15_eu_down.json").read_text())[
+    "delay"]
+
+
+def _geo_requests(device, requests=2):
+    from repro_torch.frontier import families
+    from repro_torch.montecarlo import latency
+    table = engine.build_mask_table(
+        [m.masks(15) for m in families.grid_family(15)], device=device)
+    delay = latency.delay_from_config(GEO_DELAY, 15)
+
+    def run():
+        return [streaming.race_stream(
+            7 + r, table, [0.0, 0.5], delay, n=15, k_proposers=2,
+            trials=2048, chunk=1024, shard=False) for r in range(requests)]
+    return _traced(run)[1]
+
+
+def _placements(recs):
+    by = {r.index: r for r in recs}
+    places = [r for r in recs if r.name == tracing.PLACE]
+    for p in places:
+        assert by[p.parent].name == tracing.PREPARE
+    writes = [r for r in recs if r.name == tracing.HOST_WRITE]
+    for w in writes:
+        assert w.parent in {p.index for p in places}
+    return places, writes
+
+
+def test_placement_one_span_a_request_and_no_copy_on_its_device():
+    recs = _geo_requests("cpu")
+    places, writes = _placements(recs)
+    roots = [r for r in recs if r.name == tracing.STREAM]
+    assert len(roots) == 2
+    assert sorted(p.root for p in places) == sorted(r.index for r in roots)
+    assert writes == []
+
+
+def test_placement_on_the_card_copies_four_tensors(cuda):
+    recs = _geo_requests(cuda)
+    places, writes = _placements(recs)
+    assert len(places) == 2
+    # oneway_ms, acceptor_region, proposer_region and crashed, a request
+    assert len(writes) == 8
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda:0")
+
+
+@pytest.mark.parametrize("name", ["place_ms", "host_writes_per_request"])
+def test_placement_readers_find_nothing_without_spans(name):
+    """Without a trace, and where the program records no
+    ``repro_torch.place`` (the spans of a program before it had one), the
+    readers return None."""
+    from ffpbench import metrics
+    root = tracing.Record(tracing.STREAM, 0, None, 0, 0, 1000, 1e-3)
+    read = tracing.Record(tracing.HOST_READ, 1, 0, 0, 0, 10, 1e-5)
+    assert metrics.read(name, {"trace": None}) is None
+    assert metrics.read(name, {"trace": {"requests": 1,
+                                         "program_spans": [read, root]}}
+                        ) is None
