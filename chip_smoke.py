@@ -24,7 +24,9 @@ Phases, one JSON line each:
               fill), and a torch fill's device time at the sweep chunk's
               size (the least a launch takes here); masked_sat at
               MASKED_SAT_CASES, timed at the mixed n=12 table's fast rows
-              over a 65,536-trial chunk
+              over a 65,536-trial chunk; sorted_prefix at the fast paths'
+              chunks (2,097,152 x 11 values, 65,536 x 12 values and ids),
+              timed there beside torch.sort (library_ms)
   4. masked materializing race   engine.race on the mixed n=12 table at
               8192 samples (the masked_tally path, and masked_sat for its
               three saturations), checked bit-identical
@@ -233,12 +235,15 @@ REPLACES = {
                       "XLA reductions of src/repro/montecarlo/streaming.py:394",
     "masked_sat": "none: src/repro/montecarlo/engine.py:411 _sat_time, plain "
                   "jnp (gather, cumsum, argmax, gather, min)",
+    "sorted_prefix": "none: src/repro/montecarlo/engine.py:204 "
+                     "_topk_ascending, lax.top_k",
     "ssd": "src/repro/kernels/ssd_scan/kernel.py:66",
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:92",
     "rmsnorm": "src/repro/kernels/rmsnorm/kernel.py:32",
 }
 QUORUM_KERNELS = ("tally_votes", "tally_decide", "masked_tally",
-                  "stream_tally_decide_hist", "race_card_hist", "masked_sat")
+                  "stream_tally_decide_hist", "race_card_hist", "masked_sat",
+                  "sorted_prefix")
 # Serving traffic: 4 requests of 1024 prompt tokens (four 256-token chunks,
 # three carried-state hand-offs a Mamba2 layer), then 32 greedy decode
 # steps.
@@ -386,6 +391,8 @@ MASKED_SAT_CASES = [
 # on the mixed n=12 table's 39 fast rows at 65,536 trials, tally_votes at
 # 2^20 trials of 11 votes, K = 2.
 MASKED_LARGE_S, TALLY_VOTES_LARGE_S = 65_536, 2 ** 20
+# sorted_prefix at the ffp_n11.fast_4m cell's chunk: 2,097,152 rows of 11
+SORTED_PREFIX_S = 2_097_152
 
 
 def only(**launches) -> dict:
@@ -1935,7 +1942,8 @@ def experiment_phase(dev, smi: str) -> dict:
 
     # (a) the quickstart: montecarlo (masked_tally), des and modelcheck
     quick = quickstart(device=dev)
-    mc = record("quickstart", quick, dict(masked_tally=1, masked_sat=3),
+    mc = record("quickstart", quick, dict(masked_tally=1, masked_sat=3,
+                                          sorted_prefix=3),
                 EXPERIMENT_SAMPLES)
     t0 = time.perf_counter()
     des = quick.run("des")
@@ -1965,7 +1973,8 @@ def experiment_phase(dev, smi: str) -> dict:
                       workload=Workload.race(k=2, delta_ms=0.2),
                       samples=EXPERIMENT_SAMPLES, device=dev)
     chunks = -(-EXPERIMENT_TRIALS // EXPERIMENT_CHUNK)
-    record("cardinality", card, dict(tally_decide=1), EXPERIMENT_SAMPLES)
+    record("cardinality", card, dict(tally_decide=1, sorted_prefix=3),
+           EXPERIMENT_SAMPLES)
     record("cardinality_stream",
            dataclasses.replace(card, trials=EXPERIMENT_TRIALS,
                                chunk=EXPERIMENT_CHUNK),
@@ -1979,12 +1988,13 @@ def experiment_phase(dev, smi: str) -> dict:
 
     # (d) both committed configs, loaded unchanged: regime streams decide
     # through masked_tally and three masked_sat a chunk (diurnal_wan has a
-    # grid) and tally_decide
+    # grid) and tally_decide, each chunk's draws sorted by three
+    # sorted_prefix
     for path, kern in zip(SCENARIOS, ("masked_tally", "tally_decide")):
         exp = Experiment.from_config(os.path.join(ROOT, path), device=dev)
         name = os.path.basename(path)[:-len(".json")]
         chunks = -(-exp.trials // exp.chunk)
-        expect = {kern: chunks}
+        expect = {kern: chunks, "sorted_prefix": 3 * chunks}
         if kern == "masked_tally":
             expect["masked_sat"] = 3 * chunks
         st = record(name, exp, expect, exp.trials).stream
@@ -2164,8 +2174,9 @@ def rung_launches(rungs, batches, chunk: int, regimes: bool) -> dict:
     through ``tally_decide`` / ``masked_tally``.  A masked batch's
     ``masked_tally`` call comes with three ``masked_sat`` (the race's fast,
     detection and recovery saturations), and its fast pass takes one
-    ``masked_sat`` a chunk, or one.  ``batches[i]`` are rung i's
-    members."""
+    ``masked_sat`` a chunk, or one.  Every batch's fast pass sorts through
+    one ``sorted_prefix`` a chunk, or one, and a generic race through
+    three a call.  ``batches[i]`` are rung i's members."""
     from repro_torch.frontier.score import _as_masks
     out = only()
     for r, members in zip(rungs, batches):
@@ -2174,6 +2185,7 @@ def rung_launches(rungs, batches, chunk: int, regimes: bool) -> dict:
         chunks = -(-r.trials // chunk)
         generic = regimes or r.trials <= chunk
         calls = chunks if regimes or r.trials > chunk else 1
+        out["sorted_prefix"] += calls + (3 * calls if generic else 0)
         if card:
             out["tally_decide" if generic else "race_card_hist"] += calls
             continue
@@ -3107,6 +3119,24 @@ def main() -> None:
              kernel.masked_sat(*a, big=big).view(torch.int32),
              f"masked_sat {case[0]} repeated")
     del sat
+    # sorted_prefix at the two main paths' shapes, the fast paths' draws:
+    # ffp_n11's 2,097,152 x 11 chunk (values, k = n) and mixed_n12's
+    # 65,536 x 12 chunk (values and ids, k its fast saturation depth)
+    sp_args = {
+        "ffp_n11": (engine._fast_path_draws(
+            rng.generator(rng.root(16), dev), streaming.default_delay(), 11,
+            SORTED_PREFIX_S), 11, False),
+        "mixed_n12": (engine._fast_path_draws(
+            rng.generator(rng.root(17), dev), streaming.default_delay(), 12,
+            MASKED_LARGE_S), k_sat12[2], True)}
+    for case, (x_sp, k_sp, ord_sp) in sp_args.items():
+        sp_got = kernel.sorted_prefix(x_sp, k_sp, order=ord_sp)
+        sp_want = ref.sorted_prefix(x_sp, k_sp, order=ord_sp)
+        same(sp_got[0].view(torch.int32), sp_want[0].view(torch.int32),
+             f"sorted_prefix {case} values")
+        if ord_sp:
+            same(sp_got[1], sp_want[1], f"sorted_prefix {case} ids")
+    del sp_got, sp_want
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
 
@@ -3130,6 +3160,11 @@ def main() -> None:
         "masked_sat": (
             lambda: kernel.masked_sat(*sat_args["mixed_n12"], big=big),
             lambda: ref.masked_sat(*sat_args["mixed_n12"], big=big)),
+        "sorted_prefix": (
+            lambda: kernel.sorted_prefix(sp_args["ffp_n11"][0], 11,
+                                         order=False),
+            lambda: ref.sorted_prefix(sp_args["ffp_n11"][0], 11,
+                                      order=False)),
     }
     S11, S12, S4 = v11.shape[0], raw12["votes"].shape[0], v4.shape[0]
     p11 = card_args["sweep"][0][4].shape[0]
@@ -3144,7 +3179,10 @@ def main() -> None:
     xs_, _, ws_, ts_ = sat_args["mixed_n12"]
     S_sat, L_sat = xs_.shape
     live_sat = int((~((ws_ == 0).all(-1) & (ts_ > 0))).sum())
+    # sorted_prefix: each row read once and its k-prefix written once (k = n
+    # here); its operations, the network's 38 compare-exchanges a row
     bytes_ = {
+        "sorted_prefix": SORTED_PREFIX_S * 11 * 4 * 2,
         "masked_sat": (S_sat * L_sat * (4 + 8) + live_sat * 13 * 4
                        + M12 * S_sat * 4),
         "tally_votes": S11 * 11 * 4 + S11 * 2 * 4,
@@ -3170,6 +3208,7 @@ def main() -> None:
     # compare and a bucket, per fast column a bucket.
     k1, k2c, k2f = kw_c["k_sat"]
     ops_ = {
+        "sorted_prefix": SORTED_PREFIX_S * 38,
         "masked_sat": S_sat * (live_sat * L_sat * 2 + M12),
         "tally_votes": S11 * 11 * 2,
         "tally_decide": S4 * 12 * 2,
@@ -3185,7 +3224,8 @@ def main() -> None:
               "masked_tally": "masked_tally_kernel",
               "stream_tally_decide_hist": "stream_kernel",
               "race_card_hist": ("race_card_kernel", "Memset"),
-              "masked_sat": "masked_sat_kernel"}
+              "masked_sat": "masked_sat_kernel",
+              "sorted_prefix": "sorted_prefix_kernel"}
     for k, (kf, pf) in timed.items():
         kms, pms = cuda_ms(kf), cuda_ms(pf)
         ops.reset_launches()
@@ -3223,6 +3263,22 @@ def main() -> None:
             bound_ms=max(b_ms, o_ms),
             bound_by="bytes" if b_ms >= o_ms else "operations",
             bytes=nbytes, operations=nops)
+    # sorted_prefix's yardstick: torch.sort, which the port no longer calls
+    # on rows of 32 or fewer; and the kernel at mixed_n12's chunk, with ids
+    x11 = sp_args["ffp_n11"][0]
+    stats["sorted_prefix"]["library_ms"] = cuda_ms(
+        lambda: torch.sort(x11, dim=-1, stable=True))
+    x12, k12, _ = sp_args["mixed_n12"]
+    sp12 = lambda: kernel.sorted_prefix(x12, k12, order=True)
+    b_ms = x12.shape[0] * (12 * 4 + k12 * (4 + 8)) / HBM_BYTES_PER_S * 1e3
+    stats["sorted_prefix"]["mixed_n12"] = dict(
+        shape=f"{x12.shape[0]}x12, k={k12}, ids", ms=cuda_ms(sp12),
+        device_us=kernel_device_us(sp12, symbol["sorted_prefix"],
+                                   reps=20)[0],
+        plain_ms=cuda_ms(lambda: ref.sorted_prefix(x12, k12, order=True)),
+        bound_ms=b_ms, bound_by="bytes")
+    del sp_args, x11, x12
+    torch.cuda.empty_cache()
     # the least device time of a launch on this card, for scale: torch's
     # fill of a tensor of the sweep chunk's 16384 ints (64 KB written)
     fill = torch.empty(S11, dtype=torch.int32, device=dev)
@@ -3237,7 +3293,7 @@ def main() -> None:
                       samples=8192)
     torch.cuda.synchronize()
     launches4 = dict(ops.LAUNCHES)
-    if launches4 != only(masked_tally=1, masked_sat=3):
+    if launches4 != only(masked_tally=1, masked_sat=3, sorted_prefix=3):
         fail(f"masked race launches {launches4}")
     lat = out["latency_ms"]
     if tuple(lat.shape) != (M12, 8192):
@@ -3262,7 +3318,7 @@ def main() -> None:
         launches4c = dict(ops.LAUNCHES)
     finally:
         kernel.tally_decide = tally_decide
-    if launches4c != only(tally_decide=1):
+    if launches4c != only(tally_decide=1, sorted_prefix=3):
         fail(f"cardinality race launches {launches4c}")
     if len(seen) != 1 or not torch.equal(seen[0], v4):
         fail("the cardinality race's votes are not those phase 3 checked")
@@ -3278,10 +3334,11 @@ def main() -> None:
     fr = score_systems(members, n=12, trials=2_000_000, chunk=8192, seed=0)
     torch.cuda.synchronize()
     launches5 = dict(ops.LAUNCHES)
-    # the race through the fused kernel, the fast pass through masked_sat
-    # (one a chunk of the same size)
+    # the race through the fused kernel, the fast pass through
+    # sorted_prefix and masked_sat (one each a chunk of the same size)
     if launches5 != only(stream_tally_decide_hist=MIXED_RACE_CHUNKS,
-                         masked_sat=MIXED_RACE_CHUNKS):
+                         masked_sat=MIXED_RACE_CHUNKS,
+                         sorted_prefix=MIXED_RACE_CHUNKS):
         fail(f"mixed batch launches {launches5}")
     race, fast = fr.streams["race"], fr.streams["fast"]
     for s in (race, fast):
@@ -3314,7 +3371,10 @@ def main() -> None:
     sw = run_sweep(quick=False, device=dev)
     torch.cuda.synchronize()
     launches6 = dict(ops.LAUNCHES)
-    if launches6 != only(race_card_hist=SWEEP_RACE_CHUNKS):
+    # the race through race_card_hist, the fast pass through sorted_prefix
+    # (one each a chunk of the same size)
+    if launches6 != only(race_card_hist=SWEEP_RACE_CHUNKS,
+                         sorted_prefix=SWEEP_RACE_CHUNKS):
         fail(f"sweep launches {launches6}")
     res = sw["result"]
     with open(os.path.join(ROOT, "BENCH_baseline.json")) as fh:
@@ -3448,7 +3508,12 @@ def main() -> None:
                    "mixed_batch": launches5["stream_tally_decide_hist"]},
                "race_card_hist": {"sweep": launches6["race_card_hist"]},
                "masked_sat": {"masked_race": launches4["masked_sat"],
-                              "mixed_batch": launches5["masked_sat"]}}
+                              "mixed_batch": launches5["masked_sat"]},
+               "sorted_prefix": {
+                   "masked_race": (launches4["sorted_prefix"]
+                                   + launches4c["sorted_prefix"]),
+                   "mixed_batch": launches5["sorted_prefix"],
+                   "sweep": launches6["sorted_prefix"]}}
     for k, v in exper["launches"].items():
         by_path[k]["experiment"] = v
     for k, v in plan["launches"].items():
@@ -3480,7 +3545,8 @@ def main() -> None:
          "launches_by_path": by_path[k],
          "max_abs_err": stats[k]["max_abs_err"], "ms": stats[k]["ms"],
          "plain_ms": stats[k]["plain_ms"], "bound_ms": stats[k]["bound_ms"],
-         "bound_by": stats[k]["bound_by"], "library_ms": None}
+         "bound_by": stats[k]["bound_by"],
+         "library_ms": stats[k].get("library_ms")}
         for k in QUORUM_KERNELS] + [
         {"name": k, "route": "cuda", "source": MODEL_SOURCES[k],
          "replaces": REPLACES[k], "launches": launches[k],

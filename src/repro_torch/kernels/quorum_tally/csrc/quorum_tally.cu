@@ -15,7 +15,8 @@
 // 64 (its launch bounds), none spilling where the masks are resident
 // (RES), 126-166 bytes stored to the stack where they are read from device
 // memory; race_card_kernel<false> 64, no spills; masked_sat_kernel 32-58
-// (<true, true>, the main path's, 58), no spills.
+// (<true, true>, the main path's, 58), no spills; sorted_prefix_kernel
+// 32-80 (<11, false>, the main path's, 48; <12, true> 40), no spills.
 //
 // tally_votes              replaces src/repro/kernels/quorum_tally/kernel.py
 //                          :tally_votes (_tally_kernel).
@@ -182,6 +183,34 @@
 //   do not fit a block's shared memory, every row is read from device
 //   memory and walked whole.  No atomics: a call gives the same bits every
 //   time.  A call is one launch and no fill.
+//
+// sorted_prefix            replaces no TPU kernel: src/repro/montecarlo/
+//                          engine.py:204 _topk_ascending is lax.top_k (a
+//                          full argsort where k >= n), which the port ran
+//                          as torch.sort (a radix sort, an index fill and a
+//                          copy) and a slice.  It is the order statistics
+//                          of every decide outside the fused race kernels:
+//                          the cardinality fast and classic streams'
+//                          prefixes, the masked fast and classic paths'
+//                          presorts, the materializing and regime races'.
+//   Bound: device memory.  A row of n f32 is read once and its k-prefix
+//   written once (with ids, 8 bytes more a position): 184.5 MB, 55.1 us,
+//   at the benchmark's fast chunk (2,097,152 x 11, k = n); the network's
+//   compare-exchanges (38 a row at n = 11) take 1.2 us at the f32 rate,
+//   though each is six integer instructions on a 64-bit word.
+//   Design: a thread a row, a block 128 rows.  The block's tile is
+//   contiguous in device memory and comes in with 16-byte streaming loads
+//   (scalar ones from a base off 16 bytes), landing in shared memory at an
+//   odd row stride (n | 1), so the thread reading its row position by
+//   position meets no bank conflict.  Each (value, position) pair is one
+//   64-bit word, an order-preserving key of the float's bits above the
+//   position (torch.sort's radix twiddle, -0 keyed as +0 and marked in bit
+//   0 so its sign comes back), and the thread sorts its n words in
+//   registers through Batcher's odd-even merge network cut to n, fully
+//   unrolled from a template on n (instances 1..32): ties fall to the lower
+//   position, as in the stable sort.  The k smallest go back through
+//   shared memory (stride k | 1) and leave as 16-byte stores, the ids only
+//   where the caller reads the order.  No fill, no scratch, one launch.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -189,6 +218,7 @@
 #include <stdint.h>
 
 #include <type_traits>
+#include <utility>
 
 #include "sm90_mma.cuh"
 
@@ -2248,6 +2278,191 @@ static SatKernel sat_kernel(bool reg, bool res) {
 }
 
 // ---------------------------------------------------------------------------
+// sorted_prefix
+// ---------------------------------------------------------------------------
+
+#define SP_ROWS 128         // rows a block, one a thread
+#define SP_MAX_N 32         // the longest row a network instance sorts
+
+// Comparator c of Batcher's odd-even merge sort on n positions, as
+// lo * 64 + hi (lo < hi), or the network's size where c is past its end.
+// The network for the next power of two, with every comparator that
+// touches a position >= n dropped: such a position would hold +inf and
+// never move.  n = 11 takes 38 comparators, 32 takes 191.
+__host__ __device__ constexpr int sp_comparator(int n, int c) {
+  int at = 0;
+  for (int p = 1; p < n; p += p)
+    for (int k = p; k >= 1; k /= 2)
+      for (int j = k % p; j + k < n; j += 2 * k)
+        for (int i = 0; i < k && i + j + k < n; ++i)
+          if ((i + j) / (2 * p) == (i + j + k) / (2 * p)) {
+            if (at == c) return (i + j) * 64 + i + j + k;
+            ++at;
+          }
+  return at;
+}
+
+__host__ __device__ constexpr int sp_network_size(int n) {
+  return sp_comparator(n, -1);
+}
+
+// torch.sort's order on f32 as an unsigned key: its radix sort's bit
+// twiddle (the sign bit set on a positive value, every bit flipped on a
+// negative one), with -0 keyed as +0, so the two tie and keep their input
+// order.
+__device__ __forceinline__ unsigned sp_key(unsigned u) {
+  if (u == 0x80000000u) u = 0u;
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+// A row entry as one 64-bit word: the key above its position, so one
+// unsigned compare orders by value, ties to the lower position.  Bit 0
+// marks a -0, which the key cannot tell from +0.
+__device__ __forceinline__ unsigned long long sp_pack(float x, int c) {
+  const unsigned u = __float_as_uint(x);
+  return ((unsigned long long)sp_key(u) << 32) | ((unsigned)c << 1)
+         | (u == 0x80000000u);
+}
+
+__device__ __forceinline__ float sp_value(unsigned long long w) {
+  if (w & 1ull) return __uint_as_float(0x80000000u);
+  const unsigned k = (unsigned)(w >> 32);
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
+}
+
+template <int A, int N>
+__device__ __forceinline__ void sp_exchange(unsigned long long (&v)[N]) {
+  constexpr int lo = A >> 6, hi = A & 63;
+  const unsigned long long a = v[lo], b = v[hi];
+  const bool swap = b < a;
+  v[lo] = swap ? b : a;
+  v[hi] = swap ? a : b;
+}
+
+// The whole network, unrolled: every comparator's positions are constants.
+template <int N, int... C>
+__device__ __forceinline__ void sp_sort(unsigned long long (&v)[N],
+                                        std::integer_sequence<int, C...>) {
+  (sp_exchange<sp_comparator(N, C)>(v), ...);
+}
+
+// Element e of the block's tile in shared memory, rows at stride P.
+template <int N, int P>
+__device__ __forceinline__ float& sp_at(float* tile, int e) {
+  return tile[(e / N) * P + e % N];
+}
+
+// A block takes SP_ROWS rows, a thread each.  Its tile, contiguous in device
+// memory, comes in with 16-byte loads where the tensor is 16-byte aligned
+// (a tile starts 512 N bytes after the previous one) and lands in shared
+// memory at an odd row stride, so a thread reading its own row along
+// positions hits 32 banks a warp.  The thread sorts its N (key, position)
+// words in registers through the unrolled network, writes its k smallest
+// back at stride k | 1, and the block stores the (rows, k) prefix, then the
+// ids, with 16-byte stores.
+template <int N, bool IDS>
+__global__ void __launch_bounds__(SP_ROWS) sorted_prefix_kernel(
+    const float* __restrict__ x, long long S, int k, int vec,
+    float* __restrict__ vals, long long* __restrict__ ids) {
+  constexpr int P = N | 1;
+  __shared__ __align__(16) float tile[SP_ROWS * P];
+  __shared__ __align__(16) int id_tile[IDS ? SP_ROWS * P : 1];
+  const long long r0 = (long long)blockIdx.x * SP_ROWS;
+  const int R = (int)min((long long)SP_ROWS, S - r0);
+  const int t = threadIdx.x, E = R * N, Q = k | 1, Ek = R * k;
+  const float* src = x + r0 * N;
+  int e = t;
+  if (vec) {
+    const float4* s4 = reinterpret_cast<const float4*>(src);
+    for (int i = t; i < E / 4; i += SP_ROWS) {
+      const float4 f = __ldcs(s4 + i);
+      if (P == N) {
+        *reinterpret_cast<float4*>(tile + 4 * i) = f;
+      } else {
+        sp_at<N, P>(tile, 4 * i) = f.x;
+        sp_at<N, P>(tile, 4 * i + 1) = f.y;
+        sp_at<N, P>(tile, 4 * i + 2) = f.z;
+        sp_at<N, P>(tile, 4 * i + 3) = f.w;
+      }
+    }
+    e = (E & ~3) + t;
+  }
+  for (; e < E; e += SP_ROWS) sp_at<N, P>(tile, e) = __ldcs(src + e);
+  __syncthreads();
+
+  unsigned long long v[N];
+  if (t < R) {
+#pragma unroll
+    for (int c = 0; c < N; ++c) v[c] = sp_pack(tile[t * P + c], c);
+    sp_sort<N>(v, std::make_integer_sequence<int, sp_network_size(N)>{});
+  }
+  __syncthreads();  // every row read: the tile takes the prefix now
+  if (t < R) {
+#pragma unroll
+    for (int c = 0; c < N; ++c) {
+      if (c < k) {
+        tile[t * Q + c] = sp_value(v[c]);
+        if (IDS) id_tile[t * Q + c] = (int)((unsigned)v[c] >> 1);
+      }
+    }
+  }
+  __syncthreads();
+
+  // The prefix leaves four values (two ids) a store, read from the row and
+  // column of its first element on.
+  float* dst = vals + r0 * k;
+  for (int i = t; i < Ek / 4; i += SP_ROWS) {
+    float4 f;
+    if (Q == k) {
+      f = *reinterpret_cast<const float4*>(tile + 4 * i);
+    } else {
+      int row = 4 * i / k, col = 4 * i - row * k;
+      float a[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        a[j] = tile[row * Q + col];
+        if (++col == k) col = 0, ++row;
+      }
+      f = make_float4(a[0], a[1], a[2], a[3]);
+    }
+    __stcs(reinterpret_cast<float4*>(dst) + i, f);
+  }
+  for (int j = (Ek & ~3) + t; j < Ek; j += SP_ROWS)
+    dst[j] = tile[(j / k) * Q + j % k];
+  if (IDS) {
+    long long* idst = ids + r0 * k;
+    for (int i = t; i < Ek / 2; i += SP_ROWS) {
+      int row = 2 * i / k, col = 2 * i - row * k;
+      longlong2 p;
+      p.x = id_tile[row * Q + col];
+      if (++col == k) col = 0, ++row;
+      p.y = id_tile[row * Q + col];
+      __stcs(reinterpret_cast<longlong2*>(idst) + i, p);
+    }
+    if (Ek & 1) {
+      if (t == 0) idst[Ek - 1] = id_tile[((Ek - 1) / k) * Q + (Ek - 1) % k];
+    }
+  }
+}
+
+typedef void (*SpLaunch)(unsigned, cudaStream_t, const float*, long long,
+                         int, int, float*, long long*);
+
+template <int N, bool IDS>
+void sp_launch(unsigned blocks, cudaStream_t st, const float* x, long long S,
+               int k, int vec, float* vals, long long* ids) {
+  sorted_prefix_kernel<N, IDS><<<blocks, SP_ROWS, 0, st>>>(x, S, k, vec,
+                                                           vals, ids);
+}
+
+// The instance for rows of n (1..SP_MAX_N), with or without ids.
+template <bool IDS, int... I>
+static SpLaunch sp_instance(int n, std::integer_sequence<int, I...>) {
+  static const SpLaunch table[] = {sp_launch<I + 1, IDS>...};
+  return table[n - 1];
+}
+
+// ---------------------------------------------------------------------------
 // C entry points (ctypes).  Pointers and the stream arrive as void*.
 // ---------------------------------------------------------------------------
 
@@ -2581,6 +2796,22 @@ int qt_masked_sat(const void* x, const void* perm, const void* w,
   a.big = big;
   sat_kernel(reg != 0, res != 0)<<<dim3(gx, gy), MS_THREADS, smem,
                                    (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// The k smallest of each of S contiguous rows of n f32 (x), ascending, into
+// vals (S, k) f32 and, where ids is not null, their positions into ids (S,
+// k) int64.  vec: x is 16-byte aligned.  1 <= k <= n <= SP_MAX_N.
+int qt_sorted_prefix(const void* x, long long S, int n, int k, int vec,
+                     void* vals, void* ids, void* stream) {
+  const long long blocks = (S + SP_ROWS - 1) / SP_ROWS;
+  if (n < 1 || n > SP_MAX_N || k < 1 || k > n || blocks > INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  const auto all = std::make_integer_sequence<int, SP_MAX_N>{};
+  const SpLaunch launch =
+      ids ? sp_instance<true>(n, all) : sp_instance<false>(n, all);
+  launch((unsigned)blocks, (cudaStream_t)stream, (const float*)x, S, k, vec,
+         (float*)vals, (long long*)ids);
   return (int)cudaGetLastError();
 }
 

@@ -1,6 +1,6 @@
 """Hopper kernels for the quorum tally, bound with ctypes.
 
-``csrc/quorum_tally.cu`` holds six CUDA C++ kernels for ``sm_90a``; its
+``csrc/quorum_tally.cu`` holds seven CUDA C++ kernels for ``sm_90a``; its
 header says which TPU kernel each replaces, what bounds it on the card and
 what its design does about that.  ``build()`` compiles the source with
 ``nvcc`` on first use into ``build/`` beside this file (git-ignored,
@@ -28,6 +28,9 @@ from . import ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "quorum_tally.cu"
 
+# The longest row sorted_prefix's networks sort (its C source's SP_MAX_N).
+SORTED_PREFIX_MAX_N = 32
+
 # Device memory the blocks of a launch work in together, where a block's
 # tile does not fit in its shared memory (stream_tally_decide_hist,
 # race_card_hist, masked_tally at large n): fewer blocks then, but at
@@ -36,7 +39,8 @@ MAX_SCRATCH_BYTES = 2 ** 30
 
 LAUNCHES: Dict[str, int] = {"tally_votes": 0, "tally_decide": 0,
                             "masked_tally": 0, "stream_tally_decide_hist": 0,
-                            "race_card_hist": 0, "masked_sat": 0}
+                            "race_card_hist": 0, "masked_sat": 0,
+                            "sorted_prefix": 0}
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -75,10 +79,12 @@ def bind(path) -> ctypes.CDLL:
     lib.qt_sat_plan.argtypes = [I] * 4 + [ctypes.POINTER(L)]
     lib.qt_masked_sat.argtypes = ([P] * 5 + [L] * 4 + [I] * 9 + [F]
                                   + [I] * 3 + [P])
+    lib.qt_sorted_prefix.argtypes = [P, L, I, I, I, P, P, P]
     for f in ("qt_tally_votes", "qt_tally_decide", "qt_masked_plan",
               "qt_masked_tally", "qt_stream_plan",
               "qt_stream_tally_decide_hist", "qt_card_plan",
-              "qt_race_card_hist", "qt_sat_plan", "qt_masked_sat"):
+              "qt_race_card_hist", "qt_sat_plan", "qt_masked_sat",
+              "qt_sorted_prefix"):
         getattr(lib, f).restype = I
     return lib
 
@@ -504,3 +510,34 @@ def masked_sat(sorted_x: torch.Tensor, perm: torch.Tensor, w: torch.Tensor,
     _raise_on(err, "masked_sat")
     LAUNCHES["masked_sat"] += 1
     return out
+
+
+def sorted_prefix(x: torch.Tensor, k: int, *, order: bool) -> tuple:
+    """The k smallest values of each row of ``x``'s last axis, ascending,
+    ties to the lower position (shapes and semantics of
+    ``ref.sorted_prefix``): contiguous (..., k) float32 values and, with
+    ``order``, their positions as (..., k) int64, else None.  Rows of 1 to
+    ``SORTED_PREFIX_MAX_N`` contiguous f32, in one launch and no fill."""
+    _require_cuda(x)
+    ref.check_sorted_prefix(x, k)
+    n = x.shape[-1]
+    if n > SORTED_PREFIX_MAX_N:
+        raise ValueError(f"sorted_prefix sorts rows of at most "
+                         f"{SORTED_PREFIX_MAX_N}, got n={n}")
+    if not x.is_contiguous():
+        raise ValueError("sorted_prefix reads x contiguous")
+    dev = x.device
+    shape = tuple(x.shape[:-1]) + (k,)
+    vals = torch.empty(shape, dtype=torch.float32, device=dev)
+    ids = torch.empty(shape, dtype=torch.int64, device=dev) if order else None
+    S = x.numel() // n
+    if S:
+        lib = _load()
+        with torch.cuda.device(dev):
+            err = lib.qt_sorted_prefix(
+                x.data_ptr(), S, n, k, int(x.data_ptr() % 16 == 0),
+                vals.data_ptr(), None if ids is None else ids.data_ptr(),
+                _stream(dev))
+        _raise_on(err, "sorted_prefix")
+        LAUNCHES["sorted_prefix"] += 1
+    return vals, ids

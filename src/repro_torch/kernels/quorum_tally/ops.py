@@ -14,6 +14,7 @@ from . import kernel, ref
 
 LAUNCHES = kernel.LAUNCHES
 reset_launches = kernel.reset_launches
+SORTED_PREFIX_MAX_N = kernel.SORTED_PREFIX_MAX_N
 
 
 def launch_plans() -> int:
@@ -72,6 +73,16 @@ def masked_sat(sorted_x: torch.Tensor, perm: torch.Tensor, w: torch.Tensor,
         return kernel.masked_sat(sorted_x, perm, w, t, big=big)
     ref.check_masked_sat(sorted_x, perm, w, t)
     return ref.masked_sat(sorted_x, perm, w, t, big=big)
+
+
+def sorted_prefix(x: torch.Tensor, k: int, *, order: bool) -> tuple:
+    """(..., k) f32 smallest values of each row, ascending, and with
+    ``order`` their (..., k) int64 positions, else None
+    (``ref.sorted_prefix``: torch.sort(stable=True)'s first k)."""
+    if _on_card(x):
+        return kernel.sorted_prefix(x, k, order=order)
+    ref.check_sorted_prefix(x, k)
+    return ref.sorted_prefix(x, k, order=order)
 
 
 def stream_tally_decide_hist(votes, val_arr, arrive, classic, w1, t1, w2c,

@@ -74,6 +74,28 @@ def _prefix_sat(x: torch.Tensor, w: torch.Tensor, t: torch.Tensor, k: int,
     return masked_sat(srt[..., :k], idx[..., :k], w, t, big=big)
 
 
+def sorted_prefix(x: torch.Tensor, k: int, *, order: bool) -> tuple:
+    """The k smallest values of each row of ``x``'s last axis, ascending,
+    ties to the lower position: ``torch.sort(stable=True)`` and its first k.
+    Returns (values, their positions as int64 where ``order``, else
+    None)."""
+    vals, idx = torch.sort(x, dim=-1, stable=True)
+    if k < x.shape[-1]:
+        vals, idx = vals[..., :k], idx[..., :k]
+    return vals, (idx if order else None)
+
+
+def check_sorted_prefix(x: torch.Tensor, k: int) -> None:
+    """What sorted_prefix refuses, with ``ValueError``: other than f32 rows
+    of at least one value, and k outside [1, n]."""
+    if x.dtype != torch.float32 or x.dim() < 1:
+        raise ValueError(f"sorted_prefix takes f32 rows, got dtype "
+                         f"{x.dtype} and shape {tuple(x.shape)}")
+    if not 1 <= k <= x.shape[-1]:
+        raise ValueError(f"sorted_prefix takes 1 <= k <= n={x.shape[-1]}, "
+                         f"got k={k}")
+
+
 def masked_sat(sorted_x: torch.Tensor, perm: torch.Tensor, w: torch.Tensor,
                t: torch.Tensor, *, big: float) -> torch.Tensor:
     """Earliest instant some quorum row of each system saturates.

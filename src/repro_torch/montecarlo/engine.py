@@ -168,19 +168,25 @@ def saturation_depths(table: Dict[str, torch.Tensor]) -> Tuple[int, int, int]:
 # Sorted prefixes and order statistics.
 # ---------------------------------------------------------------------------
 
-def _topk_ascending(x: torch.Tensor, k: Optional[int]):
+def _topk_ascending(x: torch.Tensor, k: Optional[int], order: bool = True):
     """Smallest-k ascending prefix of a stable sort over the last axis and
     the matching permutation prefix (ties toward the lower index, the order
-    of ``lax.top_k`` on the negated values).  ``k`` None (or >= n) keeps
-    the full sort."""
+    of ``lax.top_k`` on the negated values), the permutation None unless
+    ``order``.  ``k`` None (or >= n) keeps the full sort.  Rows of up to
+    ``SORTED_PREFIX_MAX_N`` go through ``sorted_prefix`` (its kernel on the
+    card), longer ones through torch.sort; both give torch.sort's bits."""
+    n = x.shape[-1]
+    k = n if k is None or k >= n else int(k)
+    if n <= qt_ops.SORTED_PREFIX_MAX_N:
+        return qt_ops.sorted_prefix(x, k, order=order)
     vals, perm = torch.sort(x, dim=-1, stable=True)
-    if k is not None and k < x.shape[-1]:
+    if k < n:
         vals, perm = vals[..., :k], perm[..., :k]
-    return vals, perm
+    return vals, (perm if order else None)
 
 
 def _sorted_prefix(x: torch.Tensor, k: Optional[int]) -> torch.Tensor:
-    return _topk_ascending(x, k)[0]
+    return _topk_ascending(x, k, order=False)[0]
 
 
 def _kth(sorted_x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -283,9 +289,9 @@ def _sample_race(gen: torch.Generator, offsets: torch.Tensor, delay, *,
     if recovery == "uncoordinated":
         k2c = k2f
     out = {"votes": raw["votes"]}
-    sv, pv = _topk_ascending(_val_arr(raw, k_proposers), k2f)
-    sa, pa = _topk_ascending(raw["arrive"], k1)
-    sc, pc = _topk_ascending(raw["classic"], k2c)
+    sv, pv = _topk_ascending(_val_arr(raw, k_proposers), k2f, not card)
+    sa, pa = _topk_ascending(raw["arrive"], k1, not card)
+    sc, pc = _topk_ascending(raw["classic"], k2c, not card)
     out.update(sorted_val_arrive=sv, sorted_arrive=sa, sorted_classic=sc)
     if card:
         counts, winner, max_cnt = _counts_winner(raw["votes"], k_proposers)
@@ -455,7 +461,7 @@ def _fast_path_outcomes(gen: torch.Generator, table, delay, *, n: int,
         delay = default_delay()
     k2f = k_sat[2] if k_sat is not None else None
     path = _fast_path_draws(gen, delay, n, samples)
-    srt, perm = _topk_ascending(path, k2f)
+    srt, perm = _topk_ascending(path, k2f, "q" not in table)
     if "q" in table:
         return _kth(srt, table["q"][:, 2])
     return _sat_time(srt, perm, table["p2f_w"], table["p2f_t"])
@@ -480,7 +486,7 @@ def _classic_path_outcomes(gen: torch.Generator, table, delay, *, n: int,
         delay = default_delay()
     k2c = k_sat[1] if k_sat is not None else None
     d0, path = _classic_path_draws(gen, delay, n, samples)
-    srt, perm = _topk_ascending(path, k2c)
+    srt, perm = _topk_ascending(path, k2c, "q" not in table)
     if "q" in table:
         return d0[None, :] + _kth(srt, table["q"][:, 1])
     return d0[None, :] + _sat_time(srt, perm, table["p2c_w"], table["p2c_t"])

@@ -316,7 +316,8 @@ def test_stream_kernel_one_launch_per_call(cuda):
     ops.stream_tally_decide_hist(*args, **kw)
     assert ops.LAUNCHES == {"tally_votes": 0, "tally_decide": 0,
                             "masked_tally": 0, "stream_tally_decide_hist": 1,
-                            "race_card_hist": 0, "masked_sat": 0}
+                            "race_card_hist": 0, "masked_sat": 0,
+                            "sorted_prefix": 0}
 
 
 def test_ops_launch_on_cuda_and_count(cuda):
@@ -328,7 +329,8 @@ def test_ops_launch_on_cuda_and_count(cuda):
     ops.quorum_reached(votes, 2, 3)
     assert ops.LAUNCHES == {"tally_votes": 1, "tally_decide": 1,
                             "masked_tally": 1, "stream_tally_decide_hist": 0,
-                            "race_card_hist": 0, "masked_sat": 0}
+                            "race_card_hist": 0, "masked_sat": 0,
+                            "sorted_prefix": 0}
 
 
 @pytest.mark.parametrize("S,n,M,G,K,tier", [
@@ -442,7 +444,8 @@ def test_card_race_chunk_is_one_launch(cuda):
         torch.cuda.synchronize()
     assert ops.LAUNCHES == {"tally_votes": 0, "tally_decide": 0,
                             "masked_tally": 0, "stream_tally_decide_hist": 0,
-                            "race_card_hist": 3, "masked_sat": 0}
+                            "race_card_hist": 3, "masked_sat": 0,
+                            "sorted_prefix": 0}
     names = [e.key.lower() for e in prof.key_averages()]
     assert not [k for k in names if "sort" in k or "scatter" in k
                 or "tally_decide" in k], names
@@ -543,8 +546,10 @@ def test_masked_sat_takes_the_mixed_table_through_the_engine(cuda, per):
 
 def test_masked_fast_path_stream_one_launch_a_chunk(cuda):
     """The masked fast path's stream on the mixed n=12 table launches
-    masked_sat once a chunk and nothing else, and equals the stream on the
-    plain versions: counts, histogram and max_ms equal, means to 1e-5."""
+    sorted_prefix and masked_sat once a chunk each and nothing else, no
+    sort, and equals the stream on the plain versions: counts, histogram
+    and max_ms equal, means to 1e-5."""
+    from torch.profiler import ProfilerActivity, profile
     from chip_smoke import mixed_members, plain_quorum_kernels
     from repro_torch.montecarlo import engine, rng
     table = engine.build_mask_table([m.masks(12) for m in mixed_members()],
@@ -552,10 +557,47 @@ def test_masked_fast_path_stream_one_launch_a_chunk(cuda):
     run = lambda: streaming.fast_path_stream(
         rng.root(9), table, n=12, trials=300_000, chunk=65_536, shard=False)
     ops.reset_launches()
-    got = run()
-    torch.cuda.synchronize()
-    assert ops.LAUNCHES == {k: 5 if k == "masked_sat" else 0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = run()
+        torch.cuda.synchronize()
+    assert ops.LAUNCHES == {k: 5 if k in ("masked_sat", "sorted_prefix")
+                            else 0 for k in ops.LAUNCHES}
+    names = [e.key.lower() for e in prof.key_averages()]
+    assert [k for k in names if "sorted_prefix_kernel" in k], names
+    assert not [k for k in names if "sort" in k
+                and "sorted_prefix_kernel" not in k], names
+    with plain_quorum_kernels():
+        want = run()
+    for f in ("n_trials", "n_fast", "n_recovery", "n_undecided", "hist",
+              "max_ms"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert torch.allclose(got.mean_ms, want.mean_ms, rtol=1e-5, atol=0.0)
+
+
+def test_card_fast_path_stream_sorts_through_sorted_prefix(cuda):
+    """The card fast path's stream on the cardinality n = 11 table
+    launches sorted_prefix once a chunk, no other quorum kernel and no
+    sort, and equals the stream on the plain versions (torch.sort):
+    integers and max_ms equal, means to 1e-5."""
+    from torch.profiler import ProfilerActivity, profile
+    from chip_smoke import plain_quorum_kernels
+    from repro_torch.frontier import cardinality_family
+    from repro_torch.montecarlo import engine, rng
+    table = engine.build_mask_table([m.masks() for m in
+                                     cardinality_family(11)], device=cuda)
+    run = lambda: streaming.fast_path_stream(
+        rng.root(6), table, n=11, trials=300_000, chunk=65_536, shard=False)
+    run()
+    ops.reset_launches()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = run()
+        torch.cuda.synchronize()
+    assert ops.LAUNCHES == {k: 5 if k == "sorted_prefix" else 0
                             for k in ops.LAUNCHES}
+    names = [e.key.lower() for e in prof.key_averages()]
+    assert [k for k in names if "sorted_prefix_kernel" in k], names
+    assert not [k for k in names if "sort" in k
+                and "sorted_prefix_kernel" not in k], names
     with plain_quorum_kernels():
         want = run()
     for f in ("n_trials", "n_fast", "n_recovery", "n_undecided", "hist",
@@ -1237,7 +1279,8 @@ def _experiment(case, dev):
 def test_experiment_kernels_equal_plain_versions(cuda, case):
     """An Experiment's Monte-Carlo run on the card launches its path's
     kernel and no other (a masked_tally call with the three masked_sat of
-    the race's saturations), and equals the same run with the quorum
+    the race's saturations; the materialized and regime races' three
+    sorted_prefix a call), and equals the same run with the quorum
     kernels swapped for their plain versions: decide bits and latencies,
     or counts, histograms, maxima and occupancy, equal; means to 1e-5."""
     from chip_smoke import plain_quorum_kernels, same_stream
@@ -1248,6 +1291,8 @@ def test_experiment_kernels_equal_plain_versions(cuda, case):
     want = {k: n if k == kern else 0 for k in ops.LAUNCHES}
     if kern == "masked_tally":
         want["masked_sat"] = 3 * n
+    if kern in ("masked_tally", "tally_decide"):
+        want["sorted_prefix"] = 3 * n
     assert ops.LAUNCHES == want
     with plain_quorum_kernels():
         want = exp.run("montecarlo")
@@ -1370,9 +1415,10 @@ MESH_TRIALS, MESH_CHUNK = 200_003, 16_384
 @pytest.mark.parametrize("kind", ["race", "regimes"])
 def test_sharded_stream_equals_plain_versions_on_card(cuda, kind):
     """A 1 x 4 sharded stream on the card (race_card_hist a domain chunk on
-    the race; tally_decide on the regime stream) launches its kernel
-    4 x ceil(T / 4 / chunk) times and no other, and equals the same mesh
-    on the plain versions: integers and maxima equal, means to 1e-5."""
+    the race; tally_decide and three sorted_prefix on the regime stream)
+    launches its kernel 4 x ceil(T / 4 / chunk) times and no other, and
+    equals the same mesh on the plain versions: integers and maxima equal,
+    means to 1e-5."""
     from chip_smoke import plain_quorum_kernels, same_stream
     from repro_torch.frontier import cardinality_family
     from repro_torch.montecarlo import engine, regimes, rng
@@ -1390,8 +1436,10 @@ def test_sharded_stream_equals_plain_versions_on_card(cuda, kind):
     torch.cuda.synchronize()
     kern = "tally_decide" if reg is not None else "race_card_hist"
     per = -(-(-(-MESH_TRIALS // 4)) // MESH_CHUNK)
-    assert ops.LAUNCHES == {k: 4 * per if k == kern else 0
-                            for k in ops.LAUNCHES}
+    want = {k: 4 * per if k == kern else 0 for k in ops.LAUNCHES}
+    if reg is not None:
+        want["sorted_prefix"] = 3 * 4 * per
+    assert ops.LAUNCHES == want
     assert got.n_trials.tolist() == [MESH_TRIALS] * 271
     with plain_quorum_kernels():
         want = run()

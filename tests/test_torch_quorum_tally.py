@@ -473,7 +473,8 @@ def test_ops_runs_plain_versions_on_cpu_without_launching():
     assert torch.equal(ops.tally_votes(votes, 2), ref.tally_votes(votes, 2))
     assert ops.LAUNCHES == {"tally_votes": 0, "tally_decide": 0,
                             "masked_tally": 0, "stream_tally_decide_hist": 0,
-                            "race_card_hist": 0, "masked_sat": 0}
+                            "race_card_hist": 0, "masked_sat": 0,
+                            "sorted_prefix": 0}
 
 
 def test_ops_rejects_other_devices():
