@@ -39,9 +39,6 @@ Phases, one JSON line each:
   6. sweep    the 271-system n=11 sweep at 10^7 trials per pass, chunk
               16384, with the sweep's own checks (the race_card_hist path:
               one launch and one fill a race chunk)
-  profile     40 chunks of each pass of both settings, timed, then traced
-              with torch.profiler: the card's busy and idle share, device
-              launches per chunk and the busiest operations
   quorum_reached   ops.quorum_reached on the n=11 race's 16384 x 11 votes
               (the tally_votes path), equal to the plain version and to
               tally_decide's reached bits
@@ -491,30 +488,30 @@ def device_profile(fn, top: int = 0) -> dict:
     """Run ``fn`` once under torch.profiler: its wall seconds, the seconds
     the card was busy (the device time of every kernel, copy and memset it
     ran), the device seconds and the recorded launches by kernel name and,
-    with ``top``, the busiest kernels as [name, launches, ms]."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    with ``top``, the busiest kernels as [name, launches, ms].
+
+    Only the trace's kernel, copy and memset records count (ffpbench's
+    ``DEVICE_CATEGORIES``): the card's side of a ``repro_torch.tracing``
+    span (``gpu_user_annotation``) is a range around kernels, not work."""
+    from ffpbench.trace import Profiler
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    prof = Profiler()
+    prof.start()
+    try:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    # device-side events only: a CPU-side op also carries the device time
-    # of the kernels it launched, which would count them twice.
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA
-              and e.self_device_time_total > 0]
-    events.sort(key=lambda e: -e.self_device_time_total)
-    return {"wall_s": wall,
-            "device_busy_s": sum(e.self_device_time_total
-                                 for e in events) * 1e-6,
-            "by_kernel_s": {e.key: e.self_device_time_total * 1e-6
-                            for e in events},
-            "by_kernel_n": {e.key: e.count for e in events},
-            "top": [[e.key[:70], e.count, e.self_device_time_total * 1e-3]
-                    for e in events[:top]]}
+    finally:
+        prof.stop()
+    secs, count = {}, {}
+    for name, _, dur, _ in prof.records()["device"]:
+        secs[name] = secs.get(name, 0.0) + dur * 1e-6
+        count[name] = count.get(name, 0) + 1
+    names = sorted(secs, key=lambda k: -secs[k])
+    return {"wall_s": wall, "device_busy_s": sum(secs.values()),
+            "by_kernel_s": secs, "by_kernel_n": count,
+            "top": [[k[:70], count[k], secs[k] * 1e3] for k in names[:top]]}
 
 
 def mixed_members(n: int = 12):
@@ -957,7 +954,7 @@ def ssd_timing(xw, da, Bm, Cm, chunk, s0) -> dict:
     rate = BF16_TC_OPS_PER_S if tc else FP32_OPS_PER_S
     b_ms = nbytes / HBM_BYTES_PER_S * 1e3
     o_ms = least / rate * 1e3
-    lib = ssd_kernel._load()
+    lib = ssd_kernel.LIB.load()
     return dict(
         shape=[B, S, nh, hd, ds, chunk], instance="tensor-core" if tc
         else "f32", ms=kms, plain_ms=pms,
@@ -1172,7 +1169,7 @@ def model_kernel_phase(dev, serving: dict) -> dict:
         out["flash_attention" + sfx] = dict(
             shape=list(q.shape), kv_heads=k.shape[1],
             instance="tensor-core",
-            smem_bytes=fa_kernel._load().flash_smem(1, q.shape[-1]),
+            smem_bytes=fa_kernel.LIB.load().flash_smem(1, q.shape[-1]),
             bound_rule="max(q, k, v, o bytes / 3.35 TB/s, the causal pairs' "
                        "4*hd operations / 989 TFLOP/s bf16 tensor cores)",
             **stats("flash_tc_kernel",
@@ -2511,9 +2508,8 @@ CKPT_ROOT = os.path.join(ROOT, "build", "chip_smoke_ckpt")
 
 def kernel_counters() -> list:
     """The launch counters of all four kernel libraries."""
-    from repro_torch.kernels.quorum_tally import ops as qt_ops
-    return [qt_ops.LAUNCHES] + [m.LAUNCHES
-                                for m, _ in model_kernels().values()]
+    from repro_torch.kernels import _build
+    return [lib.LAUNCHES for lib in _build.libraries()]
 
 
 def reset_all_launches() -> None:
@@ -2866,12 +2862,9 @@ def main() -> None:
          cuda=torch.version.cuda, python=sys.version.split()[0])
 
     from concurrent.futures import ThreadPoolExecutor
-    from repro_torch.kernels.flash_attention import kernel as fa_kernel
-    from repro_torch.kernels.rmsnorm import kernel as rn_kernel
-    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    libs = {"quorum_tally": kernel, "ssd_scan": ssd_kernel,
-            "flash_attention": fa_kernel, "rmsnorm": rn_kernel}
+    libs = {lib.name: lib for lib in _build.libraries()}
     with ThreadPoolExecutor(len(libs)) as ex:  # one nvcc per source, at once
         futs = {k: ex.submit(m.build) for k, m in libs.items()}
         built = {k: f.result() for k, f in futs.items()}
@@ -3388,37 +3381,6 @@ def main() -> None:
          frontier_size=len(res.frontier_indices),
          frontier=list(res.frontier_labels),
          jax_cpu_frontier_for_reference=baseline)
-
-    # ---- where the time goes: 40 chunks of each pass of each setting ------
-    from repro_torch.frontier import cardinality_family
-    table11 = build_mask_table([m.masks() for m in cardinality_family(11)],
-                               device=dev)
-    windows = {}
-    for cell, table, n, chunk in (("sweep_n11", table11, 11, 16_384),
-                                  ("mixed_n12", table12, 12, 8_192)):
-        for p in ("fast", "race"):
-            if p == "race":
-                fn = lambda: streaming.race_stream(
-                    rng.root(6), table, offsets, n=n, k_proposers=2,
-                    trials=40 * chunk, chunk=chunk)
-            else:
-                fn = lambda: streaming.fast_path_stream(
-                    rng.root(6), table, n=n, trials=40 * chunk, chunk=chunk)
-            fn()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            prof = device_profile(fn, top=6)
-            windows[f"{cell}.{p}"] = dict(
-                chunks=40, wall_s=wall,
-                device_busy_s=prof["device_busy_s"],
-                idle_share=1.0 - prof["device_busy_s"] / wall,
-                device_launches_per_chunk=sum(
-                    prof["by_kernel_n"].values()) / 40,
-                profiled_wall_s=prof["wall_s"], top_ms=prof["top"])
-    emit("profile", **windows)
 
     # ---- quorum_reached (tally_votes) --------------------------------------
     ops.reset_launches()

@@ -4,10 +4,10 @@
 instances: bf16 inputs run the tensor-core instance (``mma.sync`` bf16
 products, P rounded to bf16 in registers), f32 inputs the f32-FMA instance;
 its header says which TPU kernel it replaces, what bounds it on the card and
-what its design does about that.  ``build()`` compiles it with ``nvcc`` on
-first use into ``build/`` beside this file (git-ignored,
-``kernels/_build.py``), and ``ctypes`` loads it.  Nothing is compiled or
-loaded at import: this module imports on a machine without CUDA.
+what its design does about that.  ``LIB`` (``kernels/_build.py``) compiles
+it with ``nvcc`` on first use into ``build/`` beside this file (git-ignored)
+and loads it.  Nothing is compiled or loaded at import: this module imports
+on a machine without CUDA.
 
 ``attention`` refuses inputs that autograd would record through (the kernel
 has no backward), checks device, dtypes, shapes, strides and sizes, allocates
@@ -20,9 +20,8 @@ from __future__ import annotations
 
 import ctypes
 import math
-import threading
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Optional
 
 import torch
 
@@ -32,51 +31,16 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 
 MAX_HD = 256          # the output accumulators are sized for hd <= 256
 
-LAUNCHES: Dict[str, int] = {"flash_attention": 0, "flash_attention_tc": 0}
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
-_lib = None
-_lib_lock = threading.Lock()
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
-def build() -> Tuple[Path, str]:
-    """Compile ``csrc/flash_attention.cu`` unless an up-to-date library
-    exists.  Returns (library path, compiler log; empty when nothing was
-    built)."""
-    return _build.build(SOURCE, "flash_attention")
-
-
-def _load():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            path, _ = build()
-            lib = ctypes.CDLL(str(path))
-            P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-            lib.flash_smem.argtypes = [I, I]
-            lib.flash_smem.restype = ctypes.c_size_t
-            lib.flash_forward.argtypes = ([I] + [P, L, L, L] * 4 + [I] * 8
-                                          + [ctypes.c_float, I, P])
-            lib.flash_forward.restype = I
-            _lib = lib
-    return _lib
-
-
-def _check(t: torch.Tensor, name: str, shape, dtype, device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} lies on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
-                         f"{tuple(shape)}")
-    if t.stride(-1) != 1:
-        raise ValueError(f"{name} must be contiguous along its last axis, "
-                         f"has strides {t.stride()}")
+LIB = _build.Library(SOURCE, "flash_attention", {
+    "flash_smem": ([_I, _I], ctypes.c_size_t),
+    "flash_forward": ([_I] + [_P, _L, _L, _L] * 4 + [_I] * 8
+                      + [ctypes.c_float, _I, _P], _I),
+}, ("flash_attention", "flash_attention_tc"))
+LAUNCHES = LIB.LAUNCHES
+reset_launches = LIB.reset_launches
+build = LIB.build
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -100,9 +64,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, H, S, hd = q.shape
     KV, T = k.shape[1], k.shape[2]
     dev = q.device
-    _check(q, "q", (B, H, S, hd), q.dtype, dev)
-    _check(k, "k", (B, KV, T, hd), q.dtype, dev)
-    _check(v, "v", (B, KV, T, hd), q.dtype, dev)
+    _build.check(q, "q", q.dtype, (B, H, S, hd), dev, True)
+    _build.check(k, "k", q.dtype, (B, KV, T, hd), dev, True)
+    _build.check(v, "v", q.dtype, (B, KV, T, hd), dev, True)
     if not (1 <= hd <= MAX_HD):
         raise ValueError(f"the flash-attention kernel takes 1 <= hd <= "
                          f"{MAX_HD}, got {hd}")
@@ -119,7 +83,6 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     o = torch.empty_like(q)            # q's layout: strided like q
     if B * H * S == 0:
         return o
-    lib = _load()
     args = []
     for t in (q, k, v, o):
         args += [t.data_ptr(), t.stride(0), t.stride(1), t.stride(2)]
@@ -128,15 +91,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     vec = hd % 8 == 0 and all(
         t.data_ptr() % 16 == 0 and all(x % 8 == 0 for x in t.stride()[:3])
         for t in (q, k, v))
-    with torch.cuda.device(dev):
-        err = lib.flash_forward(
-            int(tc), *args, B, H, KV, S, T, hd, int(causal),
-            0 if window is None else int(window), 1.0 / math.sqrt(hd),
-            int(vec), ctypes.c_void_p(torch.cuda.current_stream(dev)
-                                      .cuda_stream))
-    if err != 0:
-        raise RuntimeError(f"flash_attention launch failed with CUDA error "
-                           f"{err}")
-    LAUNCHES["flash_attention"] += 1
+    LIB.launch("flash_attention", "flash_forward", dev, int(tc), *args, B, H,
+               KV, S, T, hd, int(causal), 0 if window is None else int(window),
+               1.0 / math.sqrt(hd), int(vec))
     LAUNCHES["flash_attention_tc"] += int(tc)
     return o

@@ -2,10 +2,10 @@
 
 ``csrc/quorum_tally.cu`` holds seven CUDA C++ kernels for ``sm_90a``; its
 header says which TPU kernel each replaces, what bounds it on the card and
-what its design does about that.  ``build()`` compiles the source with
-``nvcc`` on first use into ``build/`` beside this file (git-ignored,
-``kernels/_build.py``), and ``ctypes`` loads it.  Nothing is
-compiled or loaded at import: this module imports on a machine without CUDA.
+what its design does about that.  ``LIB`` (``kernels/_build.py``) compiles
+the source with ``nvcc`` on first use into ``build/`` beside this file
+(git-ignored) and loads it.  Nothing is compiled or loaded at import: this
+module imports on a machine without CUDA.
 
 Every wrapper checks device, dtype, shape and contiguity, allocates the
 outputs, launches on ``torch.cuda.current_stream()``, raises if the launch
@@ -16,13 +16,12 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-import threading
 from pathlib import Path
-from typing import Dict, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.sketch import sketch_gamma
 
 from . import ref
 
@@ -37,76 +36,38 @@ SORTED_PREFIX_MAX_N = 32
 # least one.
 MAX_SCRATCH_BYTES = 2 ** 30
 
-LAUNCHES: Dict[str, int] = {"tally_votes": 0, "tally_decide": 0,
-                            "masked_tally": 0, "stream_tally_decide_hist": 0,
-                            "race_card_hist": 0, "masked_sat": 0,
-                            "sorted_prefix": 0}
+_P, _I, _F, _L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                  ctypes.c_longlong)
 
-_lib = None
-_lib_lock = threading.Lock()
-_MASKED_PLANS: Dict[tuple, tuple] = {}
-_STREAM_PLANS: Dict[tuple, tuple] = {}
-_CARD_PLANS: Dict[tuple, tuple] = {}
-_SAT_PLANS: Dict[tuple, tuple] = {}
+# Each C entry point: (argument types, result type).  A plan entry point's
+# last argument is the array it writes the plan into.
+SIGNATURES = {
+    "qt_tally_votes": ([_P, _I, _I, _I, _P, _P], _I),
+    "qt_tally_decide": ([_P, _I, _I, _I, _I, _P, _P, _P, _P, _P], _I),
+    "qt_masked_plan": ([_I, _I, _I, _L * 5], _I),
+    "qt_masked_tally": ([_P, _P, _P] + [_I] * 7 + [_P, _L, _P, _P], _I),
+    "qt_stream_plan": ([_I] * 6 + [_I * 6], _I),
+    "qt_stream_tally_decide_hist": (
+        [_P] * 11 + [_I] * 10 + [_F, _I, _F] + [_I] * 5 + [_P] * 10, _I),
+    "qt_card_plan": ([_I] * 5 + [_L * 7], _I),
+    "qt_race_card_hist": (
+        [_P] * 5 + [_I] * 7 + [_F, _I, _F] + [_I] * 6 + [_P, _L, _L]
+        + [_P] * 11, _I),
+    "qt_sat_plan": ([_I] * 4 + [_L * 6], _I),
+    "qt_masked_sat": ([_P] * 5 + [_L] * 4 + [_I] * 9 + [_F] + [_I] * 3
+                      + [_P], _I),
+    "qt_sorted_prefix": ([_P, _L, _I, _I, _I, _P, _P, _P], _I),
+}
 
+LIB = _build.Library(SOURCE, "quorum_tally", SIGNATURES, (
+    "tally_votes", "tally_decide", "masked_tally", "stream_tally_decide_hist",
+    "race_card_hist", "masked_sat", "sorted_prefix"))
+LAUNCHES = LIB.LAUNCHES
+reset_launches = LIB.reset_launches
+build = LIB.build
 
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
-def build() -> Tuple[Path, str]:
-    """Compile ``csrc/quorum_tally.cu`` unless an up-to-date library exists.
-    Returns (library path, compiler log; empty when nothing was built)."""
-    return _build.build(SOURCE, "quorum_tally")
-
-
-def bind(path) -> ctypes.CDLL:
-    """The library at ``path`` with its C entry points' argument types."""
-    lib = ctypes.CDLL(str(path))
-    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    L = ctypes.c_longlong
-    lib.qt_tally_votes.argtypes = [P, I, I, I, P, P]
-    lib.qt_tally_decide.argtypes = [P, I, I, I, I, P, P, P, P, P]
-    lib.qt_masked_plan.argtypes = [I, I, I, ctypes.POINTER(L)]
-    lib.qt_masked_tally.argtypes = [P, P, P] + [I] * 7 + [P, L, P, P]
-    lib.qt_stream_plan.argtypes = [I] * 6 + [ctypes.POINTER(I)]
-    lib.qt_stream_tally_decide_hist.argtypes = (
-        [P] * 11 + [I] * 10 + [F, I, F] + [I] * 5 + [P] * 10)
-    lib.qt_card_plan.argtypes = [I] * 5 + [ctypes.POINTER(L)]
-    lib.qt_race_card_hist.argtypes = (
-        [P] * 5 + [I] * 7 + [F, I, F] + [I] * 6 + [P, L, L] + [P] * 11)
-    lib.qt_sat_plan.argtypes = [I] * 4 + [ctypes.POINTER(L)]
-    lib.qt_masked_sat.argtypes = ([P] * 5 + [L] * 4 + [I] * 9 + [F]
-                                  + [I] * 3 + [P])
-    lib.qt_sorted_prefix.argtypes = [P, L, I, I, I, P, P, P]
-    for f in ("qt_tally_votes", "qt_tally_decide", "qt_masked_plan",
-              "qt_masked_tally", "qt_stream_plan",
-              "qt_stream_tally_decide_hist", "qt_card_plan",
-              "qt_race_card_hist", "qt_sat_plan", "qt_masked_sat",
-              "qt_sorted_prefix"):
-        getattr(lib, f).restype = I
-    return lib
-
-
-def _load():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            _lib = bind(build()[0])
-    return _lib
-
-
-def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} lies on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+_STREAM_REFUSED = ("32 trials' K={1} rows of n={0} acceptors exceed the 1 "
+                   "GiB of device memory a block may stage them in")
 
 
 def _require_cuda(t: torch.Tensor) -> None:
@@ -124,15 +85,6 @@ def _check_sizes(n: int, n_values: int) -> None:
                          f"values, got K={n_values}")
 
 
-def _raise_on(err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed with CUDA error {err}")
-
-
-def _stream(device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
-
-
 def tally_votes(votes: torch.Tensor, n_values: int) -> torch.Tensor:
     """(S, n) int32 votes (< 0 = no vote) -> (S, K) int32 counts, for any
     n and K (K compares a vote up to K = 8, else one pass over each row
@@ -145,15 +97,11 @@ def tally_votes(votes: torch.Tensor, n_values: int) -> torch.Tensor:
         raise ValueError(f"tally_votes takes 1 <= K < 2^30 values, got "
                          f"K={n_values}")
     dev = votes.device
-    _check(votes, "votes", torch.int32, (S, n), dev)
+    _build.check(votes, "votes", torch.int32, (S, n), dev)
     counts = torch.empty((S, n_values), dtype=torch.int32, device=dev)
     if S:
-        lib = _load()
-        with torch.cuda.device(dev):
-            err = lib.qt_tally_votes(votes.data_ptr(), S, n, n_values,
-                                     counts.data_ptr(), _stream(dev))
-        _raise_on(err, "tally_votes")
-        LAUNCHES["tally_votes"] += 1
+        LIB.launch("tally_votes", "qt_tally_votes", dev, votes.data_ptr(),
+                   S, n, n_values, counts.data_ptr())
     return counts
 
 
@@ -167,37 +115,17 @@ def tally_decide(votes: torch.Tensor, n_values: int, q) -> tuple:
     _require_cuda(votes)
     _check_sizes(n, n_values)
     dev = votes.device
-    _check(votes, "votes", torch.int32, (S, n), dev)
+    _build.check(votes, "votes", torch.int32, (S, n), dev)
     counts = torch.empty((S, n_values), dtype=torch.int32, device=dev)
     winner = torch.empty((S,), dtype=torch.int32, device=dev)
     max_count = torch.empty((S,), dtype=torch.int32, device=dev)
     reached = torch.empty((S,), dtype=torch.bool, device=dev)
     if S:
-        lib = _load()
-        with torch.cuda.device(dev):
-            err = lib.qt_tally_decide(
-                votes.data_ptr(), S, n, n_values, int(q), counts.data_ptr(),
-                winner.data_ptr(), max_count.data_ptr(), reached.data_ptr(),
-                _stream(dev))
-        _raise_on(err, "tally_decide")
-        LAUNCHES["tally_decide"] += 1
+        LIB.launch("tally_decide", "qt_tally_decide", dev, votes.data_ptr(),
+                   S, n, n_values, int(q), counts.data_ptr(),
+                   winner.data_ptr(), max_count.data_ptr(),
+                   reached.data_ptr())
     return counts, winner, max_count, reached
-
-
-def _masked_plan(lib, dev, n: int, G: int, K: int) -> tuple:
-    """(rows a chunk, shared memory, blocks the card holds at once,
-    device-memory bytes a block works in, 0 where it works in shared
-    memory, trials a tile) for a shape, from ``qt_masked_plan`` once per
-    device and shape."""
-    key = (dev.index, n, G, K)
-    plan = _MASKED_PLANS.get(key)
-    if plan is None:
-        out = (ctypes.c_longlong * 5)()
-        with torch.cuda.device(dev):
-            err = lib.qt_masked_plan(n, G, K, out)
-        _raise_on(err, "masked_tally plan")
-        plan = _MASKED_PLANS[key] = tuple(out)
-    return plan
 
 
 def masked_tally(votes: torch.Tensor, weights: torch.Tensor,
@@ -213,57 +141,35 @@ def masked_tally(votes: torch.Tensor, weights: torch.Tensor,
     _require_cuda(votes)
     _check_sizes(n, n_values)
     dev = votes.device
-    _check(votes, "votes", torch.int32, (S, n), dev)
-    _check(weights, "weights", torch.float32, (G, n), dev)
-    _check(thresholds, "thresholds", torch.float32, (G,), dev)
+    _build.check(votes, "votes", torch.int32, (S, n), dev)
+    _build.check(weights, "weights", torch.float32, (G, n), dev)
+    _build.check(thresholds, "thresholds", torch.float32, (G,), dev)
     if G >= 2 ** 31:
         raise ValueError(f"masked_tally takes G < 2^31 rows, got {G}")
     out = torch.empty((S, G), dtype=torch.int32, device=dev)
     if S and G:
-        lib = _load()
-        rc, smem, blocks, region, tile = _masked_plan(lib, dev, n, G,
-                                                      n_values)
+        # (rows a chunk, shared memory, blocks the card holds at once,
+        # device-memory bytes a block works in, 0 where it works in shared
+        # memory, trials a tile)
+        rc, smem, blocks, region, tile = LIB.plan(
+            "masked_tally", "qt_masked_plan", dev, (n, G, n_values))
         nbx = max(1, min(-(-S // tile) * -(-G // rc), blocks))
         scratch = None
         if region:  # the blocks work in device memory: at most 1 GiB of it
             nbx = max(1, min(nbx, MAX_SCRATCH_BYTES // region))
             scratch = torch.empty(nbx * region, dtype=torch.uint8,
                                   device=dev)
-        with torch.cuda.device(dev):
-            err = lib.qt_masked_tally(
-                votes.data_ptr(), weights.data_ptr(), thresholds.data_ptr(),
-                S, n, G, n_values, rc, smem, nbx,
-                None if scratch is None else scratch.data_ptr(), region,
-                out.data_ptr(), _stream(dev))
-        _raise_on(err, "masked_tally")
-        LAUNCHES["masked_tally"] += 1
+        LIB.launch("masked_tally", "qt_masked_tally", dev, votes.data_ptr(),
+                   weights.data_ptr(), thresholds.data_ptr(), S, n, G,
+                   n_values, rc, smem, nbx,
+                   None if scratch is None else scratch.data_ptr(), region,
+                   out.data_ptr())
     return out
 
 
 @functools.lru_cache(maxsize=None)
 def _log_gamma(precision: float) -> float:
-    from repro_torch.montecarlo.streaming import sketch_gamma
     return math.log(sketch_gamma(precision))
-
-
-def _stream_plan(lib, dev, n: int, K: int, M: int, G: tuple) -> tuple:
-    """(systems a block, threads, shared memory, blocks the card holds at
-    once, masks resident in shared memory, device-memory bytes a block
-    stages its tile in) for a shape, from ``qt_stream_plan`` once per
-    device and shape."""
-    key = (dev.index, n, K, M, G)
-    plan = _STREAM_PLANS.get(key)
-    if plan is None:
-        out = (ctypes.c_int * 6)()
-        with torch.cuda.device(dev):
-            err = lib.qt_stream_plan(n, K, M, *G, out)
-        if err == -1:
-            raise ValueError(f"32 trials' K={K} rows of n={n} acceptors "
-                             f"exceed the 1 GiB of device memory a block "
-                             f"may stage them in")
-        _raise_on(err, "stream_tally_decide_hist plan")
-        plan = _STREAM_PLANS[key] = tuple(out)
-    return plan
 
 
 def stream_tally_decide_hist(votes: torch.Tensor, val_arr: torch.Tensor,
@@ -301,7 +207,7 @@ def stream_tally_decide_hist(votes: torch.Tensor, val_arr: torch.Tensor,
             (t2f, "t2f", f32, (M, G2f)), (valid, "valid", torch.bool, (S,))):
         if (t.dtype != dtype or t.shape != shape or t.device != dev
                 or not t.is_contiguous()):
-            _check(t, name, dtype, shape, dev)
+            _build.check(t, name, dtype, shape, dev)
     ref.check_stream(S, n, k_sat)
     ks = tuple(int(k) for k in k_sat)
     if not 1 <= M <= 65535:
@@ -310,9 +216,12 @@ def stream_tally_decide_hist(votes: torch.Tensor, val_arr: torch.Tensor,
     if max(G1, G2c, G2f) > 65535:
         raise ValueError(f"stream kernel takes at most 65535 quorum rows a "
                          f"phase, got {(G1, G2c, G2f)}")
-    lib = _load()
-    mg, threads, smem, blocks, res, big = _stream_plan(lib, dev, n, K, M,
-                                                       (G1, G2c, G2f))
+    # (systems a block, threads, shared memory, blocks the card holds at
+    # once, masks resident in shared memory, device-memory bytes a block
+    # stages its tile in)
+    mg, threads, smem, blocks, res, big = LIB.plan(
+        "stream_tally_decide_hist", "qt_stream_plan", dev,
+        (n, K, M, G1, G2c, G2f), _STREAM_REFUSED)
     groups = -(-M // mg)
     nbx = max(1, min(-(-S // 32), blocks // groups))
     scratch = None
@@ -334,42 +243,22 @@ def stream_tally_decide_hist(votes: torch.Tensor, val_arr: torch.Tensor,
     sum_ms, max_ms, _ = fl.view(f32).split([M, M, 2 * M * nbx])
     if S:
         p = buf.data_ptr()
-        with torch.cuda.device(dev):
-            err = lib.qt_stream_tally_decide_hist(
-                votes.data_ptr(), val_arr.data_ptr(), arrive.data_ptr(),
-                classic.data_ptr(), w1.data_ptr(), t1.data_ptr(),
-                w2c.data_ptr(), t2c.data_ptr(), w2f.data_ptr(),
-                t2f.data_ptr(), valid.data_ptr(), S, n, K, M, G1, G2c, G2f,
-                ks[0], ks[1], ks[2], _log_gamma(precision), bins,
-                float(undecided_ms), mg, threads, smem, nbx, res,
-                None if scratch is None else scratch.data_ptr(), p,
-                p + 4 * nz, p + 4 * M * bins, p + 4 * (nz + 3 * M),
-                p + 4 * (nz + 4 * M), p + 4 * (nz + 5 * M),
-                p + 4 * (nz + 5 * M + M * nbx), p + 4 * (nz + 3 * M + nf),
-                _stream(dev))
-        _raise_on(err, "stream_tally_decide_hist")
-        LAUNCHES["stream_tally_decide_hist"] += 1
+        LIB.launch(
+            "stream_tally_decide_hist", "qt_stream_tally_decide_hist", dev,
+            votes.data_ptr(), val_arr.data_ptr(), arrive.data_ptr(),
+            classic.data_ptr(), w1.data_ptr(), t1.data_ptr(),
+            w2c.data_ptr(), t2c.data_ptr(), w2f.data_ptr(), t2f.data_ptr(),
+            valid.data_ptr(), S, n, K, M, G1, G2c, G2f, ks[0], ks[1], ks[2],
+            _log_gamma(precision), bins, float(undecided_ms), mg, threads,
+            smem, nbx, res, None if scratch is None else scratch.data_ptr(),
+            p, p + 4 * nz, p + 4 * M * bins, p + 4 * (nz + 3 * M),
+            p + 4 * (nz + 4 * M), p + 4 * (nz + 5 * M),
+            p + 4 * (nz + 5 * M + M * nbx), p + 4 * (nz + 3 * M + nf))
     else:
         buf[:nz + 4 * M].zero_()
         max_ms.fill_(-math.inf)
     return hist, {"n_fast": n_fast, "n_recovery": n_rec,
                   "n_undecided": n_und, "sum_ms": sum_ms, "max_ms": max_ms}
-
-
-def _card_plan(lib, dev, n: int, P: int, ks: tuple) -> tuple:
-    """(column groups, column threads a group, threads, shared memory,
-    blocks the card holds at once, device-memory bytes a block works in, 0
-    where it works in shared memory, trials a tile) for a shape, from
-    ``qt_card_plan`` once per device and shape."""
-    key = (dev.index, n, P, ks)
-    plan = _CARD_PLANS.get(key)
-    if plan is None:
-        out = (ctypes.c_longlong * 7)()
-        with torch.cuda.device(dev):
-            err = lib.qt_card_plan(n, P, *ks, out)
-        _raise_on(err, "race_card_hist plan")
-        plan = _CARD_PLANS[key] = tuple(out)
-    return plan
 
 
 def race_card_hist(votes: torch.Tensor, arrive: torch.Tensor,
@@ -397,7 +286,7 @@ def race_card_hist(votes: torch.Tensor, arrive: torch.Tensor,
             (classic, "classic", torch.float32, (S, n)),
             (valid, "valid", torch.bool, (S,)),
             (pairs, "pairs", torch.int32, (P, 2))):
-        _check(t, name, dtype, shape, dev)
+        _build.check(t, name, dtype, shape, dev)
     ref.check_stream(S, n, k_sat)
     ks = tuple(int(k) for k in k_sat)
     if bins < 1:
@@ -411,9 +300,11 @@ def race_card_hist(votes: torch.Tensor, arrive: torch.Tensor,
         pairs._race_card_checked = mark
     V, Q = k2f + 1, P + k2f
     cells = V * Q
-    lib = _load()
-    G, q32, threads, smem, blocks, region, tile = _card_plan(lib, dev, n,
-                                                             P, ks)
+    # (column groups, column threads a group, threads, shared memory,
+    # blocks the card holds at once, device-memory bytes a block works in,
+    # 0 where it works in shared memory, trials a tile)
+    G, q32, threads, smem, blocks, region, tile = LIB.plan(
+        "race_card_hist", "qt_card_plan", dev, (n, P) + ks)
     nbx = max(1, min(-(-S // tile), blocks))
     scratch = None
     if region:  # the blocks work in device memory: at most 1 GiB of it
@@ -436,36 +327,18 @@ def race_card_hist(votes: torch.Tensor, arrive: torch.Tensor,
         return buf[at[i]:at[i] + sizes[i]].view(dtype).view(*shape)
 
     p0 = buf.data_ptr()
-    with torch.cuda.device(dev):
-        err = lib.qt_race_card_hist(
-            votes.data_ptr(), arrive.data_ptr(), classic.data_ptr(),
-            valid.data_ptr(), pairs.data_ptr(), S, n, K, P, k1, kr, k2f,
-            _log_gamma(precision), bins, float(undecided_ms), G, q32,
-            threads, smem, nbx, gb,
-            None if scratch is None else scratch.data_ptr(), region,
-            4 * at[4], *(p0 + 4 * o for o in at[:len(sizes)]), _stream(dev))
-    _raise_on(err, "race_card_hist")
-    LAUNCHES["race_card_hist"] += 1
+    LIB.launch("race_card_hist", "qt_race_card_hist", dev, votes.data_ptr(),
+               arrive.data_ptr(), classic.data_ptr(), valid.data_ptr(),
+               pairs.data_ptr(), S, n, K, P, k1, kr, k2f,
+               _log_gamma(precision), bins, float(undecided_ms), G, q32,
+               threads, smem, nbx, gb,
+               None if scratch is None else scratch.data_ptr(), region,
+               4 * at[4], *(p0 + 4 * o for o in at[:len(sizes)]))
     f32 = torch.float32
     return (region_of(0, k2f, V, bins), region_of(4, k2f, V, dtype=f32),
             region_of(5, k2f, V, dtype=f32), region_of(2, V),
             region_of(1, P, V, bins + 1), region_of(6, P, V, dtype=f32),
             region_of(7, P, V, dtype=f32))
-
-
-def _sat_plan(lib, dev, n: int, L: int, M: int, G: int) -> tuple:
-    """(systems a block, shared memory, blocks the card holds at once, rows
-    resident in shared memory, orders held in registers, trials a tile) for
-    a shape, from ``qt_sat_plan`` once per device and shape."""
-    key = (dev.index, n, L, M, G)
-    plan = _SAT_PLANS.get(key)
-    if plan is None:
-        out = (ctypes.c_longlong * 6)()
-        with torch.cuda.device(dev):
-            err = lib.qt_sat_plan(n, L, M, G, out)
-        _raise_on(err, "masked_sat plan")
-        plan = _SAT_PLANS[key] = tuple(out)
-    return plan
 
 
 def masked_sat(sorted_x: torch.Tensor, perm: torch.Tensor, w: torch.Tensor,
@@ -480,8 +353,8 @@ def masked_sat(sorted_x: torch.Tensor, perm: torch.Tensor, w: torch.Tensor,
     M, G, n = w.shape
     S, L = sorted_x.shape[-2:]
     dev = sorted_x.device
-    _check(w, "w", torch.float32, (M, G, n), dev)
-    _check(t, "t", torch.float32, (M, G), dev)
+    _build.check(w, "w", torch.float32, (M, G, n), dev)
+    _build.check(t, "t", torch.float32, (M, G), dev)
     if perm.device != dev:
         raise ValueError(f"perm lies on {perm.device}, expected {dev}")
     if sorted_x.stride(-1) != 1 or perm.stride(-1) != 1:
@@ -493,8 +366,10 @@ def masked_sat(sorted_x: torch.Tensor, perm: torch.Tensor, w: torch.Tensor,
     out = torch.empty((M, S), dtype=torch.float32, device=dev)
     if not (S and M):
         return out
-    lib = _load()
-    mg, smem, blocks, res, reg, tile = _sat_plan(lib, dev, n, L, M, G)
+    # (systems a block, shared memory, blocks the card holds at once, rows
+    # resident in shared memory, orders held in registers, trials a tile)
+    mg, smem, blocks, res, reg, tile = LIB.plan(
+        "masked_sat", "qt_sat_plan", dev, (n, L, M, G))
     gy = -(-M // mg)
     gx = max(1, min(-(-S // tile), blocks // gy))
     per = sorted_x.dim() == 3
@@ -502,13 +377,10 @@ def masked_sat(sorted_x: torch.Tensor, perm: torch.Tensor, w: torch.Tensor,
     xm = sorted_x.stride(0) if per else 0
     pm = perm.stride(0) if per else 0
     vec = perm.data_ptr() % 16 == 0 and ps % 2 == 0 and pm % 2 == 0
-    with torch.cuda.device(dev):
-        err = lib.qt_masked_sat(
-            sorted_x.data_ptr(), perm.data_ptr(), w.data_ptr(), t.data_ptr(),
-            out.data_ptr(), xs, xm, ps, pm, S, L, n, M, G, mg, gx, gy, smem,
-            float(big), int(res), int(reg), int(vec), _stream(dev))
-    _raise_on(err, "masked_sat")
-    LAUNCHES["masked_sat"] += 1
+    LIB.launch("masked_sat", "qt_masked_sat", dev, sorted_x.data_ptr(),
+               perm.data_ptr(), w.data_ptr(), t.data_ptr(), out.data_ptr(),
+               xs, xm, ps, pm, S, L, n, M, G, mg, gx, gy, smem, float(big),
+               int(res), int(reg), int(vec))
     return out
 
 
@@ -532,12 +404,7 @@ def sorted_prefix(x: torch.Tensor, k: int, *, order: bool) -> tuple:
     ids = torch.empty(shape, dtype=torch.int64, device=dev) if order else None
     S = x.numel() // n
     if S:
-        lib = _load()
-        with torch.cuda.device(dev):
-            err = lib.qt_sorted_prefix(
-                x.data_ptr(), S, n, k, int(x.data_ptr() % 16 == 0),
-                vals.data_ptr(), None if ids is None else ids.data_ptr(),
-                _stream(dev))
-        _raise_on(err, "sorted_prefix")
-        LAUNCHES["sorted_prefix"] += 1
+        LIB.launch("sorted_prefix", "qt_sorted_prefix", dev, x.data_ptr(),
+                   S, n, k, int(x.data_ptr() % 16 == 0), vals.data_ptr(),
+                   None if ids is None else ids.data_ptr())
     return vals, ids

@@ -19,13 +19,11 @@ SORTED_PREFIX_MAX_N = kernel.SORTED_PREFIX_MAX_N
 
 def launch_plans() -> int:
     """What the kernels have built for reuse so far in this process: the
-    loaded library (one) plus the launch plans cached per device and shape
-    (``masked_tally``'s, ``stream_tally_decide_hist``'s,
+    loaded library (one) plus the launch plans kept per kind, device and
+    shape (``masked_tally``'s, ``stream_tally_decide_hist``'s,
     ``race_card_hist``'s and ``masked_sat``'s).  0 where no kernel ran, as
     on the CPU."""
-    return (int(kernel._lib is not None) + len(kernel._MASKED_PLANS)
-            + len(kernel._STREAM_PLANS) + len(kernel._CARD_PLANS)
-            + len(kernel._SAT_PLANS))
+    return kernel.LIB.built()
 
 
 def _on_card(t: torch.Tensor) -> bool:

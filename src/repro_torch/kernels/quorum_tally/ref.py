@@ -18,6 +18,8 @@ import math
 
 import torch
 
+from repro_torch.sketch import bucket_index, occurrences
+
 
 def tally_votes(votes: torch.Tensor, n_values: int) -> torch.Tensor:
     """(S, n) votes (< 0 = no vote) -> (S, n_values) int32 counts."""
@@ -194,7 +196,6 @@ def race_card_hist(votes: torch.Tensor, arrive: torch.Tensor,
     recovery latency ``t_rec = sorted_arrive[q1-1] + sorted_classic[q_rec-1]``
     per slot and bucket, bucket ``bins`` when ``t_rec >= undecided_ms``; Rsum
     / Rmax (P, V) f32 the decided ones' sum and max."""
-    from repro_torch.montecarlo.streaming import _count, bucket_index
     check_stream(*votes.shape, k_sat)
     k1, k_rec, k2f = (int(k) for k in k_sat)
     check_pairs(pairs, k1, k_rec)
@@ -220,13 +221,14 @@ def race_card_hist(votes: torch.Tensor, arrive: torch.Tensor,
     bwin = bucket_index(win, precision).long()
     fkey = (torch.arange(k2f, device=dev)[None, :] * (V + 1)
             + vkey[:, None]) * bins + bwin
-    FH = _count(fkey, k2f * (V + 1) * bins).reshape(k2f, V + 1, bins)[:, :V]
+    FH = occurrences(fkey, k2f * (V + 1) * bins).reshape(
+        k2f, V + 1, bins)[:, :V]
     FH = torch.where(below[:, :, None], FH, 0)
     Fsum = torch.where(below, win.T @ oh, 0.0)
     Fmax = torch.full((V + 1, k2f), -math.inf, device=dev).scatter_reduce_(
         0, vkey[:, None].expand(C, k2f), win, "amax")[:V].T
     Fmax = torch.where(below, Fmax, -math.inf)
-    cnt = _count(vkey, V + 1)[:V]
+    cnt = occurrences(vkey, V + 1)[:V]
 
     # recovery side: each (q1, q_rec) pair's latency, per slot.
     t_rec = (sa[:, pairs[:, 0].long() - 1]
@@ -235,7 +237,7 @@ def race_card_hist(votes: torch.Tensor, arrive: torch.Tensor,
     brec = torch.where(dec, bucket_index(t_rec, precision).long(), bins)
     rkey = (torch.arange(P, device=dev)[None, :] * (V + 1)
             + vkey[:, None]) * (bins + 1) + brec
-    RH = _count(rkey, P * (V + 1) * (bins + 1)).reshape(
+    RH = occurrences(rkey, P * (V + 1) * (bins + 1)).reshape(
         P, V + 1, bins + 1)[:, :V]
     Rsum = torch.where(dec, t_rec, 0.0).T @ oh
     Rmax = torch.full((V + 1, P), -math.inf, device=dev).scatter_reduce_(
@@ -295,7 +297,6 @@ def stream_tally_decide_hist(votes: torch.Tensor, val_arr: torch.Tensor,
     ``n_recovery`` / ``n_undecided`` (M,) int32, ``sum_ms`` (M,) f32 and
     ``max_ms`` (M,) f32 (-inf when nothing decided).  Refuses what the
     kernels refuse (``check_stream``)."""
-    from repro_torch.montecarlo.streaming import bucket_index
     check_stream(*votes.shape, k_sat)
     d = stream_decide(votes, val_arr, arrive, classic, w1, t1, w2c, t2c, w2f,
                       t2f, valid, n_values=n_values, k_sat=k_sat,

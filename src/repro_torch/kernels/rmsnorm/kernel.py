@@ -2,10 +2,10 @@
 
 ``csrc/rmsnorm.cu`` holds the CUDA C++ kernel for ``sm_90a``; its header
 says which TPU kernel it replaces, what bounds it on the card and what its
-design does about that.  ``build()`` compiles it with ``nvcc`` on first use
-into ``build/`` beside this file (git-ignored, ``kernels/_build.py``), and
-``ctypes`` loads it.  Nothing is compiled or loaded at import: this module
-imports on a machine without CUDA.
+design does about that.  ``LIB`` (``kernels/_build.py``) compiles it with
+``nvcc`` on first use into ``build/`` beside this file (git-ignored) and
+loads it.  Nothing is compiled or loaded at import: this module imports on a
+machine without CUDA.
 
 ``rmsnorm`` refuses inputs that autograd would record through (the kernel has
 no backward), checks device, dtypes, shapes and strides, allocates the
@@ -16,9 +16,7 @@ launches.
 from __future__ import annotations
 
 import ctypes
-import threading
 from pathlib import Path
-from typing import Dict, Tuple
 
 import torch
 
@@ -26,35 +24,14 @@ from repro_torch.kernels import _build, refuse_grad
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "rmsnorm.cu"
 
-LAUNCHES: Dict[str, int] = {"rmsnorm": 0}
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
-_lib = None
-_lib_lock = threading.Lock()
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
-def build() -> Tuple[Path, str]:
-    """Compile ``csrc/rmsnorm.cu`` unless an up-to-date library exists.
-    Returns (library path, compiler log; empty when nothing was built)."""
-    return _build.build(SOURCE, "rmsnorm")
-
-
-def _load():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            path, _ = build()
-            lib = ctypes.CDLL(str(path))
-            P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-            lib.rmsnorm_forward.argtypes = [I, P, L, P, P, I, I,
-                                            ctypes.c_float, P]
-            lib.rmsnorm_forward.restype = I
-            _lib = lib
-    return _lib
+LIB = _build.Library(SOURCE, "rmsnorm", {
+    "rmsnorm_forward": ([_I, _P, _L, _P, _P, _I, _I, ctypes.c_float, _P],
+                        _I)}, ("rmsnorm",))
+LAUNCHES = LIB.LAUNCHES
+reset_launches = LIB.reset_launches
+build = LIB.build
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
@@ -95,16 +72,7 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
     y = torch.empty(shape, dtype=dt, device=dev)
     if R == 0:
         return y
-    lib = _lib if _lib is not None else _load()
-    args = (int(dt == torch.bfloat16), rows.data_ptr(), rows.stride(0),
-            scale.data_ptr(), y.data_ptr(), R, D, float(eps),
-            torch.cuda.current_stream(dev).cuda_stream)
-    if dev.index is None or dev.index == torch.cuda.current_device():
-        err = lib.rmsnorm_forward(*args)
-    else:
-        with torch.cuda.device(dev):
-            err = lib.rmsnorm_forward(*args)
-    if err != 0:
-        raise RuntimeError(f"rmsnorm launch failed with CUDA error {err}")
-    LAUNCHES["rmsnorm"] += 1
+    LIB.launch("rmsnorm", "rmsnorm_forward", dev, int(dt == torch.bfloat16),
+               rows.data_ptr(), rows.stride(0), scale.data_ptr(),
+               y.data_ptr(), R, D, float(eps))
     return y

@@ -7,10 +7,9 @@ outputs; every product on the tensor cores, the f32 factors split into
 hi + lo bf16 halves), with any of them in f32 the f32-FMA instance; its
 header says which TPU kernel it replaces, what bounds it on the card and
 what its design does about that.
-``build()`` compiles it with ``nvcc`` on first use into ``build/`` beside
-this file (git-ignored, ``kernels/_build.py``), and ``ctypes`` loads it.
-Nothing is compiled or loaded at import: this module imports on a machine
-without CUDA.
+``LIB`` (``kernels/_build.py``) compiles it with ``nvcc`` on first use into
+``build/`` beside this file (git-ignored) and loads it.  Nothing is compiled
+or loaded at import: this module imports on a machine without CUDA.
 
 ``ssd`` refuses inputs that autograd would record through (the kernel has no
 backward), checks device, dtypes, shapes, strides and sizes, allocates the
@@ -22,9 +21,8 @@ and adds one to ``LAUNCHES["ssd"]`` when it launches, and one to
 from __future__ import annotations
 
 import ctypes
-import threading
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Optional
 
 import torch
 
@@ -36,61 +34,21 @@ MAX_HD = 128       # head dim: y accumulators held in registers (MAX_HD)
 MAX_DS = 128       # state dim: so hd * ds <= 16384 (64 KiB of f32 state)
 MAX_CHUNK = 2048   # the chunk's cumsum lives in shared memory
 
-LAUNCHES: Dict[str, int] = {"ssd": 0, "ssd_tc": 0}
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
-_lib = None
-_lib_lock = threading.Lock()
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
-def build() -> Tuple[Path, str]:
-    """Compile ``csrc/ssd_scan.cu`` unless an up-to-date library exists.
-    Returns (library path, compiler log; empty when nothing was built)."""
-    return _build.build(SOURCE, "ssd_scan")
-
-
-def _load():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            path, _ = build()
-            lib = ctypes.CDLL(str(path))
-            P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-            lib.ssd_smem.argtypes = [I, I, I]
-            lib.ssd_smem.restype = ctypes.c_size_t
-            lib.ssd_forward.argtypes = ([I, I, P, L, L, L, P, L, L, P, L, L,
-                                         P, L, L, P, P, P]
-                                        + [I] * 6 + [P])
-            lib.ssd_forward.restype = I
-            lib.ssd_tc_smem.argtypes = [I, I, I]
-            lib.ssd_tc_smem.restype = ctypes.c_size_t
-            lib.ssd_tc_forward.argtypes = ([P, L, L, L, P, L, L, P, L, L,
-                                            P, L, L, P, P, P, P, P, P]
-                                           + [I] * 7 + [P])
-            lib.ssd_tc_forward.restype = I
-            _lib = lib
-    return _lib
-
+LIB = _build.Library(SOURCE, "ssd_scan", {
+    "ssd_smem": ([_I, _I, _I], ctypes.c_size_t),
+    "ssd_forward": ([_I, _I, _P, _L, _L, _L, _P, _L, _L, _P, _L, _L, _P, _L,
+                     _L, _P, _P, _P] + [_I] * 6 + [_P], _I),
+    "ssd_tc_smem": ([_I, _I, _I], ctypes.c_size_t),
+    "ssd_tc_forward": ([_P, _L, _L, _L, _P, _L, _L, _P, _L, _L, _P, _L, _L,
+                        _P, _P, _P, _P, _P, _P] + [_I] * 7 + [_P], _I),
+}, ("ssd", "ssd_tc"))
+LAUNCHES = LIB.LAUNCHES
+reset_launches = LIB.reset_launches
+build = LIB.build
 
 _TYPES = (torch.float32, torch.bfloat16)
-
-
-def _check(t: torch.Tensor, name: str, shape, dtypes, device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} lies on {t.device}, expected {device}")
-    if t.dtype not in dtypes:
-        raise ValueError(f"{name} has dtype {t.dtype}, expected one of "
-                         f"{dtypes}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
-                         f"{tuple(shape)}")
-    if t.stride(-1) != 1:
-        raise ValueError(f"{name} must be contiguous along its last axis, "
-                         f"has strides {t.stride()}")
 
 
 def ssd(xw: torch.Tensor, da: torch.Tensor, Bm: torch.Tensor,
@@ -111,10 +69,10 @@ def ssd(xw: torch.Tensor, da: torch.Tensor, Bm: torch.Tensor,
     B, S, nh, hd = xw.shape
     ds = Bm.shape[-1]
     dev = xw.device
-    _check(xw, "xw", (B, S, nh, hd), _TYPES, dev)
-    _check(da, "da", (B, S, nh), (torch.float32,), dev)
-    _check(Bm, "Bm", (B, S, ds), _TYPES, dev)
-    _check(Cm, "Cm", (B, S, ds), (Bm.dtype,), dev)
+    _build.check(xw, "xw", _TYPES, (B, S, nh, hd), dev, True)
+    _build.check(da, "da", (torch.float32,), (B, S, nh), dev, True)
+    _build.check(Bm, "Bm", _TYPES, (B, S, ds), dev, True)
+    _build.check(Cm, "Cm", (Bm.dtype,), (B, S, ds), dev, True)
     if not (1 <= hd <= MAX_HD and 1 <= ds <= MAX_DS):
         raise ValueError(f"the SSD kernel takes hd <= {MAX_HD} and ds <= "
                          f"{MAX_DS} (hd*ds <= {MAX_HD * MAX_DS}), got "
@@ -123,17 +81,15 @@ def ssd(xw: torch.Tensor, da: torch.Tensor, Bm: torch.Tensor,
         raise ValueError(f"the SSD kernel takes 1 <= chunk <= {MAX_CHUNK} "
                          f"dividing S={S}, got chunk={chunk}")
     if init_state is not None:
-        _check(init_state, "init_state", (B, nh, hd, ds), (torch.float32,),
-               dev)
+        _build.check(init_state, "init_state", (torch.float32,),
+                     (B, nh, hd, ds), dev, True)
         if not init_state.is_contiguous():
             raise ValueError("init_state must be contiguous")
     y = torch.empty((B, S, nh, hd), dtype=xw.dtype, device=dev)
     fin = torch.empty((B, nh, hd, ds), dtype=torch.float32, device=dev)
     if B * nh == 0:
         return y, fin
-    lib = _load()
     tc = xw.dtype == torch.bfloat16 and Bm.dtype == torch.bfloat16
-    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
     s0 = None if init_state is None else init_state.data_ptr()
     if tc:
         # scratch: the in-chunk cumsums in f32, the state before each chunk
@@ -146,30 +102,21 @@ def ssd(xw: torch.Tensor, da: torch.Tensor, Bm: torch.Tensor,
         vec = hd % 8 == 0 and ds % 8 == 0 and all(
             t.data_ptr() % 16 == 0 and all(x % 8 == 0 for x in t.stride()[:-1])
             for t in (xw, Bm, Cm))
-        with torch.cuda.device(dev):
-            err = lib.ssd_tc_forward(
-                xw.data_ptr(), xw.stride(0), xw.stride(1), xw.stride(2),
-                da.data_ptr(), da.stride(0), da.stride(1),
-                Bm.data_ptr(), Bm.stride(0), Bm.stride(1),
-                Cm.data_ptr(), Cm.stride(0), Cm.stride(1), s0,
-                y.data_ptr(), fin.data_ptr(), cum.data_ptr(),
-                st[0].data_ptr(), st[1].data_ptr(), B, S, nh, hd, ds, chunk,
-                int(vec), stream)
-        if err != 0:
-            raise RuntimeError(f"ssd launch failed with CUDA error {err}")
-        LAUNCHES["ssd"] += 1
+        LIB.launch("ssd", "ssd_tc_forward", dev,
+                   xw.data_ptr(), xw.stride(0), xw.stride(1), xw.stride(2),
+                   da.data_ptr(), da.stride(0), da.stride(1),
+                   Bm.data_ptr(), Bm.stride(0), Bm.stride(1),
+                   Cm.data_ptr(), Cm.stride(0), Cm.stride(1), s0,
+                   y.data_ptr(), fin.data_ptr(), cum.data_ptr(),
+                   st[0].data_ptr(), st[1].data_ptr(), B, S, nh, hd, ds,
+                   chunk, int(vec))
         LAUNCHES["ssd_tc"] += 1
         return y, fin
-    with torch.cuda.device(dev):
-        err = lib.ssd_forward(
-            int(xw.dtype == torch.bfloat16), int(Bm.dtype == torch.bfloat16),
-            xw.data_ptr(), xw.stride(0), xw.stride(1), xw.stride(2),
-            da.data_ptr(), da.stride(0), da.stride(1),
-            Bm.data_ptr(), Bm.stride(0), Bm.stride(1),
-            Cm.data_ptr(), Cm.stride(0), Cm.stride(1),
-            s0, y.data_ptr(), fin.data_ptr(), B, S, nh, hd, ds, chunk,
-            stream)
-    if err != 0:
-        raise RuntimeError(f"ssd launch failed with CUDA error {err}")
-    LAUNCHES["ssd"] += 1
+    LIB.launch("ssd", "ssd_forward", dev, int(xw.dtype == torch.bfloat16),
+               int(Bm.dtype == torch.bfloat16),
+               xw.data_ptr(), xw.stride(0), xw.stride(1), xw.stride(2),
+               da.data_ptr(), da.stride(0), da.stride(1),
+               Bm.data_ptr(), Bm.stride(0), Bm.stride(1),
+               Cm.data_ptr(), Cm.stride(0), Cm.stride(1),
+               s0, y.data_ptr(), fin.data_ptr(), B, S, nh, hd, ds, chunk)
     return y, fin

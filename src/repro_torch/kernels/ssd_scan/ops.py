@@ -1,7 +1,7 @@
 """Dispatch for the SSD scan: the tensor's device decides.
 
-A CPU tensor gets the plain version of what the kernel computes, the port's
-``models.ssm.ssd_chunked``; a CUDA tensor gets the hand-written kernel in
+A CPU tensor gets the plain version of what the kernel computes,
+``ref.ssd_chunked``; a CUDA tensor gets the hand-written kernel in
 ``kernel.py``, or the exception its wrapper raises.  Nothing falls back from
 one to the other.  Both keep the JAX contract: ``chunk = min(chunk, S)``,
 ``S`` a multiple of it, ``init_state=None`` meaning zeros.
@@ -13,9 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models.ssm import ssd_chunked
-
-from . import kernel
+from . import kernel, ref
 
 LAUNCHES = kernel.LAUNCHES
 reset_launches = kernel.reset_launches
@@ -35,4 +33,4 @@ def ssd(xw: torch.Tensor, da: torch.Tensor, Bm: torch.Tensor,
     if xw.device.type != "cpu":
         raise ValueError(f"the SSD kernel runs on CUDA or, in its plain "
                          f"version, on the CPU; got a tensor on {xw.device}")
-    return ssd_chunked(xw, da, Bm, Cm, chunk, init_state)
+    return ref.ssd_chunked(xw, da, Bm, Cm, chunk, init_state)

@@ -1,7 +1,10 @@
 """Plain versions for the SSD scan.
 
-``ssd`` is the oracle: the O(S) sequential recurrence, independent of the
-chunked algorithm the kernel implements.  The other functions are the plain
+``ssd_reference`` (``ssd``) is the oracle: the O(S) sequential recurrence,
+independent of the chunked algorithm the kernel implements; it is also the
+model's decode step.  ``ssd_chunked`` is the chunked algorithm in plain
+torch: the CPU path of ``ops.ssd`` and the model's plain branch
+(``models.ssm.mamba_block``) run it.  The other functions are the plain
 versions of the four steps of the chunked decomposition that the kernel's
 tensor-core instance computes (``csrc/ssd_scan.cu``, whose two launches
 fuse steps 2 and 3, then 1 and 4), and ``ssd_decomposed`` composes them.  With
@@ -17,7 +20,77 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.models.ssm import ssd_reference
+
+def ssd_chunked(xw: torch.Tensor, da: torch.Tensor, Bm: torch.Tensor,
+                Cm: torch.Tensor, chunk: int,
+                init_state: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD scan.
+
+    xw (B,S,nh,hd): dt-weighted inputs (x * dt)
+    da (B,S,nh):    per-step log-decay (dt * A, negative)
+    Bm, Cm (B,S,ds)
+    init_state (B,nh,hd,ds) or None
+    returns y (B,S,nh,hd) in xw's dtype, final_state (B,nh,hd,ds) f32.
+    Products run in f32 (on the card with TF32 off, which the caller sets).
+    """
+    B, S, nh, hd = xw.shape
+    ds = Bm.shape[-1]
+    if S % chunk:
+        raise ValueError(f"ssd_chunked: S={S} is not a multiple of "
+                         f"chunk={chunk}")
+    nc = S // chunk
+    xf = xw.reshape(B, nc, chunk, nh, hd).float()
+    da = da.reshape(B, nc, chunk, nh).float()
+    Bf = Bm.reshape(B, nc, chunk, ds).float()
+    Cf = Cm.reshape(B, nc, chunk, ds).float()
+
+    cum = torch.cumsum(da, dim=2)                             # (B,nc,L,nh)
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]       # (B,nc,Li,Lj,nh)
+    ii = torch.arange(chunk, device=xw.device)
+    causal = (ii[:, None] >= ii[None, :])[None, None, :, :, None]
+    # Mask INSIDE the exponent: at non-causal positions seg > 0 and exp(seg)
+    # overflows.
+    L = torch.exp(torch.where(causal, seg, -math.inf))        # intra decay
+
+    scores = torch.einsum("bcis,bcjs->bcij", Cf, Bf)
+    y_intra = torch.einsum("bcijh,bcjhp->bcihp", scores[..., None] * L, xf)
+
+    # End-of-chunk states: sum_j exp(cum_end - cum_j) * B_j (x) xw_j
+    w_end = torch.exp(cum[:, :, -1:, :] - cum)                # (B,nc,L,nh)
+    chunk_state = torch.einsum("bcjs,bcjhp->bchps", Bf,
+                               w_end[..., None] * xf)
+    chunk_decay = torch.exp(cum[:, :, -1, :])                 # (B,nc,nh)
+
+    state = (xw.new_zeros((B, nh, hd, ds), dtype=torch.float32)
+             if init_state is None else init_state.float())
+    prev = []
+    for c in range(nc):                   # emit the state *before* chunk c
+        prev.append(state)
+        state = state * chunk_decay[:, c, :, None, None] + chunk_state[:, c]
+    prev_states = torch.stack(prev, dim=1)                    # (B,nc,nh,hd,ds)
+
+    y_inter = (torch.einsum("bcis,bchps->bcihp", Cf, prev_states)
+               * torch.exp(cum)[..., None])
+    y = (y_intra + y_inter).reshape(B, S, nh, hd)
+    return y.to(xw.dtype), state
+
+
+def ssd_reference(xw, da, Bm, Cm, init_state=None):
+    """O(S) sequential recurrence -- ground truth for tests, and decode's
+    one step."""
+    B, S, nh, hd = xw.shape
+    ds = Bm.shape[-1]
+    state = (xw.new_zeros((B, nh, hd, ds), dtype=torch.float32)
+             if init_state is None else init_state.float())
+    ys = []
+    for t in range(S):
+        decay = torch.exp(da[:, t].float())                   # (B,nh)
+        upd = torch.einsum("bs,bhp->bhps", Bm[:, t].float(),
+                           xw[:, t].float())
+        state = state * decay[:, :, None, None] + upd
+        ys.append(torch.einsum("bs,bhps->bhp", Cm[:, t].float(), state))
+    return torch.stack(ys, dim=1).to(xw.dtype), state
 
 
 def ssd(xw, da, Bm, Cm, init_state=None):

@@ -5,8 +5,9 @@ ssm.py``, cast for cast.
 Chunked SSD (arXiv:2405.21060): the sequence is split into chunks of
 ``cfg.ssm.chunk``; within a chunk the contribution is an attention-like
 masked product (the "dual" form), across chunks a short loop carries the
-(nh, hd, ds) state.  ``ssd_chunked`` is also the plain version of the
-``kernels/ssd_scan`` CUDA kernel: the CPU path of ``ops.ssd`` runs it, and
+(nh, hd, ds) state.  ``ssd_chunked`` and the recurrence ``ssd_reference``
+are the plain versions of the ``kernels/ssd_scan`` CUDA kernel and live in
+its ``ref.py``: the CPU path of ``ops.ssd`` runs ``ssd_chunked``, and
 ``chip_smoke.py`` holds the kernel against it on the card.
 
 Shapes: x (B,S,nh,hd); B/C projections (B,S,ds) (single group, shared across
@@ -19,7 +20,6 @@ in the compute dtype.
 """
 from __future__ import annotations
 
-import math
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -28,6 +28,8 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.rmsnorm import ops as rmsnorm_ops
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.kernels.ssd_scan.ref import ssd_chunked, ssd_reference
 
 from .layers import dense_init, normal, rms_norm
 
@@ -84,78 +86,6 @@ def _causal_conv(u: torch.Tensor, kernel: torch.Tensor,
     return out
 
 
-def ssd_chunked(xw: torch.Tensor, da: torch.Tensor, Bm: torch.Tensor,
-                Cm: torch.Tensor, chunk: int,
-                init_state: Optional[torch.Tensor] = None
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Chunked SSD scan.
-
-    xw (B,S,nh,hd): dt-weighted inputs (x * dt)
-    da (B,S,nh):    per-step log-decay (dt * A, negative)
-    Bm, Cm (B,S,ds)
-    init_state (B,nh,hd,ds) or None
-    returns y (B,S,nh,hd) in xw's dtype, final_state (B,nh,hd,ds) f32.
-    Products run in f32 (on the card with TF32 off, which the caller sets).
-    """
-    B, S, nh, hd = xw.shape
-    ds = Bm.shape[-1]
-    if S % chunk:
-        raise ValueError(f"ssd_chunked: S={S} is not a multiple of "
-                         f"chunk={chunk}")
-    nc = S // chunk
-    xf = xw.reshape(B, nc, chunk, nh, hd).float()
-    da = da.reshape(B, nc, chunk, nh).float()
-    Bf = Bm.reshape(B, nc, chunk, ds).float()
-    Cf = Cm.reshape(B, nc, chunk, ds).float()
-
-    cum = torch.cumsum(da, dim=2)                             # (B,nc,L,nh)
-    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]       # (B,nc,Li,Lj,nh)
-    ii = torch.arange(chunk, device=xw.device)
-    causal = (ii[:, None] >= ii[None, :])[None, None, :, :, None]
-    # Mask INSIDE the exponent: at non-causal positions seg > 0 and exp(seg)
-    # overflows.
-    L = torch.exp(torch.where(causal, seg, -math.inf))        # intra decay
-
-    scores = torch.einsum("bcis,bcjs->bcij", Cf, Bf)
-    y_intra = torch.einsum("bcijh,bcjhp->bcihp", scores[..., None] * L, xf)
-
-    # End-of-chunk states: sum_j exp(cum_end - cum_j) * B_j (x) xw_j
-    w_end = torch.exp(cum[:, :, -1:, :] - cum)                # (B,nc,L,nh)
-    chunk_state = torch.einsum("bcjs,bcjhp->bchps", Bf,
-                               w_end[..., None] * xf)
-    chunk_decay = torch.exp(cum[:, :, -1, :])                 # (B,nc,nh)
-
-    state = (xw.new_zeros((B, nh, hd, ds), dtype=torch.float32)
-             if init_state is None else init_state.float())
-    prev = []
-    for c in range(nc):                   # emit the state *before* chunk c
-        prev.append(state)
-        state = state * chunk_decay[:, c, :, None, None] + chunk_state[:, c]
-    prev_states = torch.stack(prev, dim=1)                    # (B,nc,nh,hd,ds)
-
-    y_inter = (torch.einsum("bcis,bchps->bcihp", Cf, prev_states)
-               * torch.exp(cum)[..., None])
-    y = (y_intra + y_inter).reshape(B, S, nh, hd)
-    return y.to(xw.dtype), state
-
-
-def ssd_reference(xw, da, Bm, Cm, init_state=None):
-    """O(S) sequential recurrence -- ground truth for tests, and decode's
-    one step."""
-    B, S, nh, hd = xw.shape
-    ds = Bm.shape[-1]
-    state = (xw.new_zeros((B, nh, hd, ds), dtype=torch.float32)
-             if init_state is None else init_state.float())
-    ys = []
-    for t in range(S):
-        decay = torch.exp(da[:, t].float())                   # (B,nh)
-        upd = torch.einsum("bs,bhp->bhps", Bm[:, t].float(),
-                           xw[:, t].float())
-        state = state * decay[:, :, None, None] + upd
-        ys.append(torch.einsum("bs,bhps->bhp", Cm[:, t].float(), state))
-    return torch.stack(ys, dim=1).to(xw.dtype), state
-
-
 def mamba_block(cfg: ArchConfig, p: Mamba, x: torch.Tensor,
                 cache: Optional[Dict] = None, use_kernel: bool = True
                 ) -> Tuple[torch.Tensor, Optional[Dict]]:
@@ -206,7 +136,6 @@ def mamba_block(cfg: ArchConfig, p: Mamba, x: torch.Tensor,
         # whole chunks; JAX's plain branch (use_kernel=False) pads whenever
         # S is not a whole number of chunks.  da = 0 and xw = B = C = 0
         # leave the state as it was.
-        from repro_torch.kernels.ssd_scan import ops as ssd_ops
         pad = (-S) % s.chunk if S > s.chunk or not use_kernel else 0
         if pad:
             xw = F.pad(xw, (0, 0, 0, 0, 0, pad))

@@ -4,8 +4,9 @@ The engine's materializing entry points hold an (M, S) array per output.
 Here the same per-chunk computation becomes a reduction: a Python loop
 draws, decides and reduces one chunk of trials at a time into a fixed-size
 ``StreamSummary`` -- counts, a running mean and max, and a DDSketch
-log-bucket histogram whose quantiles carry a guaranteed relative error
-(``precision``).  Counts and histograms are integers, so merges are exact.
+log-bucket histogram (format: ``repro_torch.sketch``) whose quantiles carry
+a guaranteed relative error (``precision``).  Counts and histograms are
+integers, so merges are exact.
 
 Chunk c draws from the generator of ``rng.derive(key, CHUNK_DOMAIN, c)``;
 the last chunk's overhang is masked out by a validity vector.  A stream of
@@ -62,6 +63,11 @@ import torch
 from repro_torch import tracing
 from repro_torch.kernels.quorum_tally import ops as qt_ops
 from repro_torch.parallel import sharding as psharding
+# The sketch's format; its names stay reachable here, as in
+# repro.montecarlo.streaming.
+from repro_torch.sketch import (DEFAULT_PRECISION, SKETCH_MAX_MS,  # noqa: F401
+                                SKETCH_MIN_MS, bucket_index, bucket_value,
+                                occurrences, sketch_bins, sketch_gamma)
 
 from . import engine, rng
 from . import latency as lat_mod
@@ -70,52 +76,6 @@ from .latency import default_delay
 from .regimes import MarkovRegimes, RegimeStreamSummary
 
 DEFAULT_CHUNK = 65536
-DEFAULT_PRECISION = 0.01
-
-# Sketch coverage: 10 us .. ~3 hours; values outside clamp to edge buckets.
-SKETCH_MIN_MS = 1e-2
-SKETCH_MAX_MS = 1e7
-
-
-def sketch_gamma(precision: float) -> float:
-    """DDSketch bucket growth factor for a target relative error."""
-    return (1.0 + precision) / (1.0 - precision)
-
-
-def sketch_bins(precision: float) -> int:
-    """Bucket count covering [SKETCH_MIN_MS, SKETCH_MAX_MS] at ``precision``
-    relative error, plus the clamp bucket 0."""
-    if not 1e-4 <= precision <= 0.2:
-        raise ValueError(f"precision (relative quantile error) must be in "
-                         f"[1e-4, 0.2], got {precision}")
-    g = sketch_gamma(precision)
-    return int(math.ceil(math.log(SKETCH_MAX_MS / SKETCH_MIN_MS)
-                         / math.log(g))) + 1
-
-
-def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
-    """A 0-dim f32 tensor on ``like``'s device: divisions by it are true f32
-    divisions (a Python-scalar divisor may become a reciprocal multiply)."""
-    return torch.full((), x, dtype=torch.float32, device=like.device)
-
-
-def bucket_index(x: torch.Tensor, precision: float) -> torch.Tensor:
-    """Log-bucket index: bucket i > 0 covers (m0*g^(i-1), m0*g^i].  The same
-    f32 expression as the fused kernel's:
-    ``ceil(log(max(x, 1e-2) / 1e-2) / log_g)`` clipped to [0, bins-1]."""
-    log_g = _f32(math.log(sketch_gamma(precision)), x)
-    lo = _f32(SKETCH_MIN_MS, x)
-    i = torch.ceil(torch.log(torch.maximum(x, lo) / lo) / log_g)
-    return i.clamp(0, sketch_bins(precision) - 1).to(torch.int32)
-
-
-def bucket_value(i: torch.Tensor, precision: float) -> torch.Tensor:
-    """Representative value of bucket i: 2*m0*g^i/(g+1), the point whose
-    relative distance to both bucket edges is exactly ``precision``."""
-    g = sketch_gamma(precision)
-    scale = SKETCH_MIN_MS * 2.0 * g / (g + 1.0)
-    base = torch.full((), g, dtype=torch.float32, device=i.device)
-    return scale * torch.pow(base, i.to(torch.float32) - 1.0)
 
 
 # ---------------------------------------------------------------------------
@@ -308,15 +268,6 @@ def _chunk_outcomes(path: str, gen, table, offsets, delay, *, n, k_proposers,
             fast=False)
 
 
-def _count(idx: torch.Tensor, size: int) -> torch.Tensor:
-    """int32 occurrence counts of ``idx`` in [0, size) (atomics on CUDA,
-    exact in any order; unlike ``torch.bincount`` it never syncs)."""
-    idx = idx.reshape(-1).long()
-    return torch.zeros((size,), dtype=torch.int32, device=idx.device
-                       ).scatter_add_(0, idx, torch.ones_like(
-                           idx, dtype=torch.int32))
-
-
 def _suffix(x: torch.Tensor, dim: int) -> torch.Tensor:
     return torch.flip(torch.cumsum(torch.flip(x, (dim,)), dim=dim,
                                    dtype=x.dtype), (dim,))
@@ -348,7 +299,7 @@ def _cols_card_update(state: StreamSummary, cols: torch.Tensor,
         bkey = torch.where(und, B, bucket_index(cols, state.precision).long())
         bkey = torch.where(valid[:, None], bkey, B + 1)
         flat = torch.arange(Kc, device=cols.device)[None, :] * (B + 2) + bkey
-        LH = _count(flat, Kc * (B + 2)).reshape(Kc, B + 2)
+        LH = occurrences(flat, Kc * (B + 2)).reshape(Kc, B + 2)
         col_of_m = col_of_m.long()
         rows = LH[col_of_m]
         hist = rows[:, :B]

@@ -43,60 +43,10 @@ from repro_torch.montecarlo import streaming
 
 from chip_smoke import (MASKED_CASES, MASKED_SAT_CASES, RACE_CARD_CASES,
                         TALLY_VOTES_CASES, masked_inputs, masked_sat_inputs,
-                        race_card_inputs, sequential_sat)
+                        race_card_inputs, sequential_sat, ssd_test_inputs,
+                        stream_test_inputs)
 
 BINS = streaming.sketch_bins(0.01)
-
-
-def stream_test_inputs(seed, S, n, M, G, K, dev, quarters=False, pad=False,
-                       inf=False):
-    """The stream kernel's test inputs: integral weights, quantized arrival
-    times (ties), ~10% lost 2b lanes, trailing padding trials.  ``quarters``:
-    weights and thresholds in quarters instead, sums exact in f32 in any
-    order; ``pad``: each phase's last row a padding row (zero weights,
-    threshold 2^30) as ``build_mask_table`` pads; ``inf``: ~20% of the
-    arrive and classic lanes +inf."""
-    r = np.random.default_rng(seed)
-    votes = r.integers(-1, K, (S, n)).astype(np.int32)
-    arrive = np.floor(np.exp(r.standard_normal((S, n))) * 8.0) / 4.0
-    classic = np.floor(np.exp(r.standard_normal((S, n))) * 8.0) / 4.0
-    val_arr = np.floor(np.exp(r.standard_normal((S, K, n))) * 8.0) / 4.0 + .25
-    lost = (votes[:, None, :] != np.arange(K)[None, :, None]) \
-        | (r.random((S, K, n)) < 0.1)
-    val_arr = np.where(lost, 1e9, val_arr)
-    masks = []
-    for _ in range(3):
-        if quarters:
-            w = r.integers(0, 9, (M, G, n)) / 4.0
-            t = r.integers(1, 4 * n + 8, (M, G)) / 4.0
-        else:
-            w = r.integers(0, 3, (M, G, n))
-            t = r.integers(1, n + 2, (M, G))
-        w, t = w.astype(np.float32), t.astype(np.float32)
-        if pad:
-            w[:, -1], t[:, -1] = 0.0, 2.0 ** 30
-        masks += [w, t]
-    if inf:
-        arrive[r.random((S, n)) < 0.2] = np.inf
-        classic[r.random((S, n)) < 0.2] = np.inf
-    valid = np.arange(S) < S - S // 7
-    f = lambda x: torch.as_tensor(np.asarray(x, np.float32)).to(dev)
-    return ([torch.as_tensor(votes).to(dev), f(val_arr), f(arrive),
-             f(classic)] + [f(m) for m in masks]
-            + [torch.as_tensor(valid).to(dev)])
-
-
-def ssd_test_inputs(seed, B, S, nh, hd, ds, x_dtype, bc_dtype, dev):
-    """The JAX kernel tests' SSD inputs, drawn with numpy: xw and B, C
-    ~ 0.5 N(0,1), da = -0.3 |N(0,1)|, a nonzero initial state 0.1 N(0,1)."""
-    r = np.random.default_rng(seed)
-    t = lambda a, dt=torch.float32: torch.as_tensor(
-        a.astype(np.float32)).to(dev).to(dt)
-    return (t(r.standard_normal((B, S, nh, hd)) * 0.5, x_dtype),
-            t(-np.abs(r.standard_normal((B, S, nh))) * 0.3),
-            t(r.standard_normal((B, S, ds)) * 0.5, bc_dtype),
-            t(r.standard_normal((B, S, ds)) * 0.5, bc_dtype),
-            t(r.standard_normal((B, nh, hd, ds)) * 0.1))
 
 
 @pytest.fixture
@@ -196,8 +146,8 @@ def test_masked_tally_kernel_edges(cuda, case):
 def test_masked_tally_kernel_plan_tiers(cuda, n, G, tier):
     """The shapes of MASKED_CASES reach the plan's tiers: all rows staged
     once, rows in chunks, and the block's working set in device memory."""
-    rc, smem, _, region, _ = kernel._masked_plan(kernel._load(), cuda, n, G,
-                                                 2)
+    rc, smem, _, region, _ = kernel.LIB.plan(
+        "masked_tally", "qt_masked_plan", cuda, (n, G, 2))
     assert (region > 0) == (tier == "device memory")
     assert (smem > 0) == (tier != "device memory")
     assert (rc >= G) == (tier == "one chunk")
@@ -345,8 +295,8 @@ def test_stream_kernel_plan_tiers(cuda, S, n, M, G, K, tier):
     args = stream_test_inputs(S + n + K, S, n, M, G, K, cuda, pad=True)
     kw = dict(n_values=K, k_sat=(n, n // 2 + 1, n), precision=0.01,
               bins=BINS, undecided_ms=5e8)
-    plan = kernel._stream_plan(kernel._load(), args[0].device, n, K, M,
-                               (G, G, G))
+    plan = kernel.LIB.plan("stream_tally_decide_hist", "qt_stream_plan",
+                           args[0].device, (n, K, M, G, G, G))
     res, big = plan[4], plan[5]
     assert {"resident": (1, False), "lists": (0, False),
             "staged": (0, True)}[tier] == (res, big > 0)
@@ -398,8 +348,9 @@ def test_race_card_kernel_plan_tiers(cuda, case, tier):
     in registers; n = 33, ranked a lane a thread), or in a region of device
     memory where they do not fit there."""
     args, kw = race_card_inputs(case, cuda)
-    plan = kernel._card_plan(kernel._load(), cuda, args[0].shape[1],
-                             args[4].shape[0], tuple(kw["k_sat"]))
+    plan = kernel.LIB.plan("race_card_hist", "qt_card_plan", cuda,
+                           (args[0].shape[1], args[4].shape[0])
+                           + tuple(kw["k_sat"]))
     assert (plan[5] > 0) == (tier == "device")
     assert (plan[3] > 0) == (tier == "shared")
 
@@ -484,7 +435,7 @@ def test_masked_sat_kernel_plan_tiers(cuda, name, res, reg, groups):
     where the sort left them, more systems than one block holds."""
     case = next(c for c in MASKED_SAT_CASES if c[0] == name)
     _, S, n, L, M, G, _, _ = case
-    plan = kernel._sat_plan(kernel._load(), cuda, n, L, M, G)
+    plan = kernel.LIB.plan("masked_sat", "qt_sat_plan", cuda, (n, L, M, G))
     assert (plan[3], plan[4]) == (res, reg)
     assert -(-M // plan[0]) >= groups
 

@@ -1,12 +1,16 @@
 """The port stands alone: every module of repro_torch, and chip_smoke,
-imports without JAX and without the JAX package; entry points refuse to run
-on the CPU unless asked; chip_smoke refuses to run without CUDA or without
-the repository around it."""
+imports without JAX and without the JAX package; the kernel layer imports
+nothing of the port above it; entry points refuse to run on the CPU unless
+asked; chip_smoke refuses to run without CUDA or without the repository
+around it."""
 import os
 import pkgutil
+import re
 import shutil
 import subprocess
 import sys
+
+import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC = os.path.join(ROOT, "src")
@@ -75,6 +79,45 @@ print("BAD", bad)
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr
     assert "BAD []" in proc.stdout, proc.stdout
+
+
+@pytest.mark.parametrize("pkg", ["flash_attention", "quorum_tally",
+                                 "rmsnorm", "ssd_scan"])
+def test_kernel_package_imports_nothing_above_it(pkg):
+    """A kernel package's ops, ref and kernel load no module of the port's
+    upper layers: only ``repro_torch.kernels`` and ``repro_torch.sketch``."""
+    code = f"""
+import sys
+for mod in ("ops", "ref", "kernel"):
+    __import__("repro_torch.kernels.{pkg}." + mod)
+above = ("montecarlo", "models", "frontier", "api", "planner", "training",
+         "launch", "parallel")
+loaded = sorted(m for m in sys.modules if m.startswith("repro_torch."))
+print("ABOVE", [m for m in loaded if m.split(".")[1] in above])
+print("OTHER", [m for m in loaded
+                if m.split(".")[1] not in ("kernels", "sketch")])
+"""
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert "ABOVE []" in proc.stdout and "OTHER []" in proc.stdout, \
+        proc.stdout
+
+
+def test_kernel_sketch_floor_is_the_sketch_modules():
+    """``sketch_bucket`` in quorum_tally.cu hard-codes the sketch's floor;
+    it must be ``repro_torch.sketch.SKETCH_MIN_MS``."""
+    sys.path.insert(0, SRC)
+    try:
+        from repro_torch.sketch import SKETCH_MIN_MS
+    finally:
+        sys.path.remove(SRC)
+    with open(os.path.join(SRC, "repro_torch", "kernels", "quorum_tally",
+                           "csrc", "quorum_tally.cu")) as fh:
+        src = fh.read()
+    body = re.search(r"int sketch_bucket\(.*?\n}", src, re.S).group(0)
+    floors = re.findall(r"fmaxf\(x, ([0-9.e+-]+)f\) / ([0-9.e+-]+)f", body)
+    assert len(floors) == 1
+    assert [float(v) for v in floors[0]] == [SKETCH_MIN_MS] * 2
 
 
 def test_entry_points_without_device_raise_instead_of_running_on_cpu():

@@ -32,8 +32,8 @@ from repro_torch.frontier import cardinality_family
 from repro_torch.kernels.quorum_tally import ops
 from repro_torch.montecarlo import engine, rng, streaming
 from repro_torch.montecarlo.engine import UNDECIDED_MS
-from repro_torch.montecarlo.streaming import (_count, _suffix,
-                                              bucket_index)
+from repro_torch.montecarlo.streaming import _suffix, bucket_index
+from repro_torch.sketch import occurrences
 from test_torch_engine import inject_jax_draws
 from test_torch_streaming import (assert_summary_match, decided_latencies,
                                   stream_keys)
@@ -62,18 +62,19 @@ def parent_tensors(gen, table, layout, offsets, delay, valid, *, n,
     oh = (vkey[:, None] == torch.arange(V)[None, :]).to(torch.float32)
     bwin = bucket_index(win, precision).long()
     fkey = (torch.arange(k2f)[None, :] * (V + 1) + vkey[:, None]) * B + bwin
-    FH = _count(fkey, k2f * (V + 1) * B).reshape(k2f, V + 1, B)[:, :V]
+    FH = occurrences(fkey, k2f * (V + 1) * B).reshape(k2f, V + 1, B)[:, :V]
     Fsum = win.T @ oh
     Fmax = torch.full((V + 1, k2f), -math.inf).scatter_reduce_(
         0, vkey[:, None].expand(C, k2f), win, "amax")[:V].T
-    cnt = _count(vkey, V + 1)[:V]
+    cnt = occurrences(vkey, V + 1)[:V]
     t_rec = (draws["sorted_arrive"][:, pairs[:, 0] - 1]
              + draws["sorted_classic"][:, pairs[:, 1] - 1])
     dec = t_rec < UNDECIDED_MS
     brec = torch.where(dec, bucket_index(t_rec, precision).long(), B)
     rkey = (torch.arange(P_)[None, :] * (V + 1) + vkey[:, None]) * (B + 1) \
         + brec
-    RH = _count(rkey, P_ * (V + 1) * (B + 1)).reshape(P_, V + 1, B + 1)[:, :V]
+    RH = occurrences(rkey, P_ * (V + 1) * (B + 1)).reshape(
+        P_, V + 1, B + 1)[:, :V]
     Rsum = torch.where(dec, t_rec, 0.0).T @ oh
     Rmax = torch.full((V + 1, P_), -math.inf).scatter_reduce_(
         0, vkey[:, None].expand(C, P_), torch.where(dec, t_rec, -math.inf),

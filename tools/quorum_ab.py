@@ -100,7 +100,7 @@ def main() -> None:
         paths = {k: f.result()[0] for k, f in futs.items()}
     libs = {k: bind(p) for k, p in paths.items()}
     # sources with this tree's C entry points run through its wrappers
-    new_libs = {k: kernel.bind(p) for k, p in paths.items()
+    new_libs = {k: kernel.LIB.bind(p) for k, p in paths.items()
                 if hasattr(libs[k], "qt_masked_plan")}
 
     dev = torch.device("cuda")
@@ -151,8 +151,7 @@ def main() -> None:
                 nl = new_libs[k_of[id(lib)]]
 
                 def call():
-                    kernel._lib = nl                # the variant's library
-                    kernel._MASKED_PLANS.clear()
+                    kernel.LIB.use(nl)              # the variant's library
                     return kernel.masked_tally(v, w, t, 2)
                 return call
             out = votes_out(v, G)
@@ -213,8 +212,7 @@ def main() -> None:
 
     def card(lib):
         def call():
-            kernel._lib = lib                  # the variant's library
-            kernel._CARD_PLANS.clear()
+            kernel.LIB.use(lib)                # the variant's library
             return kernel.race_card_hist(*card_args, **card_kw)
         return call
 
