@@ -26,7 +26,10 @@ Phases, one JSON line each:
               MASKED_SAT_CASES, timed at the mixed n=12 table's fast rows
               over a 65,536-trial chunk; sorted_prefix at the fast paths'
               chunks (2,097,152 x 11 values, 65,536 x 12 values and ids),
-              timed there beside torch.sort (library_ms)
+              timed there beside torch.sort (library_ms); col_sketch at
+              COL_SKETCH_CASES (the fast and classic paths' columns, Kc =
+              1..32, each tier of its plan), timed at 2,097,152 x 11 and
+              65,536 x 11
   4. masked materializing race   engine.race on the mixed n=12 table at
               8192 samples (the masked_tally path, and masked_sat for its
               three saturations), checked bit-identical
@@ -38,7 +41,8 @@ Phases, one JSON line each:
               masked_sat a chunk on the fast path)
   6. sweep    the 271-system n=11 sweep at 10^7 trials per pass, chunk
               16384, with the sweep's own checks (the race_card_hist path:
-              one launch and one fill a race chunk)
+              one launch and one fill a race chunk; the fast pass one
+              sorted_prefix and one col_sketch a chunk)
   quorum_reached   ops.quorum_reached on the n=11 race's 16384 x 11 votes
               (the tally_votes path), equal to the plain version and to
               tally_decide's reached bits
@@ -234,13 +238,16 @@ REPLACES = {
                   "jnp (gather, cumsum, argmax, gather, min)",
     "sorted_prefix": "none: src/repro/montecarlo/engine.py:204 "
                      "_topk_ascending, lax.top_k",
+    "col_sketch": "none: src/repro/montecarlo/streaming.py:352 "
+                  "_cols_card_update, plain jnp (scatter-add, where-sums, "
+                  "maxima)",
     "ssd": "src/repro/kernels/ssd_scan/kernel.py:66",
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:92",
     "rmsnorm": "src/repro/kernels/rmsnorm/kernel.py:32",
 }
 QUORUM_KERNELS = ("tally_votes", "tally_decide", "masked_tally",
                   "stream_tally_decide_hist", "race_card_hist", "masked_sat",
-                  "sorted_prefix")
+                  "sorted_prefix", "col_sketch")
 # Serving traffic: 4 requests of 1024 prompt tokens (four 256-token chunks,
 # three carried-state hand-offs a Mamba2 layer), then 32 greedy decode
 # steps.
@@ -390,6 +397,25 @@ MASKED_SAT_CASES = [
 MASKED_LARGE_S, TALLY_VOTES_LARGE_S = 65_536, 2 ** 20
 # sorted_prefix at the ffp_n11.fast_4m cell's chunk: 2,097,152 rows of 11
 SORTED_PREFIX_S = 2_097_152
+# col_sketch at the fast path's columns (its draws through sorted_prefix:
+# the ffp_n11.fast_4m chunk, the sweep's and planner's 65,536, a ragged
+# chunk), the classic path's (d0 + prefix), Kc = 1..32 drawn, and one shape
+# a tier of the launch plan needs: columns in groups (Kc = 40), one
+# column's histogram filling shared memory (precision 5e-4), histograms in
+# device memory (1e-4), the tile read from device memory (Kc = 400); and a
+# chunk with no valid trial: (name, trials, columns, valid trials,
+# precision, draws).
+COL_SKETCH_CASES = (
+    [("ffp_n11", SORTED_PREFIX_S, 11, SORTED_PREFIX_S, 0.01, "fast"),
+     ("sweep", 65_536, 11, 65_536, 0.01, "fast"),
+     ("ragged", 100_003, 11, 77_777, 0.01, "fast"),
+     ("classic", 65_536, 11, 60_000, 0.01, "classic")]
+    + [(f"Kc={k}", 20_000, k, 19_001, 0.01, "drawn") for k in range(1, 33)]
+    + [("groups", 5000, 40, 4999, 0.01, "drawn"),
+       ("one column", 3000, 3, 2999, 5e-4, "drawn"),
+       ("device memory", 3000, 2, 2900, 1e-4, "drawn"),
+       ("unstaged", 2000, 400, 1999, 0.01, "drawn"),
+       ("all invalid", 4096, 11, 0, 0.01, "drawn")])
 
 
 def only(**launches) -> dict:
@@ -642,6 +668,39 @@ def masked_sat_inputs(case, dev):
     srt = np.take_along_axis(x, perm, axis=-1)
     f = lambda a: torch.as_tensor(a).to(dev)
     return (f(srt)[..., :L], f(perm.astype(np.int64))[..., :L], f(w), f(t))
+
+
+def col_sketch_inputs(case, dev):
+    """(cols, valid) on ``dev`` and the sketch's keywords for a
+    COL_SKETCH_CASES entry.  ``fast``: the fast path's draws
+    (``engine._fast_path_draws``) through ``sorted_prefix``; ``classic``:
+    the classic path's ``d0 + prefix``; ``drawn``: sorted lognormal rows
+    around a millisecond from numpy, a tenth of the values replaced by 0,
+    1e-4 (under the 1e-2 ms floor), 3e7 (over the 1e7 clamp), the
+    undecided mark and twice it."""
+    from repro_torch.kernels.quorum_tally import ops
+    from repro_torch.montecarlo import engine, rng, streaming
+    _, S, Kc, nvalid, prec, draws = case
+    und = float(engine.UNDECIDED_MS)
+    gen = rng.generator(rng.root(S + Kc), dev)
+    if draws == "fast":
+        x = engine._fast_path_draws(gen, streaming.default_delay(), Kc, S)
+        cols = ops.sorted_prefix(x, Kc, order=False)[0]
+    elif draws == "classic":
+        d0, path = engine._classic_path_draws(
+            gen, streaming.default_delay(), Kc, S)
+        cols = d0[:, None] + ops.sorted_prefix(path, Kc, order=False)[0]
+    else:
+        r = np.random.default_rng(S * 7 + Kc)
+        x = np.sort(0.5 + np.exp(r.normal(-1.2, 0.55, (S, Kc))), axis=1)
+        special = np.array([0.0, 1e-4, 3e7, und, 2 * und])
+        pick = r.random((S, Kc)) < 0.1
+        x = np.where(pick, special[r.integers(0, 5, (S, Kc))], x)
+        cols = torch.as_tensor(x.astype(np.float32)).to(dev)
+    valid = torch.arange(S, device=dev) < nvalid
+    return (cols, valid), dict(precision=prec,
+                               bins=streaming.sketch_bins(prec),
+                               undecided_ms=und)
 
 
 def sequential_sat(sorted_x, perm, w, t, big: float):
@@ -2173,7 +2232,9 @@ def rung_launches(rungs, batches, chunk: int, regimes: bool) -> dict:
     detection and recovery saturations), and its fast pass takes one
     ``masked_sat`` a chunk, or one.  Every batch's fast pass sorts through
     one ``sorted_prefix`` a chunk, or one, and a generic race through
-    three a call.  ``batches[i]`` are rung i's members."""
+    three a call; a cardinality batch's streamed fast pass (not a regime
+    stream) sketches through one ``col_sketch`` a chunk.  ``batches[i]``
+    are rung i's members."""
     from repro_torch.frontier.score import _as_masks
     out = only()
     for r, members in zip(rungs, batches):
@@ -2185,6 +2246,8 @@ def rung_launches(rungs, batches, chunk: int, regimes: bool) -> dict:
         out["sorted_prefix"] += calls + (3 * calls if generic else 0)
         if card:
             out["tally_decide" if generic else "race_card_hist"] += calls
+            if not generic:
+                out["col_sketch"] += calls
             continue
         if generic:
             out["masked_tally"] += calls
@@ -3130,6 +3193,29 @@ def main() -> None:
         if ord_sp:
             same(sp_got[1], sp_want[1], f"sorted_prefix {case} ids")
     del sp_got, sp_want
+    # col_sketch at every shape of COL_SKETCH_CASES: histograms, undecided
+    # and valid counts and maxima equal, sums within 1e-6 of each column and
+    # the same bits over two calls
+    cs_args = {}
+    for case in COL_SKETCH_CASES:
+        (cols, valid), kw = col_sketch_inputs(case, dev)
+        if case[0] in ("ffp_n11", "sweep"):
+            cs_args[case[0]] = ((cols, valid), kw)
+        for f, x, y, z in zip(("hist", "sum_ms", "max_ms", "n_valid"),
+                              kernel.col_sketch(cols, valid, **kw),
+                              ref.col_sketch(cols, valid, **kw),
+                              kernel.col_sketch(cols, valid, **kw)):
+            what = f"col_sketch {case[0]} {f}"
+            if f == "sum_ms":
+                num = (x - y).abs()
+                if bool((num > 1e-6 * y.abs()).any()):
+                    fail(f"{what} off by more than 1e-6 relative")
+                st = stats["col_sketch"]
+                st["max_abs_err"] = max(st["max_abs_err"], float(num.max()))
+            else:
+                same(x, y.contiguous(), what)
+            same(x.view(torch.int32), z.view(torch.int32), what + " repeated")
+    del cols, valid, x, y, z
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
 
@@ -3158,6 +3244,11 @@ def main() -> None:
                                          order=False),
             lambda: ref.sorted_prefix(sp_args["ffp_n11"][0], 11,
                                       order=False)),
+        "col_sketch": (
+            lambda: kernel.col_sketch(*cs_args["ffp_n11"][0],
+                                      **cs_args["ffp_n11"][1]),
+            lambda: ref.col_sketch(*cs_args["ffp_n11"][0],
+                                   **cs_args["ffp_n11"][1])),
     }
     S11, S12, S4 = v11.shape[0], raw12["votes"].shape[0], v4.shape[0]
     p11 = card_args["sweep"][0][4].shape[0]
@@ -3174,7 +3265,13 @@ def main() -> None:
     live_sat = int((~((ws_ == 0).all(-1) & (ts_ > 0))).sum())
     # sorted_prefix: each row read once and its k-prefix written once (k = n
     # here); its operations, the network's 38 compare-exchanges a row
+    # col_sketch: the columns and the valid bytes read once, the (Kc, bins
+    # + 1) cells, sums, maxima and the valid count written once; its
+    # operations, per (trial, column) the undecided compare, the bucket's
+    # max, two divisions, log, ceil and clamp, an add and a max
+    cs_bytes = lambda S: S * 11 * 4 + S + 4 * (11 * (bins + 1) + 2 * 11 + 1)
     bytes_ = {
+        "col_sketch": cs_bytes(SORTED_PREFIX_S),
         "sorted_prefix": SORTED_PREFIX_S * 11 * 4 * 2,
         "masked_sat": (S_sat * L_sat * (4 + 8) + live_sat * 13 * 4
                        + M12 * S_sat * 4),
@@ -3201,6 +3298,7 @@ def main() -> None:
     # compare and a bucket, per fast column a bucket.
     k1, k2c, k2f = kw_c["k_sat"]
     ops_ = {
+        "col_sketch": SORTED_PREFIX_S * 11 * 9,
         "sorted_prefix": SORTED_PREFIX_S * 38,
         "masked_sat": S_sat * (live_sat * L_sat * 2 + M12),
         "tally_votes": S11 * 11 * 2,
@@ -3218,7 +3316,8 @@ def main() -> None:
               "stream_tally_decide_hist": "stream_kernel",
               "race_card_hist": ("race_card_kernel", "Memset"),
               "masked_sat": "masked_sat_kernel",
-              "sorted_prefix": "sorted_prefix_kernel"}
+              "sorted_prefix": "sorted_prefix_kernel",
+              "col_sketch": ("col_sketch_kernel", "Memset")}
     for k, (kf, pf) in timed.items():
         kms, pms = cuda_ms(kf), cuda_ms(pf)
         ops.reset_launches()
@@ -3270,7 +3369,17 @@ def main() -> None:
                                    reps=20)[0],
         plain_ms=cuda_ms(lambda: ref.sorted_prefix(x12, k12, order=True)),
         bound_ms=b_ms, bound_by="bytes")
-    del sp_args, x11, x12
+    # col_sketch at the sweep's and planner's 65,536-trial chunk
+    (c64, v64), kw64 = cs_args["sweep"]
+    cs64 = lambda: kernel.col_sketch(c64, v64, **kw64)
+    S64 = c64.shape[0]
+    b_ms = cs_bytes(S64) / HBM_BYTES_PER_S * 1e3
+    stats["col_sketch"]["sweep"] = dict(
+        shape=f"{S64}x11", ms=cuda_ms(cs64),
+        device_us=kernel_device_us(cs64, symbol["col_sketch"], reps=20)[0],
+        plain_ms=cuda_ms(lambda: ref.col_sketch(c64, v64, **kw64)),
+        bound_ms=b_ms, bound_by="bytes")
+    del sp_args, x11, x12, cs_args, c64, v64
     torch.cuda.empty_cache()
     # the least device time of a launch on this card, for scale: torch's
     # fill of a tensor of the sweep chunk's 16384 ints (64 KB written)
@@ -3365,9 +3474,10 @@ def main() -> None:
     torch.cuda.synchronize()
     launches6 = dict(ops.LAUNCHES)
     # the race through race_card_hist, the fast pass through sorted_prefix
-    # (one each a chunk of the same size)
+    # and col_sketch (one each a chunk of the same size)
     if launches6 != only(race_card_hist=SWEEP_RACE_CHUNKS,
-                         sorted_prefix=SWEEP_RACE_CHUNKS):
+                         sorted_prefix=SWEEP_RACE_CHUNKS,
+                         col_sketch=SWEEP_RACE_CHUNKS):
         fail(f"sweep launches {launches6}")
     res = sw["result"]
     with open(os.path.join(ROOT, "BENCH_baseline.json")) as fh:
@@ -3475,7 +3585,8 @@ def main() -> None:
                    "masked_race": (launches4["sorted_prefix"]
                                    + launches4c["sorted_prefix"]),
                    "mixed_batch": launches5["sorted_prefix"],
-                   "sweep": launches6["sorted_prefix"]}}
+                   "sweep": launches6["sorted_prefix"]},
+               "col_sketch": {"sweep": launches6["col_sketch"]}}
     for k, v in exper["launches"].items():
         by_path[k]["experiment"] = v
     for k, v in plan["launches"].items():

@@ -211,6 +211,43 @@
 //   position, as in the stable sort.  The k smallest go back through
 //   shared memory (stride k | 1) and leave as 16-byte stores, the ids only
 //   where the caller reads the order.  No fill, no scratch, one launch.
+//
+// col_sketch               replaces no TPU kernel: src/repro/montecarlo/
+//                          streaming.py:352 _cols_card_update is plain jnp
+//                          (a scatter-add of bucket keys, where-sums and
+//                          maxima), which the port ran as about 45 torch
+//                          launches around the (S, Kc) columns, the largest
+//                          an int32 scatter_add_ of S*Kc global atomics into
+//                          a few dozen hot buckets a column.  It is the
+//                          sketch update of the cardinality fast and classic
+//                          streams: each column's histogram, undecided
+//                          count, sum and max over the valid trials, which
+//                          each system then gathers by its column.
+//   Bound: device memory.  The columns are read once (S*Kc*4 bytes, and S
+//   valid bytes) and Kc*(bins + 1) cells written: 94.4 MB, 28.2 us, at the
+//   benchmark's fast chunk (2,097,152 x 11); the bucket expression (IEEE
+//   logf and two true divisions) is about 50 instructions an element.
+//   Design: a persistent grid, two blocks an SM at the main path's shape,
+//   each walking tiles of 512 trials; a block keeps its columns'
+//   histograms in shared memory (Kc x (bins + 1) int32, 45.7 KB at 11 x
+//   1039), a warp a column, a lane a trial, one shared-memory atomic an
+//   increment, and adds its nonzero cells to device memory once, with
+//   int32 atomics: exact in any order.  A tile comes in as one contiguous
+//   span with 16-byte asynchronous copies (a row of 11 f32 is 44 bytes; an
+//   odd row stride, padded where Kc is even, so a warp's column read hits
+//   32 banks) while the one before it is read.  A lane's sum and max take
+//   its trials in one order; a fixed tree over the lanes, the column's
+//   warps in order, then the last block (a fence and an atomic ticket)
+//   over the blocks in order, so sum_ms is the same bit for bit from call
+//   to call on one card; maxima are exact.  More columns than a block
+//   takes, or than its shared memory holds, go to further column groups;
+//   a histogram row larger than shared memory (precision near 1e-4) is
+//   counted in device memory, a warp's equal buckets merged first
+//   (__match_any_sync).  Merging them in shared memory too, as
+//   race_card_hist does, took 194.2 us a 2,097,152 x 11 chunk against
+//   138.8: the few lanes that share a bucket there are cheaper to
+//   serialize than to find.  A call is one fill (histograms, the valid
+//   count, the tickets) and one launch.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -2463,6 +2500,219 @@ static SpLaunch sp_instance(int n, std::integer_sequence<int, I...>) {
 }
 
 // ---------------------------------------------------------------------------
+// col_sketch
+// ---------------------------------------------------------------------------
+
+#define CS_WARPS 16                 // warps a block aims at, r a column
+#define CS_MAX_COLS 32              // columns a block, a warp each at least
+#define CS_MAX_U 16                 // trials a lane takes from a tile
+#define CS_TILE_SMEM (48 * 1024)    // a block's two staged tiles, at most
+#define CS_HIST_SMEM (64 * 1024)    // a block's histograms, where they fit
+
+// What one launch reads and writes.  Block (x, y) takes column group y --
+// columns [y cg, y cg + cg) of the Kc -- and the tiles of T trials x, x +
+// gridDim.x, ...  Bucket `bins` of a column's histogram row counts its
+// undecided trials.
+struct ColArgs {
+  const float* cols;            // (S, Kc), row-major
+  const unsigned char* valid;   // (S,)
+  int S, Kc, bins;
+  int cg;     // columns a block
+  int r;      // warps a column
+  int T;      // trials a tile, 32 r U
+  int P;      // row stride of the tiles staged in shared memory (Kc where
+              // it is odd, else Kc + 1); 0: read from device memory
+  int vec;    // P == Kc and cols 16-byte aligned: 16-byte copies
+  float log_g, und;
+  int* hist;      // (Kc, bins + 1), zeroed
+  int* n_valid;   // zeroed
+  int* tickets;   // one a column group, zeroed
+  float* sum;     // (Kc,)
+  float* max;     // (Kc,)
+  float2* part;   // (gridDim.x, Kc): each block's sums and maxima
+};
+
+// Stage tile t's rows into buf at row stride P with asynchronous copies:
+// 16 bytes each where the rows lie at their own stride and cols is
+// 16-byte aligned (a tile starts 128 Kc bytes after the one before it),
+// else 4 bytes each.  The caller commits and waits.
+__device__ __forceinline__ void cs_stage(const ColArgs& a, int t, float* buf,
+                                         int tid, int nt) {
+  const int Kc = a.Kc, P = a.P, s0 = t * a.T;
+  const int E = min(a.T, a.S - s0) * Kc;
+  const float* src = a.cols + (size_t)s0 * Kc;
+  if (a.vec) {
+    for (int i = tid; i < E / 4; i += nt)
+      cp_async16(buf + 4 * i, src + 4 * i, 16);
+    for (int e = (E & ~3) + tid; e < E; e += nt) cp_async4(buf + e, src + e);
+    return;
+  }
+  const int dq = nt / Kc, dr = nt - dq * Kc;
+  int row = tid / Kc, col = tid - row * Kc;
+  for (int e = tid; e < E; e += nt) {
+    cp_async4(buf + row * P + col, src + e);
+    row += dq;
+    col += dr;
+    if (col >= Kc) col -= Kc, ++row;
+  }
+}
+
+// Warp w of a block takes column w / r of its group and, of each tile, the
+// runs of 32 trials (u r + w % r) 32 + lane, u < U: a lane's trials, and so
+// its running sum, have one order for a given grid.  The next tile is
+// staged into the other of two buffers while this one is read (an odd row
+// stride: a warp reading one column of 32 rows hits 32 banks).  A valid
+// trial below und adds one to its bucket (a shared-memory atomic), its
+// value to the lane's running sum and max; at or above und it counts in
+// bucket `bins`.  At the end the block adds its nonzero cells to device
+// memory (int32 atomics: exact in any order) and writes its sums and
+// maxima, a fixed tree over each warp's lanes, then the column's r warps in
+// order; the last block of the group, found with a fence and an atomic
+// ticket, reduces the blocks' partials in block order.  GLOB: a column's
+// histogram does not fit in shared memory; the increments go to device
+// memory, those of a warp's lanes with the same bucket merged first
+// (__match_any_sync).
+template <bool GLOB>
+__global__ void __launch_bounds__(CS_MAX_COLS * 32)
+    col_sketch_kernel(const ColArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float2 red[CS_MAX_COLS];
+  __shared__ int nv, last;
+  const int H = a.bins + 1, Kc = a.Kc, P = a.P;
+  const int c0 = blockIdx.y * a.cg, ncol = min(a.cg, Kc - c0);
+  int* sh = reinterpret_cast<int*>(smem);
+  float* tiles2 = reinterpret_cast<float*>(
+      smem + (GLOB ? 0 : ((size_t)a.cg * H * 4 + 15) / 16 * 16));
+  const int tid = threadIdx.x, nt = blockDim.x, lane = tid & 31;
+  const int w = tid >> 5, cl = w / a.r, j = w - cl * a.r;
+  const bool mine = cl < ncol;
+  const int c = c0 + cl;
+  int* hc = GLOB ? a.hist + (size_t)c * H : sh + cl * H;
+  if (!GLOB)
+    for (int e = tid; e < ncol * H; e += nt) sh[e] = 0;
+  if (tid == 0) nv = 0;
+
+  float run_sum = 0.0f, run_max = -INFINITY;
+  int nvalid = 0;
+  const int U = a.T / (32 * a.r);
+  const int tiles = (a.S + a.T - 1) / a.T;
+  int b = 0;
+  if (P && blockIdx.x < tiles) cs_stage(a, blockIdx.x, tiles2, tid, nt);
+  cp_async_commit();
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x, b ^= 1) {
+    const int s0 = t * a.T, cnt = min(a.T, a.S - s0);
+    const int tn = t + gridDim.x;
+    float* tile = tiles2 + (size_t)b * a.T * P;
+    if (P && tn < tiles) cs_stage(a, tn, tiles2 + (size_t)(b ^ 1) * a.T * P,
+                                  tid, nt);
+    cp_async_commit();
+    const unsigned char* ok = a.valid + s0;
+    if (blockIdx.y == 0)
+      for (int s = tid; s < cnt; s += nt) nvalid += ok[s] != 0;
+    // the lane's valid trials of the tile, one bit a run
+    unsigned vb = 0;
+    if (mine) {
+#pragma unroll
+      for (int u = 0; u < CS_MAX_U; ++u) {
+        const int s = (u * a.r + j) * 32 + lane;
+        if (u < U && s < cnt && ok[s]) vb |= 1u << u;
+      }
+    }
+    cp_async_wait<1>();  // this thread's copies of the tile
+    __syncthreads();     // and everyone's
+    if (mine) {
+      const float* src = P ? tile : a.cols + (size_t)s0 * Kc;
+      const int stride = P ? P : Kc;
+#pragma unroll 4
+      for (int u = 0; u < U; ++u) {
+        const int s = (u * a.r + j) * 32 + lane;
+        int key = -1;  // -1: the lane adds nothing
+        if (vb >> u & 1) {
+          const float x = src[s * stride + c];
+          if (x >= a.und) {
+            key = a.bins;
+          } else {
+            key = sketch_bucket(x, a.log_g, a.bins);
+            run_sum = __fadd_rn(run_sum, x);
+            run_max = fmaxf(run_max, x);
+          }
+        }
+        if (GLOB) {
+          const unsigned peers = __match_any_sync(FULL, key);
+          if (key >= 0 && lane == __ffs(peers) - 1)
+            atomicAdd(hc + key, __popc(peers));
+        } else if (key >= 0) {
+          atomicAdd(hc + key, 1);
+        }
+      }
+    }
+    __syncthreads();  // the tile read: its buffer takes the one after next
+  }
+
+#pragma unroll
+  for (int off = 16; off; off >>= 1) {
+    run_sum = __fadd_rn(run_sum, __shfl_down_sync(FULL, run_sum, off));
+    run_max = fmaxf(run_max, __shfl_down_sync(FULL, run_max, off));
+    nvalid += __shfl_down_sync(FULL, nvalid, off);
+  }
+  if (lane == 0) {
+    red[w] = make_float2(run_sum, run_max);
+    if (nvalid) atomicAdd(&nv, nvalid);
+  }
+  __syncthreads();  // every tile counted
+  if (!GLOB)
+    for (int e = tid; e < ncol * H; e += nt) {
+      const int v = sh[e];
+      if (v) atomicAdd(a.hist + (size_t)c0 * H + e, v);
+    }
+  if (tid == 0 && nv) atomicAdd(a.n_valid, nv);
+  if (tid < ncol) {
+    float s = 0.0f, m = -INFINITY;
+    for (int q = 0; q < a.r; ++q) {
+      const float2 p = red[tid * a.r + q];
+      s = __fadd_rn(s, p.x);
+      m = fmaxf(m, p.y);
+    }
+    a.part[(size_t)blockIdx.x * Kc + c0 + tid] = make_float2(s, m);
+  }
+  __threadfence();  // the partials before the ticket
+  __syncthreads();
+  const int nbx = gridDim.x;
+  if (tid == 0) last = atomicAdd(a.tickets + blockIdx.y, 1) == nbx - 1;
+  __syncthreads();
+  if (!last) return;
+  // the last block of the group: a warp a column, lane l adding the
+  // partials of blocks l, l + 32, ... in order, eight in flight at a time,
+  // then a fixed tree over the lanes
+  for (int q = w; q < ncol; q += nt >> 5) {
+    float s = 0.0f, m = -INFINITY;
+    for (int b0 = lane; b0 < nbx; b0 += 8 * 32) {
+      float2 p[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int bb = b0 + 32 * u;
+        p[u] = bb < nbx ? __ldcg(a.part + (size_t)bb * Kc + c0 + q)
+                        : make_float2(0.0f, -INFINITY);
+      }
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        s = __fadd_rn(s, p[u].x);
+        m = fmaxf(m, p[u].y);
+      }
+    }
+#pragma unroll
+    for (int off = 16; off; off >>= 1) {
+      s = __fadd_rn(s, __shfl_down_sync(FULL, s, off));
+      m = fmaxf(m, __shfl_down_sync(FULL, m, off));
+    }
+    if (lane == 0) {
+      a.sum[c0 + q] = s;
+      a.max[c0 + q] = m;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // C entry points (ctypes).  Pointers and the stream arrive as void*.
 // ---------------------------------------------------------------------------
 
@@ -2812,6 +3062,105 @@ int qt_sorted_prefix(const void* x, long long S, int n, int k, int vec,
       ids ? sp_instance<true>(n, all) : sp_instance<false>(n, all);
   launch((unsigned)blocks, (cudaStream_t)stream, (const float*)x, S, k, vec,
          (float*)vals, (long long*)ids);
+  return (int)cudaGetLastError();
+}
+
+// The launch plan of col_sketch for Kc columns of bins + 1 cells: out =
+// {columns a block, warps a column, trials a tile, row stride of the staged
+// tile (0: read from device memory), dynamic shared memory, blocks the card
+// holds at once, histograms in device memory}.  A block takes up to
+// CS_MAX_COLS columns whose histograms fit CS_HIST_SMEM (one column up to
+// the whole of shared memory; past that the histograms stay in device
+// memory), the column groups as even as can be, and CS_WARPS warps where
+// that leaves one or more a column; a tile as many trials as let two
+// tiles fit CS_TILE_SMEM, up to CS_MAX_U a lane (none fit: the trials are
+// read from device memory).  Returns a CUDA error code.
+int qt_col_plan(int Kc, int bins, long long* out) {
+  if (Kc < 1 || bins < 1) return (int)cudaErrorInvalidValue;
+  const long long hb = 4LL * (bins + 1);
+  long long cg = Kc < CS_MAX_COLS ? Kc : CS_MAX_COLS;
+  bool glob = false;
+  if (CS_HIST_SMEM / hb < cg) {
+    if (CS_HIST_SMEM / hb >= 1)
+      cg = CS_HIST_SMEM / hb;
+    else if (hb + 16 <= ST_MAX_SMEM)
+      cg = 1;
+    else
+      glob = true;
+  }
+  const long long groups = (Kc + cg - 1) / cg;
+  cg = (Kc + groups - 1) / groups;
+  const long long r = CS_WARPS / cg > 1 ? CS_WARPS / cg : 1;
+  const long long hist = glob ? 0 : (cg * hb + 15) / 16 * 16;
+  const long long P = Kc | 1;
+  long long room = ST_MAX_SMEM - hist;
+  if (room > CS_TILE_SMEM) room = CS_TILE_SMEM;
+  long long U = room / (2 * 32 * r * P * 4);
+  if (U > CS_MAX_U) U = CS_MAX_U;
+  const bool staged = U >= 1;
+  if (!staged) U = CS_MAX_U;
+  const int threads = (int)(cg * r * 32);
+  const int smem = (int)(hist + (staged ? 2 * 32 * r * U * P * 4 : 0));
+  void (*kern)(ColArgs) =
+      glob ? col_sketch_kernel<true> : col_sketch_kernel<false>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, ST_MAX_SMEM);
+  int per_sm = 0, dev = 0, sms = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads,
+                                                      smem);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = cg;
+  out[1] = r;
+  out[2] = 32 * r * U;
+  out[3] = staged ? P : 0;
+  out[4] = smem;
+  out[5] = (long long)(per_sm > 0 ? per_sm : 1) * sms;
+  out[6] = glob;
+  return 0;
+}
+
+// The column sketch of S trials' Kc latency columns (cols, row-major f32)
+// over the valid ones, with the plan's (cg, r, T, P, smem, glob) and nbx
+// blocks a column group: hist (Kc, bins + 1), n_valid and the tickets lie
+// together from hist on (zero_bytes, the one fill); sum and max (Kc,);
+// part (nbx, Kc) float2, not zeroed.
+int qt_col_sketch(const void* cols, const void* valid, int S, int Kc,
+                  int bins, float log_g, float undecided_ms, int cg, int r,
+                  int T, int P, int smem, int glob, int nbx,
+                  long long zero_bytes, void* hist, void* n_valid,
+                  void* tickets, void* sum, void* max, void* part,
+                  void* stream) {
+  ColArgs a;
+  a.cols = (const float*)cols;
+  a.valid = (const unsigned char*)valid;
+  a.S = S;
+  a.Kc = Kc;
+  a.bins = bins;
+  a.cg = cg;
+  a.r = r;
+  a.T = T;
+  a.P = P;
+  a.vec = P == Kc && (uintptr_t)cols % 16 == 0;
+  a.log_g = log_g;
+  a.und = undecided_ms;
+  a.hist = (int*)hist;
+  a.n_valid = (int*)n_valid;
+  a.tickets = (int*)tickets;
+  a.sum = (float*)sum;
+  a.max = (float*)max;
+  a.part = (float2*)part;
+  cudaStream_t st = (cudaStream_t)stream;
+  const cudaError_t e = cudaMemsetAsync(hist, 0, (size_t)zero_bytes, st);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(nbx, (Kc + cg - 1) / cg);
+  if (glob)
+    col_sketch_kernel<true><<<grid, cg * r * 32, smem, st>>>(a);
+  else
+    col_sketch_kernel<false><<<grid, cg * r * 32, smem, st>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -1,6 +1,6 @@
 """Hopper kernels for the quorum tally, bound with ctypes.
 
-``csrc/quorum_tally.cu`` holds seven CUDA C++ kernels for ``sm_90a``; its
+``csrc/quorum_tally.cu`` holds eight CUDA C++ kernels for ``sm_90a``; its
 header says which TPU kernel each replaces, what bounds it on the card and
 what its design does about that.  ``LIB`` (``kernels/_build.py``) compiles
 the source with ``nvcc`` on first use into ``build/`` beside this file
@@ -57,11 +57,14 @@ SIGNATURES = {
     "qt_masked_sat": ([_P] * 5 + [_L] * 4 + [_I] * 9 + [_F] + [_I] * 3
                       + [_P], _I),
     "qt_sorted_prefix": ([_P, _L, _I, _I, _I, _P, _P, _P], _I),
+    "qt_col_plan": ([_I, _I, _L * 7], _I),
+    "qt_col_sketch": ([_P, _P, _I, _I, _I, _F, _F] + [_I] * 7 + [_L]
+                      + [_P] * 7, _I),
 }
 
 LIB = _build.Library(SOURCE, "quorum_tally", SIGNATURES, (
     "tally_votes", "tally_decide", "masked_tally", "stream_tally_decide_hist",
-    "race_card_hist", "masked_sat", "sorted_prefix"))
+    "race_card_hist", "masked_sat", "sorted_prefix", "col_sketch"))
 LAUNCHES = LIB.LAUNCHES
 reset_launches = LIB.reset_launches
 build = LIB.build
@@ -408,3 +411,49 @@ def sorted_prefix(x: torch.Tensor, k: int, *, order: bool) -> tuple:
                    S, n, k, int(x.data_ptr() % 16 == 0), vals.data_ptr(),
                    None if ids is None else ids.data_ptr())
     return vals, ids
+
+
+def col_sketch(cols: torch.Tensor, valid: torch.Tensor, *, precision: float,
+               bins: int, undecided_ms: float) -> tuple:
+    """The column sketch of one chunk (shapes and semantics of
+    ``ref.col_sketch``): cols (S, Kc) contiguous f32, valid (S,) bool, any
+    S and Kc, in one launch after one fill.  The outputs are views of one
+    buffer; histograms, counts and maxima are exact, and the sums reduce
+    per-block partials in a fixed order, so they are the same bit for bit
+    from call to call."""
+    if cols.dim() != 2:
+        raise ValueError(f"cols must be (S, Kc), got {tuple(cols.shape)}")
+    _require_cuda(cols)
+    S, Kc = cols.shape
+    dev = cols.device
+    _build.check(cols, "cols", torch.float32, (S, Kc), dev)
+    _build.check(valid, "valid", torch.bool, (S,), dev)
+    if not 1 <= Kc <= 65535 or S >= 2 ** 31:
+        raise ValueError(f"col_sketch takes 1 <= Kc <= 65535 columns and "
+                         f"S < 2^31 trials, got Kc={Kc}, S={S}")
+    if bins < 1:
+        raise ValueError(f"col_sketch takes bins >= 1, got {bins}")
+    # (columns a block, warps a column, trials a tile, row stride of the
+    # staged tile, shared memory, blocks the card holds at once,
+    # histograms in device memory)
+    cg, r, tile, P, smem, blocks, glob = LIB.plan(
+        "col_sketch", "qt_col_plan", dev, (Kc, bins))
+    groups = -(-Kc // cg)
+    nbx = max(1, min(-(-S // tile), blocks // groups))
+    H = bins + 1
+    # one buffer: the histograms, the valid count and a ticket a column
+    # group (zeroed by the C entry point); then the sums, the maxima and
+    # the per-block partials (a sum and a max a column, 8-byte aligned).
+    nz = Kc * H + 1 + groups
+    at = nz + nz % 2
+    buf = torch.empty(at + 2 * Kc + 2 * nbx * Kc, dtype=torch.int32,
+                      device=dev)
+    p = buf.data_ptr()
+    LIB.launch("col_sketch", "qt_col_sketch", dev, cols.data_ptr(),
+               valid.data_ptr(), S, Kc, bins, _log_gamma(precision),
+               float(undecided_ms), cg, r, tile, P, smem, glob, nbx, 4 * nz,
+               p, p + 4 * Kc * H, p + 4 * (Kc * H + 1), p + 4 * at,
+               p + 4 * (at + Kc), p + 4 * (at + 2 * Kc))
+    f32 = torch.float32
+    return (buf[:Kc * H].view(Kc, H), buf[at:at + Kc].view(f32),
+            buf[at + Kc:at + 2 * Kc].view(f32), buf[Kc * H])

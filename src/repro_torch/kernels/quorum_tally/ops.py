@@ -21,8 +21,8 @@ def launch_plans() -> int:
     """What the kernels have built for reuse so far in this process: the
     loaded library (one) plus the launch plans kept per kind, device and
     shape (``masked_tally``'s, ``stream_tally_decide_hist``'s,
-    ``race_card_hist``'s and ``masked_sat``'s).  0 where no kernel ran, as
-    on the CPU."""
+    ``race_card_hist``'s, ``masked_sat``'s and ``col_sketch``'s).  0
+    where no kernel ran, as on the CPU."""
     return kernel.LIB.built()
 
 
@@ -81,6 +81,16 @@ def sorted_prefix(x: torch.Tensor, k: int, *, order: bool) -> tuple:
         return kernel.sorted_prefix(x, k, order=order)
     ref.check_sorted_prefix(x, k)
     return ref.sorted_prefix(x, k, order=order)
+
+
+def col_sketch(cols: torch.Tensor, valid: torch.Tensor, *, precision: float,
+               bins: int, undecided_ms: float) -> tuple:
+    """Each of the (S, Kc) latency columns' histogram and undecided count
+    (Kc, bins + 1), f32 sum and max over the decided valid trials, and the
+    valid count (``ref.col_sketch``)."""
+    fn = kernel.col_sketch if _on_card(cols) else ref.col_sketch
+    return fn(cols, valid, precision=precision, bins=bins,
+              undecided_ms=undecided_ms)
 
 
 def stream_tally_decide_hist(votes, val_arr, arrive, classic, w1, t1, w2c,

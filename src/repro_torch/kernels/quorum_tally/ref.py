@@ -98,6 +98,30 @@ def check_sorted_prefix(x: torch.Tensor, k: int) -> None:
                          f"got k={k}")
 
 
+def col_sketch(cols: torch.Tensor, valid: torch.Tensor, *, precision: float,
+               bins: int, undecided_ms: float) -> tuple:
+    """Plain version of the column-sketch kernel: the sketch of a chunk's
+    shared latency columns over its valid trials.
+
+    cols (S, Kc) f32, valid (S,) bool.  A valid trial at or above
+    ``undecided_ms`` counts as undecided in its column; one below it adds
+    its bucket, its value to the column's sum and its max.  Returns ``(LH,
+    col_sum, col_max, n_valid)``: LH (Kc, bins + 1) int32, bucket counts of
+    the decided valid trials and in bucket ``bins`` the undecided ones;
+    col_sum / col_max (Kc,) f32 (-inf where none); n_valid () int32."""
+    B = bins
+    Kc = cols.shape[1]
+    und = cols >= undecided_ms
+    bkey = torch.where(und, B, bucket_index(cols, precision).long())
+    bkey = torch.where(valid[:, None], bkey, B + 1)
+    flat = torch.arange(Kc, device=cols.device)[None, :] * (B + 2) + bkey
+    LH = occurrences(flat, Kc * (B + 2)).reshape(Kc, B + 2)
+    ok = valid[:, None] & ~und
+    col_sum = torch.where(ok, cols, 0.0).sum(dim=0)
+    col_max = torch.where(ok, cols, -math.inf).amax(dim=0)
+    return LH[:, :B + 1], col_sum, col_max, valid.sum().to(torch.int32)
+
+
 def masked_sat(sorted_x: torch.Tensor, perm: torch.Tensor, w: torch.Tensor,
                t: torch.Tensor, *, big: float) -> torch.Tensor:
     """Earliest instant some quorum row of each system saturates.

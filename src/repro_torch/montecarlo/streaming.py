@@ -18,6 +18,7 @@ Per chunk, the loop picks one lowering from what it can observe:
   cardinality table ("q") + k_max   sort-free shared-column reductions:
                                     ``_race_card_update`` (race_card_hist
                                     kernel) / ``_cols_card_update``
+                                    (col_sketch kernel)
   masked table, race, k_max         ``_race_fused_update``: the raw chunk
                                     goes through the fused
                                     stream_tally_decide_hist kernel
@@ -290,26 +291,22 @@ def _cols_card_update(state: StreamSummary, cols: torch.Tensor,
                       col_of_m: torch.Tensor, valid: torch.Tensor, *,
                       fast: bool) -> StreamSummary:
     """Absorb a chunk whose per-system latency is one of ``Kc`` shared
-    columns, ``lat[m, c] = cols[c, col_of_m[m]]``: one (Kc, bins) histogram
-    plus per-column sum / max, then a gather per system."""
+    columns, ``lat[m, c] = cols[c, col_of_m[m]]``: the columns' sketch --
+    a (Kc, bins + 1) histogram with the undecided counts, per-column sum
+    and max -- in one ``col_sketch`` call (its kernel on the card), then a
+    gather per system."""
     with tracing.span(tracing.SKETCH):
         B = state.bins
-        Kc = cols.shape[1]
-        und = cols >= UNDECIDED_MS
-        bkey = torch.where(und, B, bucket_index(cols, state.precision).long())
-        bkey = torch.where(valid[:, None], bkey, B + 1)
-        flat = torch.arange(Kc, device=cols.device)[None, :] * (B + 2) + bkey
-        LH = occurrences(flat, Kc * (B + 2)).reshape(Kc, B + 2)
+        LH, col_sum, col_max, n_valid = qt_ops.col_sketch(
+            cols.contiguous(), valid, precision=state.precision, bins=B,
+            undecided_ms=float(UNDECIDED_MS))
         col_of_m = col_of_m.long()
         rows = LH[col_of_m]
         hist = rows[:, :B]
         n_und = rows[:, B]
         n_dec = hist.sum(dim=-1, dtype=torch.int32)
-        ok = valid[:, None] & ~und
-        col_sum = torch.where(ok, cols, 0.0).sum(dim=0)
-        col_max = torch.where(ok, cols, -math.inf).amax(dim=0)
         zero = torch.zeros_like(n_dec)
-        n_valid = valid.sum().to(torch.int32).expand(col_of_m.shape)
+        n_valid = n_valid.expand(col_of_m.shape)
         return state._absorb(
             n_trials=n_valid, n_fast=n_dec if fast else zero,
             n_recovery=zero if fast else n_dec, n_undecided=n_und,

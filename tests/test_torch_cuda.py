@@ -41,10 +41,10 @@ from repro_torch.models import model as model_mod
 from repro_torch.models.ssm import ssd_chunked
 from repro_torch.montecarlo import streaming
 
-from chip_smoke import (MASKED_CASES, MASKED_SAT_CASES, RACE_CARD_CASES,
-                        TALLY_VOTES_CASES, masked_inputs, masked_sat_inputs,
-                        race_card_inputs, sequential_sat, ssd_test_inputs,
-                        stream_test_inputs)
+from chip_smoke import (COL_SKETCH_CASES, MASKED_CASES, MASKED_SAT_CASES,
+                        RACE_CARD_CASES, TALLY_VOTES_CASES, col_sketch_inputs,
+                        masked_inputs, masked_sat_inputs, race_card_inputs,
+                        sequential_sat, ssd_test_inputs, stream_test_inputs)
 
 BINS = streaming.sketch_bins(0.01)
 
@@ -267,7 +267,7 @@ def test_stream_kernel_one_launch_per_call(cuda):
     assert ops.LAUNCHES == {"tally_votes": 0, "tally_decide": 0,
                             "masked_tally": 0, "stream_tally_decide_hist": 1,
                             "race_card_hist": 0, "masked_sat": 0,
-                            "sorted_prefix": 0}
+                            "sorted_prefix": 0, "col_sketch": 0}
 
 
 def test_ops_launch_on_cuda_and_count(cuda):
@@ -280,7 +280,7 @@ def test_ops_launch_on_cuda_and_count(cuda):
     assert ops.LAUNCHES == {"tally_votes": 1, "tally_decide": 1,
                             "masked_tally": 1, "stream_tally_decide_hist": 0,
                             "race_card_hist": 0, "masked_sat": 0,
-                            "sorted_prefix": 0}
+                            "sorted_prefix": 0, "col_sketch": 0}
 
 
 @pytest.mark.parametrize("S,n,M,G,K,tier", [
@@ -396,7 +396,7 @@ def test_card_race_chunk_is_one_launch(cuda):
     assert ops.LAUNCHES == {"tally_votes": 0, "tally_decide": 0,
                             "masked_tally": 0, "stream_tally_decide_hist": 0,
                             "race_card_hist": 3, "masked_sat": 0,
-                            "sorted_prefix": 0}
+                            "sorted_prefix": 0, "col_sketch": 0}
     names = [e.key.lower() for e in prof.key_averages()]
     assert not [k for k in names if "sort" in k or "scatter" in k
                 or "tally_decide" in k], names
@@ -525,36 +525,111 @@ def test_masked_fast_path_stream_one_launch_a_chunk(cuda):
     assert torch.allclose(got.mean_ms, want.mean_ms, rtol=1e-5, atol=0.0)
 
 
-def test_card_fast_path_stream_sorts_through_sorted_prefix(cuda):
-    """The card fast path's stream on the cardinality n = 11 table
-    launches sorted_prefix once a chunk, no other quorum kernel and no
-    sort, and equals the stream on the plain versions (torch.sort):
-    integers and max_ms equal, means to 1e-5."""
+def _card_cols_stream(cuda, path):
+    """The card ``path`` stream on the cardinality n = 11 table: its
+    launches, the profiler's kernel names, and the summaries with the
+    kernels and with the plain versions."""
     from torch.profiler import ProfilerActivity, profile
     from chip_smoke import plain_quorum_kernels
     from repro_torch.frontier import cardinality_family
     from repro_torch.montecarlo import engine, rng
     table = engine.build_mask_table([m.masks() for m in
                                      cardinality_family(11)], device=cuda)
-    run = lambda: streaming.fast_path_stream(
-        rng.root(6), table, n=11, trials=300_000, chunk=65_536, shard=False)
+    entry = (streaming.fast_path_stream if path == "fast"
+             else streaming.classic_path_stream)
+    run = lambda: entry(rng.root(6), table, n=11, trials=300_000,
+                        chunk=65_536, shard=False)
     run()
     ops.reset_launches()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         got = run()
         torch.cuda.synchronize()
-    assert ops.LAUNCHES == {k: 5 if k == "sorted_prefix" else 0
-                            for k in ops.LAUNCHES}
+    launches = dict(ops.LAUNCHES)
     names = [e.key.lower() for e in prof.key_averages()]
-    assert [k for k in names if "sorted_prefix_kernel" in k], names
-    assert not [k for k in names if "sort" in k
-                and "sorted_prefix_kernel" not in k], names
     with plain_quorum_kernels():
         want = run()
+    return launches, names, got, want
+
+
+def test_card_fast_path_stream_sorts_through_sorted_prefix(cuda):
+    """The card fast path's stream on the cardinality n = 11 table
+    launches sorted_prefix and col_sketch once a chunk, no other quorum
+    kernel, no sort and no scatter, and equals the stream on the plain
+    versions (torch.sort, the scatter-add sketch): integers and max_ms
+    equal, means to 1e-5."""
+    launches, names, got, want = _card_cols_stream(cuda, "fast")
+    assert launches == {k: 5 if k in ("sorted_prefix", "col_sketch") else 0
+                        for k in launches}
+    assert [k for k in names if "sorted_prefix_kernel" in k], names
+    assert [k for k in names if "col_sketch_kernel" in k], names
+    assert not [k for k in names if "sort" in k
+                and "sorted_prefix_kernel" not in k], names
+    assert not [k for k in names if "scatter" in k], names
     for f in ("n_trials", "n_fast", "n_recovery", "n_undecided", "hist",
               "max_ms"):
         assert torch.equal(getattr(got, f), getattr(want, f)), f
     assert torch.allclose(got.mean_ms, want.mean_ms, rtol=1e-5, atol=0.0)
+
+
+def test_card_classic_path_stream_sketches_through_col_sketch(cuda):
+    """The card classic path's stream (columns d0 + prefix) launches
+    sorted_prefix and col_sketch once a chunk and no scatter, and equals
+    the stream on the plain versions: integers and max_ms equal, means to
+    1e-5."""
+    launches, names, got, want = _card_cols_stream(cuda, "classic")
+    assert launches == {k: 5 if k in ("sorted_prefix", "col_sketch") else 0
+                        for k in launches}
+    assert [k for k in names if "col_sketch_kernel" in k], names
+    assert not [k for k in names if "scatter" in k], names
+    for f in ("n_trials", "n_fast", "n_recovery", "n_undecided", "hist",
+              "max_ms"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert not bool(got.n_fast.any()) and bool(got.n_recovery.all())
+    assert torch.allclose(got.mean_ms, want.mean_ms, rtol=1e-5, atol=0.0)
+
+
+@pytest.mark.parametrize("case", COL_SKETCH_CASES, ids=lambda c: c[0])
+def test_col_sketch_kernel_equals_plain_version(cuda, case):
+    """The column sketch at the fast path's 2,097,152 x 11 and 65,536 x 11
+    columns, a ragged chunk, the classic path's, Kc = 1..32 and each tier
+    of the launch plan: histograms, undecided and valid counts and maxima
+    equal to the plain version's; sums the same bits on two calls and
+    within 1e-6 relative; one launch a call."""
+    (cols, valid), kw = col_sketch_inputs(case, cuda)
+    Kc = cols.shape[1]
+    cg, _, _, P, _, _, glob = kernel.LIB.plan(
+        "col_sketch", "qt_col_plan", cuda, (Kc, kw["bins"]))
+    tier = {"groups": -(-Kc // cg) > 1,
+            "one column": cg == 1 and (kw["bins"] + 1) * 4 > 64 * 1024
+            and not glob,
+            "device memory": bool(glob), "unstaged": P == 0}
+    if case[0] in tier:
+        assert tier[case[0]], (case[0], (cg, P, glob))
+    ops.reset_launches()
+    got = ops.col_sketch(cols, valid, **kw)
+    assert ops.LAUNCHES["col_sketch"] == 1
+    again = kernel.col_sketch(cols, valid, **kw)
+    LH, s, m, nv = ref.col_sketch(cols, valid, **kw)
+    assert torch.equal(got[0], LH)
+    assert torch.equal(got[2], m)
+    assert int(got[3]) == int(nv) == case[3]
+    assert torch.equal(got[1].view(torch.int32), again[1].view(torch.int32))
+    assert bool(((got[1] - s).abs() <= 1e-6 * s.abs()).all()), (got[1], s)
+
+
+def test_col_sketch_wrapper_refuses(cuda):
+    x = torch.zeros((64, 11), device=cuda)
+    valid = torch.ones(64, dtype=torch.bool, device=cuda)
+    kw = dict(precision=0.01, bins=BINS, undecided_ms=5e8)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernel.col_sketch(torch.zeros((11, 64), device=cuda).T, valid, **kw)
+    with pytest.raises(ValueError, match="dtype"):
+        kernel.col_sketch(x.double(), valid, **kw)
+    with pytest.raises(ValueError, match="shape"):
+        kernel.col_sketch(x, valid[:63], **kw)
+    with pytest.raises(ValueError, match="Kc"):
+        kernel.col_sketch(torch.zeros((4, 0), device=cuda),
+                          valid[:4], **kw)
 
 
 @pytest.mark.parametrize("S,n,V", [(64, 5, 9), (64, 129, 2)])

@@ -21,7 +21,7 @@ SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
 LAUNCH_KEYS = {
     "quorum_tally": ("tally_votes", "tally_decide", "masked_tally",
                      "stream_tally_decide_hist", "race_card_hist",
-                     "masked_sat", "sorted_prefix"),
+                     "masked_sat", "sorted_prefix", "col_sketch"),
     "ssd_scan": ("ssd", "ssd_tc"),
     "flash_attention": ("flash_attention", "flash_attention_tc"),
     "rmsnorm": ("rmsnorm",),
